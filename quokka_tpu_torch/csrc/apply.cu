@@ -1,0 +1,117 @@
+// K3: pointwise finish of one RK stage.
+//
+// Replaces quokka_tpu/hydro/pallas_sweep.py::apply_update_pallas (the
+// pallas_call at :1409, body :1326-1397). Per cell:
+//   rhs   = div_0 + div_1 + div_2 (sorted-axis order), dv likewise;
+//   rhs[EINT] -= P(Ug0) * dv                  (PdV source);
+//   U_try = U + dt * rhs;
+//   count U_try as invalid (non-positive rho or E - KE, or non-finite),
+//     BEFORE any floor;
+//   EnforceLimits (density floor, optional temperature floor);
+//   SyncDualEnergy.
+// dt is read from device memory, so a step whose dt was computed on the
+// card needs no host round trip to launch this kernel.
+//
+// Validity: an int32 count of invalid cells, kept with atomicAdd. Callers
+// use only "any invalid" to gate the FOFC fallback. The JAX kernel keeps
+// per-(8 x 8 x Z)-block flags instead, so the n_fofc statistic of the port
+// counts cells, where the TPU path counted blocks.
+//
+// Design: one thread per cell, z fastest; every load and store is
+// coalesced, and the atomic fires only on an invalid cell (rare). Nothing
+// but the finished state reaches DRAM.
+//
+// Bound on the H100: bytes. Per cell it reads U, Ug0 and three divergences
+// (5 x 6 floats) plus three dvel values and writes 6 floats: 156 B against
+// ~80 flops. Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit:
+// 0.72-0.77 ms at 256^3, 3.4-3.7 TB/s of those bytes, at the DRAM roof
+// (some inputs are still in L2 from the sweep that wrote them).
+#include "common.cuh"
+
+namespace qk {
+
+__global__ void apply_kernel(const float* __restrict__ U,
+                             const float* __restrict__ Ug0,
+                             const float* __restrict__ d0,
+                             const float* __restrict__ d1,
+                             const float* __restrict__ d2,
+                             const float* __restrict__ v0,
+                             const float* __restrict__ v1,
+                             const float* __restrict__ v2,
+                             const float* __restrict__ dt_ptr,
+                             float* __restrict__ out, int* __restrict__ n_bad,
+                             int64_t ncell, float density_floor,
+                             float temperature_floor, float c_v, float gm1,
+                             int dual_energy) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ncell) return;
+  const float dt = *dt_ptr;
+
+  float rhs[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    rhs[c] = (d0[c * ncell + i] + d1[c * ncell + i]) + d2[c * ncell + i];
+  const float dv = (v0[i] + v1[i]) + v2[i];
+
+  // PdV source on the EINT slot (euler.pressure of the stage's input state)
+  const float g_rho = Ug0[i];
+  const float g1 = Ug0[ncell + i], g2 = Ug0[2 * ncell + i],
+              g3 = Ug0[3 * ncell + i];
+  const float g_ke = (0.5f * ((g1 * g1 + g2 * g2) + g3 * g3)) / g_rho;
+  const float P = gm1 * (Ug0[4 * ncell + i] - g_ke);
+  rhs[5] = rhs[5] - P * dv;
+
+  float u[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) u[c] = U[c * ncell + i] + dt * rhs[c];
+
+  // validity of the raw update (euler.is_state_valid), before the floors
+  bool ok = u[0] > 0.0f;
+  const float ke_t = (0.5f * ((u[1] * u[1] + u[2] * u[2]) + u[3] * u[3])) /
+                     (ok ? u[0] : 1.0f);
+  ok = ok && ((u[4] - ke_t) > 0.0f);
+#pragma unroll
+  for (int c = 0; c < NV; ++c) ok = ok && isfinite(u[c]);
+  if (!ok) atomicAdd(n_bad, 1);
+
+  // EnforceLimits
+  const float rho_new = mx(u[0], density_floor);
+  u[0] = rho_new;
+  if (temperature_floor > 0.0f) {
+    const float ke = (0.5f * ((u[1] * u[1] + u[2] * u[2]) + u[3] * u[3])) /
+                     rho_new;
+    const float eint_floor = (rho_new * c_v) * temperature_floor;
+    u[4] = ke + mx(u[4] - ke, eint_floor);
+    u[5] = mx(u[5], eint_floor);
+  }
+
+  // SyncDualEnergy
+  if (dual_energy) {
+    const float ke = (0.5f * ((u[1] * u[1] + u[2] * u[2]) + u[3] * u[3])) /
+                     u[0];
+    const float etot = u[4];
+    const float eint_cons = etot - ke;
+    const bool use_cons = eint_cons > (float)1.0e-3 * etot;
+    const float eint_old = u[5];
+    u[5] = use_cons ? eint_cons : eint_old;
+    u[4] = use_cons ? etot : eint_old + ke;
+  }
+
+#pragma unroll
+  for (int c = 0; c < NV; ++c) out[c * ncell + i] = u[c];
+}
+
+}  // namespace qk
+
+extern "C" int qk_apply(const float* U, const float* Ug0, const float* d0,
+                        const float* d1, const float* d2, const float* v0,
+                        const float* v1, const float* v2, const float* dt,
+                        float* out, int* n_bad, long long ncell,
+                        float density_floor, float temperature_floor,
+                        float c_v, float gm1, int dual_energy, void* stream) {
+  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
+  qk::apply_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
+      U, Ug0, d0, d1, d2, v0, v1, v2, dt, out, n_bad, ncell, density_floor,
+      temperature_floor, c_v, gm1, dual_energy);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,120 @@
+// Shared device helpers for the hydro kernels (K1 transverse.cu, K2 sweep.cu,
+// K3 apply.cu).
+//
+// Layout: the state is [6, X, Y, Z] f32, contiguous, z fastest, exactly as
+// the JAX package keeps it. All offsets are 64-bit: 6 x 1024^3 elements
+// already overflow int32.
+//
+// Rounding: every expression keeps the operation order of the JAX package
+// and of the plain PyTorch versions in hydro/sweep.py. The library is built
+// with -fmad=false and without fast math (IEEE division and sqrtf), so each
+// product and sum is rounded on its own, as each PyTorch op rounds its
+// result. Scalar constants are double expressions cast to float, which is
+// what a Python float does when it meets an f32 tensor.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace qk {
+
+constexpr int NV = 6;  // RHO, MX1, MX2, MX3, EGAS, EINT
+constexpr int BC_PERIODIC = 0;
+constexpr int BC_REFLECT = 1;
+constexpr int THREADS = 256;
+
+// Gamma-law constants, each rounded once from its double expression.
+struct Eos {
+  float gamma;    // gamma
+  float gm1;      // gamma - 1
+  float inv_gm1;  // 1 / (gamma - 1)
+  float s_n;      // 0.5 * (gamma + 1) / 2: Rider wavespeed correction factor
+  int reconstruct_eint;
+};
+
+// NaN-propagating min/max (jnp.minimum / torch.minimum semantics; fminf
+// would drop a NaN operand).
+__device__ __forceinline__ float mn(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float mx(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float sgn(float a) {
+  return a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : a);
+}
+
+// Cell index along a sweep axis of length n, through the wall map:
+// periodic wraps, reflect mirrors (ghost g_j = cell j on the lo side, cell
+// n-1-j on the hi side) and sets `flip` (the normal velocity or momentum
+// changes sign). |c| stays within 4 of the domain, and n >= 4.
+__device__ __forceinline__ int64_t map_cell(int64_t c, int64_t n, int lo,
+                                            int hi, bool& flip) {
+  flip = false;
+  if (c < 0) {
+    if (lo == BC_PERIODIC) return c + n;
+    flip = true;
+    return -1 - c;
+  }
+  if (c >= n) {
+    if (hi == BC_PERIODIC) return c - n;
+    flip = true;
+    return 2 * n - 1 - c;
+  }
+  return c;
+}
+
+// Conserved -> primitive in registers (euler.cons_to_prim).
+__device__ __forceinline__ void cons_to_prim(float q[NV], const Eos& e) {
+  const float rho = q[0];
+  const float inv_rho = 1.0f / rho;
+  const float vx = q[1] * inv_rho;
+  const float vy = q[2] * inv_rho;
+  const float vz = q[3] * inv_rho;
+  const float ke = (0.5f * rho) * ((vx * vx + vy * vy) + vz * vz);
+  const float eint_cons = q[4] - ke;
+  q[1] = vx;
+  q[2] = vy;
+  q[3] = vz;
+  if (e.reconstruct_eint) {
+    q[4] = eint_cons * inv_rho;
+    q[5] = q[5] * inv_rho;
+  } else {
+    q[4] = e.gm1 * eint_cons;
+  }
+}
+
+// Primitive state of the cell at sweep coordinate c (through the wall map)
+// and transverse base offset `base`; `stride` is the sweep axis stride.
+__device__ __forceinline__ void load_prim(const float* __restrict__ Q,
+                                          int64_t ncell, int64_t base,
+                                          int64_t stride, int64_t c, int64_t n,
+                                          int lo, int hi, int axis,
+                                          int is_cons, const Eos& e,
+                                          float q[NV]) {
+  bool flip;
+  const int64_t off = base + map_cell(c, n, lo, hi, flip) * stride;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) q[v] = Q[v * ncell + off];
+  if (flip) q[1 + axis] = -q[1 + axis];
+  if (is_cons) cons_to_prim(q, e);
+}
+
+// A 3D field (chi, dmin) at sweep coordinate c: wall ghosts are even.
+__device__ __forceinline__ float load_field(const float* __restrict__ A,
+                                            int64_t base, int64_t stride,
+                                            int64_t c, int64_t n, int lo,
+                                            int hi) {
+  bool flip;
+  return A[base + map_cell(c, n, lo, hi, flip) * stride];
+}
+
+// Decompose a linear index over extents (E0, E1, E2), z fastest.
+__device__ __forceinline__ void unravel(int64_t idx, int64_t E1, int64_t E2,
+                                        int64_t co[3]) {
+  co[2] = idx % E2;
+  co[1] = (idx / E2) % E1;
+  co[0] = idx / (E2 * E1);
+}
+
+}  // namespace qk

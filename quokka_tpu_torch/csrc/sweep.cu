@@ -1,0 +1,422 @@
+// K2: one hydro sweep along one axis -- face fluxes, face velocities and
+// their divergence.
+//
+// Replaces quokka_tpu/hydro/pallas_sweep.py::compute_axis_flux_pallas (the
+// pallas_call at :1148, body _sweep_body :314) for the variants the unigrid
+// main path runs: wall (reflect) or periodic axes, the divergence outputs
+// (dx_axis), the stage-2 time average (avg_with), conserved input
+// (state_is_cons) and the first-order FOFC fluxes (donor cell + LLF).
+//
+// face kernel: one thread per (face, transverse position), z fastest. Face
+//   slot f lies between cells f-1 and f; on a wall axis slot n (the hi
+//   wall) goes to the separate flux_hi / vel_hi planes. The thread reads
+//   cells f-3..f+2 through the wall index map (common.cuh), converts them
+//   to primitives in registers, builds the PPM states of cells f-1 and f,
+//   blends them with chi, and solves HLLC with the carbuncle dw (CW84
+//   viscosity when K_visc > 0); first_order reads only cells f-1, f and
+//   solves LLF. It writes F (state component order) and the face velocity.
+// div kernel: one thread per cell, div = (F(i) - F(i+1)) / dx and
+//   dvel = (v(i+1) - v(i)) / dx, where with avg_with both faces are first
+//   averaged with stage 1's, 0.5 * (F1 + F2), in registers.
+//
+// Why two kernels and not one thread computing faces i and i+1: that would
+// solve every Riemann problem twice, and HLLC is most of the FP32 work; the
+// face-array round trip costs (6+1) x 4 B written and read per cell, which
+// the stage-1 caller needs in DRAM anyway (the FOFC fallback re-blends it).
+//
+// Bound on the H100: neither roof. A face reads 6 cells x 6 components
+// (mostly L1/L2 hits shared with neighbouring threads), ~2 chi and ~4 dmin
+// values, and writes 7 floats, against roughly 600 FP32 operations with 8
+// divisions and 6 square roots: on the order of 20 flops per DRAM byte,
+// near the H100's FP32 ridge. Measured on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit, one 256^3 stage-1 sweep (face + div kernels) took
+// ~2.2 ms: ~0.9 TB/s and ~4.6 TFLOP/s, so latency and instruction
+// throughput bound it (multi-instruction IEEE divisions and square roots;
+// 56-64 registers a thread cap occupancy). Staging the stencil in shared
+// memory and fewer divisions are the next steps.
+#include "common.cuh"
+
+namespace qk {
+
+struct Face {
+  float rho, rinv, u, v, w, P, cs, E, Eint;
+};
+
+__device__ __forceinline__ Face face_state(const float q[NV], int axis,
+                                           int vax, int wax, const Eos& e) {
+  Face s;
+  s.rho = q[0];
+  s.rinv = 1.0f / s.rho;
+  s.u = q[1 + axis];
+  s.v = q[1 + vax];
+  s.w = q[1 + wax];
+  const float ke = (0.5f * s.rho) * ((s.u * s.u + s.v * s.v) + s.w * s.w);
+  if (e.reconstruct_eint) {
+    s.P = e.gm1 * (q[4] * s.rho);
+    s.Eint = s.rho * q[5];
+  } else {
+    s.P = q[4];
+    s.Eint = q[5];
+  }
+  s.cs = sqrtf((e.gamma * s.P) * s.rinv);
+  s.E = s.P / e.gm1 + ke;
+  return s;
+}
+
+__device__ __forceinline__ void cons_flux(const Face& s, float U[NV],
+                                          float F[NV]) {
+  U[0] = s.rho;
+  U[1] = s.rho * s.u;
+  U[2] = s.rho * s.v;
+  U[3] = s.rho * s.w;
+  U[4] = s.E;
+  U[5] = s.Eint;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) F[c] = s.u * U[c];
+  F[1] = F[1] + s.P;
+  F[4] = F[4] + s.P * s.u;
+}
+
+__device__ __forceinline__ void llf(const Face& L, const Face& R,
+                                    float out[NV]) {
+  float UL[NV], FL[NV], UR[NV], FR[NV];
+  cons_flux(L, UL, FL);
+  cons_flux(R, UR, FR);
+  const float sp = mx(fabsf(L.u) + L.cs, fabsf(R.u) + R.cs);
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    out[c] = 0.5f * (FL[c] + FR[c]) - (0.5f * sp) * (UR[c] - UL[c]);
+}
+
+__device__ __forceinline__ void hllc(const Face& L, const Face& R, float du,
+                                     float dw, const Eos& e, float out[NV]) {
+  const float wl = sqrtf(L.rho);
+  const float wr = sqrtf(R.rho);
+  const float norm = 1.0f / (wl + wr);
+  const float u_t = (wl * L.u + wr * R.u) * norm;
+  const float v_t = (wl * L.v + wr * R.v) * norm;
+  const float w_t = (wl * L.w + wr * R.w) * norm;
+  const float vsq_t = (u_t * u_t + v_t * v_t) + w_t * w_t;
+  const float H_L = (L.E + L.P) * L.rinv;
+  const float H_R = (R.E + R.P) * R.rinv;
+  const float H_t = (wl * H_L + wr * H_R) * norm;
+  const float dU = L.u - R.u;
+
+  float cs_t, s_n;
+  if (e.gamma != 1.0f) {
+    const float dedr_L = (-L.P * e.inv_gm1) * (L.rinv * L.rinv);
+    const float dedr_R = (-R.P * e.inv_gm1) * (R.rinv * R.rinv);
+    const float dedp_L = e.inv_gm1 * L.rinv;
+    const float dedp_R = e.inv_gm1 * R.rinv;
+    const float drdp_L = L.rho / L.P;
+    const float drdp_R = R.rho / R.P;
+    const float e_L = L.Eint * L.rinv;
+    const float e_R = R.Eint * R.rinv;
+    const float C_rho =
+        0.5f * (((e_L + e_R) + L.rho * dedr_L) + R.rho * dedr_R);
+    const float C_P = 0.5f * (((e_L * drdp_L + e_R * drdp_R) + L.rho * dedp_L) +
+                              R.rho * dedp_R);
+    const float cs_exp = (H_t - 0.5f * vsq_t) - C_rho;
+    const float cs_avg = 0.5f * (L.cs + R.cs);
+    cs_t = cs_exp > 0.0f ? sqrtf(fabsf(cs_exp) / C_P) : cs_avg;
+    s_n = e.s_n * mx(dU, 0.0f);
+  } else {
+    cs_t = 0.5f * (L.cs + R.cs);
+    s_n = 0.5f * mx(dU, 0.0f);
+  }
+
+  // Batten et al. 1997 wavespeed bounds
+  const float S_L = mn(L.u - (L.cs + s_n), u_t - (cs_t + s_n));
+  const float S_R = mx(R.u + (R.cs + s_n), u_t + (cs_t + s_n));
+
+  // carbuncle correction [Minoshima & Miyoshi 2021, eq. 10]
+  const float cs_max = mx(L.cs, R.cs);
+  const float tp =
+      mn(1.0f, (cs_max - mn(du, 0.0f)) / (cs_max - mn(dw, 0.0f)));
+  const float tp2 = tp * tp;
+  const float theta = tp2 * tp2;
+
+  const float denom = L.rho * (S_L - L.u) - R.rho * (S_R - R.u);
+  const float S_star = (theta * (R.P - L.P) + ((L.rho * L.u) * (S_L - L.u) -
+                                               (R.rho * R.u) * (S_R - R.u))) /
+                       denom;
+
+  // low-dissipation pressure correction phi [M&M 2021, eq. 23]
+  const float vsq_L = (L.u * L.u + L.v * L.v) + L.w * L.w;
+  const float vsq_R = (R.u * R.u + R.v * R.v) + R.w * R.w;
+  const float chi = mn(1.0f, sqrtf(mx(vsq_L, vsq_R)) / cs_max);
+  const float phi = chi * (2.0f - chi);
+  const float P_LR =
+      0.5f * (L.P + R.P) + (0.5f * phi) * ((L.rho * (S_L - L.u)) * (S_star - L.u) +
+                                           (R.rho * (S_R - R.u)) * (S_star - R.u));
+
+  float UL[NV], FL[NV], UR[NV], FR[NV];
+  cons_flux(L, UL, FL);
+  cons_flux(R, UR, FR);
+  const float coef_L = 1.0f / (S_L - S_star);
+  const float coef_R = 1.0f / (S_R - S_star);
+  const bool in_L = S_L > 0.0f;
+  const bool in_sL = S_star > 0.0f;
+  const bool in_sR = S_R >= 0.0f;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    float fsl = (S_star * (S_L * UL[c] - FL[c])) * coef_L;
+    float fsr = (S_star * (S_R * UR[c] - FR[c])) * coef_R;
+    if (c == 1) {
+      fsl = fsl + (S_L * P_LR) * coef_L;
+      fsr = fsr + (S_R * P_LR) * coef_R;
+    } else if (c == 4) {
+      fsl = fsl + ((S_L * P_LR) * S_star) * coef_L;
+      fsr = fsr + ((S_R * P_LR) * S_star) * coef_R;
+    }
+    out[c] = in_L ? FL[c] : (in_sL ? fsl : (in_sR ? fsr : FR[c]));
+  }
+}
+
+// PPM on one component: (new_minus, new_plus) of the middle cell of
+// (qm2, qm1, q0, qp1, qp2) -- reconstruct.ppm_faces.
+__device__ __forceinline__ void ppm_cell(float qm2, float qm1, float q0,
+                                         float qp1, float qp2, float& minus,
+                                         float& plus) {
+  const float c1 = (float)(7.0 / 12.0);
+  const float c2 = (float)(-1.0 / 12.0);
+  const float lo = mn(mn(qm1, q0), qp1);
+  const float hi = mx(mx(qm1, q0), qp1);
+  float a_minus = (c1 * q0 + c2 * qp1) + (c1 * qm1 + c2 * qm2);
+  float a_plus = (c1 * qp1 + c2 * qp2) + (c1 * q0 + c2 * qm1);
+  a_minus = mn(mx(a_minus, lo), hi);
+  a_plus = mn(mx(a_plus, lo), hi);
+  const float dq_minus = q0 - a_minus;
+  const float dq_plus = a_plus - q0;
+  const bool extremum = (dq_plus * dq_minus) <= 0.0f;
+  const float a = qp1 - q0, b = q0 - qm1;
+  const float dq0 = (0.5f * (sgn(a) + sgn(b))) *
+                    mn(0.5f * fabsf(a + b), mn(2.0f * fabsf(a), 2.0f * fabsf(b)));
+  const bool reset_minus = fabsf(dq_minus) >= 2.0f * fabsf(dq_plus);
+  const bool reset_plus = fabsf(dq_plus) >= 2.0f * fabsf(dq_minus);
+  const float mono_minus = reset_minus ? q0 - 2.0f * dq_plus : a_minus;
+  const float mono_plus = reset_plus ? q0 + 2.0f * dq_minus : a_plus;
+  minus = extremum ? q0 - 0.5f * dq0 : mono_minus;
+  plus = extremum ? q0 + 0.5f * dq0 : mono_plus;
+}
+
+// The sweep axis is a template parameter: the canonical-frame component
+// indices (1+axis, 1+vax, 1+wax) become compile-time constants, which keeps
+// the 6 x 6 stencil and the face states in registers.
+template <int axis>
+__global__ void face_kernel(const float* __restrict__ Q,
+                            const float* __restrict__ chi,
+                            const float* __restrict__ dminv,
+                            const float* __restrict__ dminw,
+                            float* __restrict__ F, float* __restrict__ vel,
+                            float* __restrict__ F_hi,
+                            float* __restrict__ vel_hi, int64_t X, int64_t Y,
+                            int64_t Z, int lo, int hi, int is_cons,
+                            int first_order, float K_visc, Eos e) {
+  const int64_t dims[3] = {X, Y, Z};
+  const int64_t n = dims[axis];
+  const bool wall = lo != BC_PERIODIC;
+  int64_t ext[3] = {X, Y, Z};
+  ext[axis] = wall ? n + 1 : n;
+  const int64_t total = ext[0] * ext[1] * ext[2];
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  int64_t co[3];
+  unravel(idx, ext[1], ext[2], co);
+  const int64_t f = co[axis];
+  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  int64_t oc[3] = {co[0], co[1], co[2]};
+  oc[axis] = 0;
+  const int64_t base = (oc[0] * Y + oc[1]) * Z + oc[2];
+  const int64_t ncell = X * Y * Z;
+  constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
+  constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
+
+  float qL[NV], qR[NV], out[NV];
+  float rinv_L, rinv_R;
+  if (first_order) {
+    load_prim(Q, ncell, base, stride, f - 1, n, lo, hi, axis, is_cons, e, qL);
+    load_prim(Q, ncell, base, stride, f, n, lo, hi, axis, is_cons, e, qR);
+    const Face L = face_state(qL, axis, vax, wax, e);
+    const Face R = face_state(qR, axis, vax, wax, e);
+    llf(L, R, out);
+    rinv_L = L.rinv;
+    rinv_R = R.rinv;
+  } else {
+    float w[6][NV];  // cells f-3 .. f+2
+#pragma unroll
+    for (int o = 0; o < 6; ++o)
+      load_prim(Q, ncell, base, stride, f - 3 + o, n, lo, hi, axis, is_cons,
+                e, w[o]);
+    float chi_m1 = 1.0f, chi_0 = 1.0f;
+    if (chi != nullptr) {
+      chi_m1 = load_field(chi, base, stride, f - 1, n, lo, hi);
+      chi_0 = load_field(chi, base, stride, f, n, lo, hi);
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float m_unused, p_unused;
+      float plus_m1, minus_0;
+      ppm_cell(w[0][c], w[1][c], w[2][c], w[3][c], w[4][c], m_unused, plus_m1);
+      ppm_cell(w[1][c], w[2][c], w[3][c], w[4][c], w[5][c], minus_0, p_unused);
+      if (chi != nullptr) {
+        qL[c] = chi_m1 * plus_m1 + (1.0f - chi_m1) * w[2][c];
+        qR[c] = chi_0 * minus_0 + (1.0f - chi_0) * w[3][c];
+      } else {
+        qL[c] = plus_m1;
+        qR[c] = minus_0;
+      }
+    }
+    const Face L = face_state(qL, axis, vax, wax, e);
+    const Face R = face_state(qR, axis, vax, wax, e);
+    const float du = w[3][1 + axis] - w[2][1 + axis];
+    float dw = 0.0f, dvl = 0.0f, dvr = 0.0f, dwl = 0.0f, dwr = 0.0f;
+    if (dminv != nullptr) {
+      dvl = load_field(dminv, base, stride, f - 1, n, lo, hi);
+      dvr = load_field(dminv, base, stride, f, n, lo, hi);
+      dw = mn(dvl, dvr);
+    }
+    if (dminw != nullptr) {
+      dwl = load_field(dminw, base, stride, f - 1, n, lo, hi);
+      dwr = load_field(dminw, base, stride, f, n, lo, hi);
+      const float m2 = mn(dwl, dwr);
+      dw = dminv != nullptr ? mn(dw, m2) : m2;
+    }
+    hllc(L, R, du, dw, e, out);
+    if (K_visc > 0.0f) {
+      float div_v = du;
+      if (dminv != nullptr) div_v = div_v + 0.5f * (dvl + dvr);
+      if (dminw != nullptr) div_v = div_v + 0.5f * (dwl + dwr);
+      const float visc = K_visc * mx(-div_v, 0.0f);
+      float UL[NV], FL[NV], UR[NV], FR[NV];
+      cons_flux(L, UL, FL);
+      cons_flux(R, UR, FR);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) out[c] = out[c] + visc * (UL[c] - UR[c]);
+    }
+    rinv_L = L.rinv;
+    rinv_R = R.rinv;
+  }
+
+  // canonical -> state component order
+  float Fs[NV];
+  Fs[0] = out[0];
+  Fs[1 + axis] = out[1];
+  Fs[1 + vax] = out[2];
+  Fs[1 + wax] = out[3];
+  Fs[4] = out[4];
+  Fs[5] = out[5];
+  const float fv = Fs[0] * (Fs[0] >= 0.0f ? rinv_R : rinv_L);
+
+  if (f < n) {
+    const int64_t off = base + f * stride;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) F[c * ncell + off] = Fs[c];
+    vel[off] = fv;
+  } else {  // hi-wall face: plane over the two transverse axes
+    int64_t pd[2], pc[2], k = 0;
+    for (int a = 0; a < 3; ++a)
+      if (a != axis) {
+        pd[k] = dims[a];
+        pc[k] = co[a];
+        ++k;
+      }
+    const int64_t nplane = pd[0] * pd[1];
+    const int64_t off = pc[0] * pd[1] + pc[1];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) F_hi[c * nplane + off] = Fs[c];
+    vel_hi[off] = fv;
+  }
+}
+
+__global__ void div_kernel(const float* __restrict__ F,
+                           const float* __restrict__ vel,
+                           const float* __restrict__ F_hi,
+                           const float* __restrict__ vel_hi,
+                           const float* __restrict__ F1,
+                           const float* __restrict__ v1,
+                           const float* __restrict__ F1_hi,
+                           const float* __restrict__ v1_hi,
+                           float* __restrict__ div, float* __restrict__ dvel,
+                           int64_t X, int64_t Y, int64_t Z, int axis,
+                           int wall, float dx) {
+  const int64_t ncell = X * Y * Z;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ncell) return;
+  int64_t co[3];
+  unravel(idx, Y, Z, co);
+  const int64_t dims[3] = {X, Y, Z};
+  const int64_t n = dims[axis];
+  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  const int64_t c = co[axis];
+  const bool avg = F1 != nullptr;
+  // the face on the cell's hi side: next slot, hi plane, or periodic wrap
+  const bool on_plane = (c + 1 == n) && wall;
+  const int64_t next = (c + 1 < n) ? idx + stride : idx - c * stride;
+  int64_t poff = 0, nplane = 1;
+  if (on_plane) {
+    int64_t pd[2], pc[2], k = 0;
+    for (int a = 0; a < 3; ++a)
+      if (a != axis) {
+        pd[k] = dims[a];
+        pc[k] = co[a];
+        ++k;
+      }
+    nplane = pd[0] * pd[1];
+    poff = pc[0] * pd[1] + pc[1];
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    float fa = F[v * ncell + idx];
+    float fb = on_plane ? F_hi[v * nplane + poff] : F[v * ncell + next];
+    if (avg) {
+      fa = 0.5f * (F1[v * ncell + idx] + fa);
+      fb = 0.5f * ((on_plane ? F1_hi[v * nplane + poff] : F1[v * ncell + next]) +
+                   fb);
+    }
+    div[v * ncell + idx] = (fa - fb) / dx;
+  }
+  float va = vel[idx];
+  float vb = on_plane ? vel_hi[poff] : vel[next];
+  if (avg) {
+    va = 0.5f * (v1[idx] + va);
+    vb = 0.5f * ((on_plane ? v1_hi[poff] : v1[next]) + vb);
+  }
+  dvel[idx] = (vb - va) / dx;
+}
+
+}  // namespace qk
+
+extern "C" int qk_axis_flux(const float* Q, const float* chi,
+                            const float* dminv, const float* dminw, float* F,
+                            float* vel, float* F_hi, float* vel_hi, long long X,
+                            long long Y, long long Z, int axis, int lo, int hi,
+                            int is_cons, int first_order, float K_visc,
+                            float gamma, float gm1, float inv_gm1, float s_n,
+                            int reconstruct_eint, void* stream) {
+  const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
+  int64_t ext[3] = {X, Y, Z};
+  if (lo != qk::BC_PERIODIC) ext[axis] += 1;
+  const int64_t total = ext[0] * ext[1] * ext[2];
+  const unsigned blocks = (unsigned)((total + qk::THREADS - 1) / qk::THREADS);
+  auto kernel = axis == 0 ? qk::face_kernel<0>
+                : (axis == 1 ? qk::face_kernel<1> : qk::face_kernel<2>);
+  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
+      Q, chi, dminv, dminw, F, vel, F_hi, vel_hi, X, Y, Z, lo, hi, is_cons,
+      first_order, K_visc, e);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qk_axis_div(const float* F, const float* vel, const float* F_hi,
+                           const float* vel_hi, const float* F1,
+                           const float* v1, const float* F1_hi,
+                           const float* v1_hi, float* div, float* dvel,
+                           long long X, long long Y, long long Z, int axis,
+                           int wall, float dx, void* stream) {
+  const int64_t ncell = (int64_t)X * Y * Z;
+  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
+  qk::div_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
+      F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, div, dvel, X, Y, Z, axis,
+      wall, dx);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,286 @@
+"""Hydro level advance: RK2-SSP with the first-order flux correction (FOFC).
+
+Counterpart of `quokka_tpu.hydro.advance` for the kernel-fused divergence
+path (`_advance_hydro_rk2_fused`, reference ``src/QuokkaSimulation.hpp:
+1033-1325``): per stage, K1 (transverse fields) and K2 (one sweep per axis,
+emitting flux divergences; stage 2 averages with stage 1's faces) feed K3,
+which applies the update pointwise, counts invalid cells and applies the
+floors and the dual-energy sync.
+
+The FOFC fallback is a Python `if` on K3's invalid count, where the JAX
+package has a `lax.cond`: one host sync per stage. The fallback rebuilds
+the classic flux formulation with the first-order (donor-cell + LLF)
+fluxes of K2 on every face adjacent to an invalid cell (reference
+`replaceFluxes`, ``src/QuokkaSimulation.hpp:1325-1369``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import torch
+
+from ..eos import IdealGasEOS
+from ..indices import EINT, MX1, RHO
+from ..stencil import interior, sh, sh_bc
+from . import euler
+from .sweep import (_sum_divs, apply_update, compute_fluxes_pallas,
+                    compute_fluxes_pallas_div, finalize)
+
+
+@dataclass(frozen=True)
+class HydroOptions:
+    """Static solver configuration; mirrors the runtime knobs read by the
+    reference (``src/QuokkaSimulation.hpp:340-396``)."""
+
+    eos: IdealGasEOS
+    active_axes: Tuple[int, ...]  # spatial axes with >1 cell
+    dx: Tuple[float, float, float]
+    reconstruction_order: int = 3  # 3=PPM, 2=PLM, 1=donor cell
+    use_flattening: bool = True
+    reconstruct_eint: bool = True
+    riemann: str = "hllc"
+    K_visc: float = 0.0  # artificial viscosity coefficient
+    n_scalars: int = 0
+    n_mscalars: int = 0
+    density_floor: float = 0.0
+    temperature_floor: float = 0.0
+    use_dual_energy: bool = True
+    rk_order: int = 2
+    # kernel-fused divergence update: the only formulation ported so far
+    fuse_update: bool = True
+
+    @property
+    def ndim(self) -> int:
+        return len(self.active_axes)
+
+
+def compute_fluxes(Ug, opts: HydroOptions, first_order: bool = False,
+                   bc_kinds: dict | None = None):
+    """All-axis face fluxes of an unpadded conserved state through the K1/K2
+    sweep (`first_order=True`: the donor-cell + LLF backup fluxes of FOFC).
+    Returns (fluxes, facevels, flux_hi, vel_hi)."""
+    if len(opts.active_axes) != 3 or bc_kinds is None:
+        raise NotImplementedError(
+            "compute_fluxes: only ghost-free 3D stepping (bc_kinds) is ported")
+    return compute_fluxes_pallas(Ug, opts, first_order, bc_kinds)
+
+
+def _last_idx(n: int, ax: int, device) -> torch.Tensor:
+    shape = [1, 1, 1]
+    shape[ax] = n
+    return torch.arange(n, device=device).reshape(shape)
+
+
+def rhs_from_fluxes(fluxes: dict, opts: HydroOptions,
+                    flux_hi: dict | None = None) -> torch.Tensor:
+    """Flux divergence rhs(i) = sum_d (F_d(i) - F_d(i+1)) / dx_d; on wall
+    axes the last cell reads the hi-wall plane `flux_hi[d]`."""
+    rhs = None
+    for d, F in fluxes.items():
+        ax = d + 1
+        contrib = (F - sh(F, 1, ax)) / opts.dx[d]
+        if flux_hi is not None and d in flux_hi:
+            n = F.shape[ax]
+            last = (F.narrow(ax, n - 1, 1) - flux_hi[d].unsqueeze(ax)) / opts.dx[d]
+            contrib = torch.where(_last_idx(n, d, F.device) == n - 1, last, contrib)
+        rhs = contrib if rhs is None else rhs + contrib
+    return rhs
+
+
+def add_internal_energy_pdv(rhs, Ug, facevels: dict, opts: HydroOptions,
+                            redo_mask=None, vel_hi: dict | None = None,
+                            bc_kinds: dict | None = None):
+    """-P div(v) source for the auxiliary internal energy (reference
+    `AddInternalEnergyPdV`): face-velocity divergence, or central
+    differences of cell velocities on FOFC-redo cells."""
+    P = euler.pressure(Ug, opts.eos)
+    div_v = None
+    for d, v in facevels.items():
+        c = (sh(v, 1, d) - v) / opts.dx[d]
+        if vel_hi is not None and d in vel_hi:
+            n = v.shape[d]
+            last = (vel_hi[d].unsqueeze(d) - v.narrow(d, n - 1, 1)) / opts.dx[d]
+            c = torch.where(_last_idx(n, d, v.device) == n - 1, last, c)
+        div_v = c if div_v is None else div_v + c
+    if redo_mask is not None:
+        div_v = torch.where(redo_mask, _cell_div_v(Ug, opts, bc_kinds), div_v)
+    rhs = rhs.clone()
+    rhs[EINT] = rhs[EINT] + (-P * div_v)
+    return rhs
+
+
+def _cell_div_v(Ug, opts: HydroOptions, bc_kinds):
+    """Central-difference divergence of the cell velocities."""
+    div_cc = None
+    for d in opts.active_axes:
+        vel = Ug[MX1 + d] / Ug[RHO]
+        bc_axis = None if bc_kinds is None else bc_kinds.get(d)
+        if bc_axis is None:
+            vp, vm = sh(vel, 1, d), sh(vel, -1, d)
+        else:
+            vp = sh_bc(vel, 1, d, *bc_axis, odd=True)
+            vm = sh_bc(vel, -1, d, *bc_axis, odd=True)
+        c = 0.5 * (vp - vm) / opts.dx[d]
+        div_cc = c if div_cc is None else div_cc + c
+    return div_cc
+
+
+def _pad_mask(mask, ng: Sequence[int], periodic: Sequence[bool]):
+    """Pad a boolean interior mask into ghost cells: periodic wrap where
+    periodic, False elsewhere (reference `redoFlag.FillBoundary`)."""
+    out = mask
+    for d in range(3):
+        g = ng[d]
+        if g == 0:
+            continue
+        n = out.shape[d]
+        if periodic[d]:
+            lo, hi = out.narrow(d, n - g, g), out.narrow(d, 0, g)
+        else:
+            shape = list(out.shape)
+            shape[d] = g
+            lo = hi = torch.zeros(shape, dtype=out.dtype, device=out.device)
+        out = torch.cat([lo, out, hi], dim=d)
+    return out
+
+
+def _blend_fofc(fluxes, facevels, fo_fluxes, fo_facevels, mask_p, opts,
+                bc_kinds: dict, hi_planes: tuple):
+    """First-order fluxes/face velocities on every face adjacent to a
+    flagged cell (reference `replaceFluxes`). On wall axes the lo-wall face
+    (slot 0) is flagged by cell 0 only, and the hi-wall planes (`hi_planes`
+    = (flux_hi, vel_hi, fo_flux_hi, fo_vel_hi)) by the last cell."""
+    new_f, new_v, new_fh, new_vh = {}, {}, {}, {}
+    for d in fluxes:
+        prev = sh(mask_p, -1, d)
+        wall = bc_kinds is not None and bc_kinds.get(d) is not None
+        if wall:
+            n = mask_p.shape[d]
+            prev = prev & (_last_idx(n, d, mask_p.device) > 0)
+        face_flag = prev | mask_p
+        new_f[d] = torch.where(face_flag[None], fo_fluxes[d], fluxes[d])
+        new_v[d] = torch.where(face_flag, fo_facevels[d], facevels[d])
+        if wall:
+            flux_hi, vel_hi, fo_flux_hi, fo_vel_hi = hi_planes
+            flag_hi = mask_p.select(d, mask_p.shape[d] - 1)
+            new_fh[d] = torch.where(flag_hi[None], fo_flux_hi[d], flux_hi[d])
+            new_vh[d] = torch.where(flag_hi, fo_vel_hi[d], vel_hi[d])
+    return new_f, new_v, new_fh, new_vh
+
+
+def _apply_from_divs(U0_int, Ug_old, div, dvel, dt, ng, opts: HydroOptions):
+    """Pointwise flux application from the divergence totals (+ PdV)."""
+    P = euler.pressure(Ug_old, opts.eos)
+    rhs = div.clone()
+    rhs[EINT] = rhs[EINT] + (-P * dvel)
+    return U0_int + dt * interior(rhs, ng)
+
+
+def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
+                             bc_kinds: dict):
+    """RK2-SSP step on the kernel-fused divergence path, with K3 finishing
+    every stage (at every grid size: the CUDA kernel has no tiling rule).
+    Returns (U_new, stats) with stats ``n_fofc`` (invalid cells before the
+    floors, summed over stages, a 0-d tensor) and ``fofc_fallbacks`` (how
+    many times a stage took the FOFC fallback, an int)."""
+    Ug0 = U
+
+    def fo_fluxes():
+        return compute_fluxes(Ug0, opts, first_order=True, bc_kinds=bc_kinds)
+
+    def apply_fluxes(fl, fv, redo_mask, fl_hi, fv_hi):
+        rhs = rhs_from_fluxes(fl, opts, fl_hi or None)
+        rhs = add_internal_energy_pdv(rhs, Ug0, fv, opts, redo_mask,
+                                      vel_hi=fv_hi or None, bc_kinds=bc_kinds)
+        return U + dt * interior(rhs, ng)
+
+    def redo1_mask():
+        U1_try = _apply_from_divs(U, Ug0, _sum_divs(r1["divs"]),
+                                  _sum_divs(r1["dvels"]), dt, ng, opts)
+        return torch.logical_not(euler.is_state_valid(U1_try, opts.eos))
+
+    def blend_stage1(redo1):
+        mask_p = _pad_mask(redo1, ng, periodic)
+        fo_fl, fo_fv, fo_flh, fo_fvh = fo_fluxes()
+        fl, fv, flh, fvh = _blend_fofc(
+            r1["fluxes"], r1["facevels"], fo_fl, fo_fv, mask_p, opts,
+            bc_kinds, (r1["flux_hi"], r1["vel_hi"], fo_flh, fo_fvh))
+        return fl, fv, flh, fvh, mask_p
+
+    # ---- stage 1
+    r1 = compute_fluxes_pallas_div(Ug0, opts, bc_kinds)
+    U1, n1 = apply_update(U, Ug0, r1["divs"], r1["dvels"], dt, opts)
+    fired1 = bool(n1 > 0)  # host sync
+    fallbacks = int(fired1)
+    if fired1:
+        fl, fv, flh, fvh, mask_p = blend_stage1(redo1_mask())
+        U1 = finalize(apply_fluxes(fl, fv, mask_p, flh, fvh), opts)
+    if opts.rk_order == 1:
+        return U1, {"n_fofc": n1, "fofc_fallbacks": fallbacks}
+
+    # ---- stage 2: divergence of the time-averaged flux
+    Ug1 = U1
+    r2 = compute_fluxes_pallas_div(Ug1, opts, bc_kinds, avg_with=r1)
+    U2, n2 = apply_update(U, Ug0, r2["divs"], r2["dvels"], dt, opts)
+    fired2 = bool(n2 > 0)  # host sync
+    if not (fired1 or fired2):
+        return U2, {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
+
+    # fallback: stage-1 final (blended) fluxes, the raw stage-2 sweep, the
+    # time average, flux application, and the stage-2 FOFC blend
+    fallbacks += 1
+    fl1f, fv1f, flh1f, fvh1f, _ = blend_stage1(redo1_mask())
+    fl2r, fv2r, flh2r, fvh2r = compute_fluxes(Ug1, opts, bc_kinds=bc_kinds)
+    flux_avg = {d: 0.5 * (fl1f[d] + fl2r[d]) for d in fl1f}
+    vel_avg = {d: 0.5 * (fv1f[d] + fv2r[d]) for d in fv1f}
+    flh_avg = {d: 0.5 * (flh1f[d] + flh2r[d]) for d in flh1f}
+    fvh_avg = {d: 0.5 * (fvh1f[d] + fvh2r[d]) for d in fvh1f}
+    U2a = apply_fluxes(flux_avg, vel_avg, None, flh_avg, fvh_avg)
+    redo2b = torch.logical_not(euler.is_state_valid(U2a, opts.eos))
+    n2 = redo2b.sum()
+    if bool(redo2b.any()):  # host sync
+        mask_p = _pad_mask(redo2b, ng, periodic)
+        fo_fl, fo_fv, fo_flh, fo_fvh = fo_fluxes()
+        fl, fv, flh, fvh = _blend_fofc(
+            flux_avg, vel_avg, fo_fl, fo_fv, mask_p, opts, bc_kinds,
+            (flh_avg, fvh_avg, fo_flh, fo_fvh))
+        U2 = finalize(apply_fluxes(fl, fv, mask_p, flh, fvh), opts)
+    else:
+        U2 = finalize(U2a, opts)
+    return U2, {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
+
+
+def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
+                      ng: Sequence[int] = (0, 0, 0),
+                      periodic: Sequence[bool] = (True, True, True),
+                      mask_fill_fn=None, fill_fn2=None,
+                      return_fluxes: bool = False, redo_any_fn=None,
+                      bc_kinds: dict | None = None,
+                      reflux_corr_masks: dict | None = None):
+    """Full RK2-SSP hydro step (reference `advanceHydroAtLevel`) on an
+    unpadded 3D state: `bc_kinds` = {axis: (lo, hi) | None} names the wall
+    axes (None = periodic). Only the kernel-fused ghost-free formulation is
+    ported; every other configuration raises NotImplementedError.
+    `dt` is a float or a one-element tensor on the state's device.
+    Returns (U_new, stats)."""
+    unsupported = {
+        "fill_fn": fill_fn is not None, "mask_fill_fn": mask_fill_fn is not None,
+        "fill_fn2": fill_fn2 is not None, "return_fluxes": return_fluxes,
+        "redo_any_fn": redo_any_fn is not None,
+        "reflux_corr_masks": reflux_corr_masks is not None,
+        "bc_kinds=None (ghost-padded stepping)": bc_kinds is None,
+        "ng != 0": any(g != 0 for g in ng),
+        "fuse_update=False": not opts.fuse_update,
+        "fewer than 3 active axes": len(opts.active_axes) != 3,
+        "rk_order not in (1, 2)": opts.rk_order not in (1, 2),
+        "passive scalars": opts.n_scalars > 0,
+        "riemann != hllc": opts.riemann != "hllc",
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(f"advance_hydro_rk2: not ported yet: {bad}")
+    if U.device.type == "cuda":
+        dt = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(())
+    return _advance_hydro_rk2_fused(U, dt, opts, ng, periodic, bc_kinds)

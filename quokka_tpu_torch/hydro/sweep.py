@@ -1,0 +1,563 @@
+"""Hydro sweep kernels K1-K3: wrappers, plain PyTorch versions, and the
+all-axis sweeps.
+
+Counterpart of `quokka_tpu.hydro.pallas_sweep`. Each kernel has
+
+  - a plain PyTorch version (`precompute_transverse_plain`,
+    `axis_flux_plain`, `apply_update_plain`), built from the ported
+    `euler` / `reconstruct` / `riemann` functions on a wall-ghost-assembled
+    tensor, exactly as the JAX kernel bodies compute in VMEM;
+  - a wrapper (`precompute_transverse`, `compute_axis_flux`,
+    `apply_update`) that takes the plain version for a tensor on the CPU and
+    launches the CUDA kernel (``csrc/``) for a tensor on a CUDA device. It
+    raises for any other device and for what the kernel does not take.
+
+`launch_counts` counts kernel launches per wrapper, so a run can show that
+it went through the kernels.
+
+Layout: ``[nvar, X, Y, Z]``, contiguous, z fastest. Face arrays keep the
+JAX convention: slot i is the face between cells i-1 and i (slot 0 is the
+lo-wall face on a wall axis), and the hi-wall face comes back as separate
+``flux_hi`` / ``vel_hi`` planes. Walls are given per axis as
+``bc_axis = (lo_kind, hi_kind)``; None means periodic.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..indices import EGAS, EINT, MX1, PEINT, PPRES, PRHO, PVX1, RHO
+from ..registry import BC_REFLECT
+from ..stencil import sh
+from . import euler, reconstruct
+from .riemann import FaceState, hllc, llf
+
+launch_counts = {"transverse": 0, "axis_flux": 0, "apply_update": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _transverse_axes(axis: int, ndim: int) -> Tuple[int, int]:
+    """(v_axis, w_axis) of the canonical Riemann frame (reference
+    ``src/hydro/hydro_system.hpp:952-976``)."""
+    if axis == 0:
+        return 1, 2
+    if axis == 1:
+        return (0, 2) if ndim == 2 else (2, 0)
+    return 0, 1
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True: launch the kernel; False: plain version (CPU tensor only)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise NotImplementedError(f"no kernel for device {t.device}")
+
+
+# ------------------------------------------------------------ plain versions
+def _check_bc(bc_axis):
+    if bc_axis is None:
+        return
+    for kind in bc_axis:
+        if kind != BC_REFLECT:
+            raise NotImplementedError(
+                f"wall kind {kind!r}: the hydro sweep supports periodic and "
+                "reflect walls (outflow walls are not ported yet)")
+
+
+def _assemble_wall_ghosts(blk: torch.Tensor, ax: int, odd_comp: int | None,
+                          g: int = 4) -> torch.Tensor:
+    """Extend `blk` by `g` mirrored ghost entries on each side of spatial
+    axis `ax` (reflecting walls), flipping the sign of component `odd_comp`
+    (the normal velocity or momentum); the padded fill's values exactly."""
+    nax = blk.dim() - 3 + ax
+    n = blk.shape[nax]
+    lo = blk.narrow(nax, 0, g).flip(nax)
+    hi = blk.narrow(nax, n - g, g).flip(nax)
+    if odd_comp is not None:
+        lo = lo.clone()
+        hi = hi.clone()
+        lo[odd_comp] = -lo[odd_comp]
+        hi[odd_comp] = -hi[odd_comp]
+    return torch.cat([lo, blk, hi], dim=nax)
+
+
+def _face_state(q: torch.Tensor, axis: int, opts) -> FaceState:
+    """Canonical-frame FaceState from reconstructed face primitives (the
+    in-kernel `face_state` of `pallas_sweep._sweep_body`)."""
+    eos = opts.eos
+    vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
+    rho = q[PRHO]
+    rinv = 1.0 / rho
+    u, v, w = q[PVX1 + axis], q[PVX1 + vax], q[PVX1 + wax]
+    ke = 0.5 * rho * (u * u + v * v + w * w)
+    if eos.is_isothermal:
+        P = rho * eos.cs_isothermal**2
+        cs = torch.full_like(rho, eos.cs_isothermal)
+        E = torch.zeros_like(rho)
+        Eint = torch.zeros_like(rho)
+    else:
+        if opts.reconstruct_eint:
+            P = eos.pressure(rho, q[PPRES] * rho)
+            Eint = rho * q[PEINT]
+        else:
+            P = q[PPRES]
+            Eint = q[PEINT]
+        cs = torch.sqrt(eos.gamma * P * rinv)
+        E = eos.eint_from_pres(rho, P) + ke
+    return FaceState(rho=rho, u=u, v=v, w=w, P=P, cs=cs, E=E, Eint=Eint,
+                     rinv=rinv)
+
+
+def _sweep_body(prim, chi, dminv, dminw, axis: int, opts, first_order: bool):
+    """Flux + face velocity along `axis` of a primitive tensor (roll
+    semantics along the axis). Returns (flux[nv, ...], facevel[...]) in
+    state component order."""
+    eos = opts.eos
+    ax = axis + 1
+    if first_order:
+        qL, qR = reconstruct.donor_cell_faces(prim, axis)
+    else:
+        qL, qR = reconstruct.reconstruct_faces(prim, axis,
+                                               opts.reconstruction_order)
+        if chi is not None:
+            chi_m1 = sh(chi, -1, axis)[None]
+            chi_0 = chi[None]
+            qL = chi_m1 * qL + (1.0 - chi_m1) * sh(prim, -1, ax)
+            qR = chi_0 * qR + (1.0 - chi_0) * prim
+    vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
+    sL = _face_state(qL, axis, opts)
+    sR = _face_state(qR, axis, opts)
+
+    if first_order:
+        F = llf(sL, sR)
+    else:
+        un = prim[PVX1 + axis]
+        du = un - sh(un, -1, axis)
+        dvl = dvr = dwl = dwr = None
+        dw = None
+        if dminv is not None:
+            dvl, dvr = sh(dminv, -1, axis), dminv
+            dw = torch.minimum(dvl, dvr)
+        if dminw is not None:
+            dwl, dwr = sh(dminw, -1, axis), dminw
+            m2 = torch.minimum(dwl, dwr)
+            dw = m2 if dw is None else torch.minimum(dw, m2)
+        if dw is None:
+            dw = torch.zeros_like(du)
+        F = hllc(sL, sR, eos, du, dw)
+        if opts.K_visc > 0.0:
+            div_v = du
+            if dvl is not None:
+                div_v = div_v + 0.5 * (dvl + dvr)
+            if dwl is not None:
+                div_v = div_v + 0.5 * (dwl + dwr)
+            viscosity = opts.K_visc * torch.clamp(-div_v, min=0.0)
+            F = F + viscosity[None] * (sL.conserved() - sR.conserved())
+
+    comps = [None] * F.shape[0]
+    comps[RHO] = F[0]
+    comps[MX1 + axis] = F[1]
+    comps[MX1 + vax] = F[2]
+    comps[MX1 + wax] = F[3]
+    comps[EGAS] = F[4]
+    comps[EINT] = F[5]
+    Fout = torch.stack(comps)
+    if eos.is_isothermal:
+        Fout[EGAS] = 0.0
+        Fout[EINT] = 0.0
+    facevel = Fout[RHO] * torch.where(Fout[RHO] >= 0.0, sR.rinv, sL.rinv)
+    return Fout, facevel
+
+
+def _transverse_axis_plain(U, t: int, opts, bc_axis, state_is_cons: bool):
+    """(dmin_t, m3_t, chi_t) for one axis t (m3/chi None without PPM
+    flattening)."""
+    _check_bc(bc_axis)
+    n = U.shape[1 + t]
+    blk, g = U, 0
+    if bc_axis is not None:
+        g = 4
+        blk = _assemble_wall_ghosts(U, t, odd_comp=MX1 + t, g=g)
+    if state_is_cons:
+        blk = euler.cons_to_prim(blk, opts.eos, opts.reconstruct_eint)
+
+    def islice(A):
+        return A if g == 0 else A.narrow(t, g, n).contiguous()
+
+    v = blk[PVX1 + t]
+    dmin = islice(torch.minimum(sh(v, 1, t) - v, v - sh(v, -1, t)))
+    if not (opts.use_flattening and opts.reconstruction_order == 3):
+        return dmin, None, None
+    chi = reconstruct.flattening_chi(blk, t, opts.eos, opts.reconstruct_eint)
+    m3 = torch.minimum(torch.minimum(sh(chi, -1, t), chi), sh(chi, 1, t))
+    return dmin, islice(m3), islice(chi)
+
+
+def precompute_transverse_plain(U, opts, bc_kinds: dict | None,
+                                state_is_cons: bool = False):
+    """Plain version of K1 over all active axes: (dmins, chi_cell,
+    chi_ghost) like `pallas_sweep.precompute_transverse_pallas`. chi_ghost
+    (exact outflow ghost planes) is always empty: outflow walls raise."""
+    dmins, chi_cell = {}, None
+    for t in opts.active_axes:
+        bc_axis = None if bc_kinds is None else bc_kinds.get(t)
+        dmins[t], m3, _ = _transverse_axis_plain(U, t, opts, bc_axis,
+                                                 state_is_cons)
+        if m3 is not None:
+            chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
+    return dmins, chi_cell, {}
+
+
+def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
+                    first_order: bool = False, bc_axis=None, dx_axis=None,
+                    avg_with: tuple | None = None, state_is_cons: bool = False):
+    """Plain version of K2: one sweep along `axis`. Returns what
+    `pallas_sweep.compute_axis_flux_pallas` returns for these arguments:
+    (F, v[, F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`."""
+    _check_bc(bc_axis)
+    vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
+    dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
+    dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
+    chi = chi_cell if not first_order else None
+    n = U.shape[1 + axis]
+    wall = bc_axis is not None
+
+    blk, g = U, 0
+    if wall:
+        g = 4
+        blk = _assemble_wall_ghosts(U, axis, odd_comp=MX1 + axis, g=g)
+        chi = None if chi is None else _assemble_wall_ghosts(chi, axis, None, g)
+        dminv = None if dminv is None else _assemble_wall_ghosts(dminv, axis, None, g)
+        dminw = None if dminw is None else _assemble_wall_ghosts(dminw, axis, None, g)
+    if state_is_cons:
+        blk = euler.cons_to_prim(blk, opts.eos, opts.reconstruct_eint)
+    F, v = _sweep_body(blk, chi, dminv, dminw, axis, opts, first_order)
+
+    Fh = vh = None
+    if wall:
+        Fh = F.select(1 + axis, g + n).contiguous()
+        vh = v.select(axis, g + n).contiguous()
+        F = F.narrow(1 + axis, g, n).contiguous()
+        v = v.narrow(axis, g, n).contiguous()
+    if dx_axis is None:
+        return (F, v, Fh, vh) if wall else (F, v)
+
+    Fd, vd, Fhd, vhd = F, v, Fh, vh
+    if avg_with is not None:
+        Fd = 0.5 * (avg_with[0] + F)
+        vd = 0.5 * (avg_with[1] + v)
+        if wall:
+            Fhd = 0.5 * (avg_with[2] + Fh)
+            vhd = 0.5 * (avg_with[3] + vh)
+    F_next = sh(Fd, 1, 1 + axis)
+    v_next = sh(vd, 1, axis)
+    if wall:
+        F_next = torch.cat([Fd.narrow(1 + axis, 1, n - 1), Fhd.unsqueeze(1 + axis)],
+                           dim=1 + axis)
+        v_next = torch.cat([vd.narrow(axis, 1, n - 1), vhd.unsqueeze(axis)], dim=axis)
+    div = (Fd - F_next) / dx_axis
+    dvel = (v_next - vd) / dx_axis
+    if avg_with is not None:
+        return div, dvel
+    return ((F, v, Fh, vh) if wall else (F, v)) + (div, dvel)
+
+
+def apply_update_plain(U, Ug0, divs: dict, dvels: dict, dt, opts):
+    """Plain version of K3: the RK apply from per-axis divergences + PdV
+    source, the pre-floor invalid-cell count, EnforceLimits and
+    SyncDualEnergy. Returns (U_finalized, n_invalid as a 0-d tensor)."""
+    rhs = _sum_divs(divs)
+    dv = _sum_divs(dvels)
+    P = euler.pressure(Ug0, opts.eos)
+    rhs = rhs.clone()
+    rhs[EINT] = rhs[EINT] - P * dv
+    U_try = U + dt * rhs
+    n_bad = torch.logical_not(euler.is_state_valid(U_try, opts.eos)).sum()
+    return finalize(U_try, opts), n_bad
+
+
+def _sum_divs(divs: dict) -> torch.Tensor:
+    """Sum per-axis contributions in sorted-axis order."""
+    rhs = None
+    for d in sorted(divs):
+        rhs = divs[d] if rhs is None else rhs + divs[d]
+    return rhs
+
+
+def finalize(Ux, opts):
+    """Floors + dual-energy sync (the end of every RK stage)."""
+    eos = opts.eos
+    Ux = euler.enforce_limits(Ux, eos, opts.density_floor,
+                              opts.temperature_floor, opts.n_scalars)
+    if opts.use_dual_energy and not eos.is_isothermal:
+        Ux = euler.sync_dual_energy(Ux)
+    return Ux
+
+
+# ------------------------------------------------------------ CUDA wrappers
+def _eos_args(opts):
+    g = opts.eos.gamma
+    return (g, g - 1.0, 1.0 / (g - 1.0), 0.5 * (0.5 * (g + 1.0)),
+            int(opts.reconstruct_eint))
+
+
+def _check_kernel_inputs(opts, *tensors):
+    if opts.eos.is_isothermal:
+        raise NotImplementedError("the CUDA hydro kernels need a gamma-law EOS")
+    ref = tensors[0]
+    if ref.dim() != 4 or ref.shape[0] != 6:
+        raise NotImplementedError(
+            f"the CUDA hydro kernels take a [6, X, Y, Z] state, got {tuple(ref.shape)}")
+    if min(ref.shape[1:]) < 4:
+        raise ValueError(f"every extent must be >= 4, got {tuple(ref.shape)}")
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError(f"tensor on {t.device}, expected {ref.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA hydro kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA hydro kernels take contiguous tensors")
+
+
+def _check_shapes(pairs):
+    """Each (tensor or None, expected shape, name) must match."""
+    for t, shape, name in pairs:
+        if t is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bc_codes(bc_axis):
+    """(lo, hi) codes of csrc/common.cuh: 0 periodic, 1 reflect."""
+    _check_bc(bc_axis)
+    return (0, 0) if bc_axis is None else (1, 1)
+
+
+def _transverse_axis_cuda(U, t: int, opts, bc_axis, state_is_cons: bool):
+    from .._cuda import check, library
+
+    lib = library()
+    _check_kernel_inputs(opts, U)
+    lo, hi = _bc_codes(bc_axis)
+    X, Y, Z = U.shape[1:]
+    do_chi = opts.use_flattening and opts.reconstruction_order == 3
+    dmin = torch.empty((X, Y, Z), dtype=U.dtype, device=U.device)
+    m3 = torch.empty_like(dmin) if do_chi else None
+    chi = torch.empty_like(dmin) if do_chi else None
+    err = lib.qk_transverse(U.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
+                            X, Y, Z, t, lo, hi, int(state_is_cons), int(do_chi),
+                            *_eos_args(opts), _stream(U))
+    check(err, "transverse")
+    launch_counts["transverse"] += 1
+    return dmin, m3, chi
+
+
+def precompute_transverse(U, opts, bc_kinds: dict | None,
+                          state_is_cons: bool = False):
+    """K1 over all active axes (`pallas_sweep.precompute_transverse_pallas`):
+    returns (dmins, chi_cell, chi_ghost); chi_cell = min over axes of each
+    axis's 3-point min of chi, folded in PyTorch."""
+    if not _on_cuda(U):
+        return precompute_transverse_plain(U, opts, bc_kinds, state_is_cons)
+    dmins, chi_cell = {}, None
+    for t in opts.active_axes:
+        bc_axis = None if bc_kinds is None else bc_kinds.get(t)
+        dmins[t], m3, _ = _transverse_axis_cuda(U, t, opts, bc_axis, state_is_cons)
+        if m3 is not None:
+            chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
+    return dmins, chi_cell, {}
+
+
+def _unsupported(**kw):
+    bad = [k for k, v in kw.items() if v is not None and v is not False]
+    if bad:
+        raise NotImplementedError(
+            f"hydro sweep option(s) {bad} are not ported yet (see ROADMAP.md)")
+
+
+def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
+                      first_order: bool = False, bc_axis=None,
+                      chi_ghost_axis=None, dx_axis=None,
+                      avg_with: tuple | None = None,
+                      state_is_cons: bool = False, *, acc=None,
+                      div_only=False, fo_mask=None, fo_from=None,
+                      emit_avg_flux=False, corr_mask=None, corr_acc=None):
+    """K2: one sweep along `axis` (`pallas_sweep.compute_axis_flux_pallas`
+    for the unigrid main path's variants). Returns (F, v[, F_hi, v_hi][,
+    div, dvel]), or (div, dvel) with `avg_with`."""
+    _unsupported(acc=acc, div_only=div_only, fo_mask=fo_mask, fo_from=fo_from,
+                 emit_avg_flux=emit_avg_flux, corr_mask=corr_mask,
+                 corr_acc=corr_acc, chi_ghost_axis=chi_ghost_axis)
+    if not _on_cuda(U):
+        return axis_flux_plain(U, axis, opts, chi_cell, dmins, first_order,
+                               bc_axis, dx_axis, avg_with, state_is_cons)
+    from .._cuda import check, library
+
+    lib = library()
+    if not first_order and opts.reconstruction_order != 3:
+        raise NotImplementedError("the CUDA sweep reconstructs with PPM only")
+    vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
+    dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
+    dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
+    chi = chi_cell if not first_order else None
+    avg = tuple(avg_with) if avg_with is not None else ()
+    _check_kernel_inputs(opts, U, chi, dminv, dminw, *avg)
+    lo, hi = _bc_codes(bc_axis)
+    wall = bc_axis is not None
+    X, Y, Z = U.shape[1:]
+    plane = tuple(s for a, s in enumerate((X, Y, Z)) if a != axis)
+    cell = (X, Y, Z)
+    _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")]
+                  + list(zip(avg, (U.shape, cell, (6,) + plane, plane),
+                             ("avg flux", "avg facevel", "avg flux_hi", "avg vel_hi"))))
+    if avg_with is not None and len(avg) != (4 if wall else 2):
+        raise ValueError("avg_with holds (F, v) on a periodic axis, "
+                         "(F, v, F_hi, v_hi) on a wall axis")
+    F = torch.empty_like(U)
+    v = torch.empty((X, Y, Z), dtype=U.dtype, device=U.device)
+    Fh = torch.empty((6,) + plane, dtype=U.dtype, device=U.device) if wall else None
+    vh = torch.empty(plane, dtype=U.dtype, device=U.device) if wall else None
+    stream = _stream(U)
+    err = lib.qk_axis_flux(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+                           F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
+                           X, Y, Z, axis, lo, hi, int(state_is_cons),
+                           int(first_order), float(opts.K_visc),
+                           *_eos_args(opts), stream)
+    check(err, "axis_flux")
+    launch_counts["axis_flux"] += 1
+    faces = (F, v, Fh, vh) if wall else (F, v)
+    if dx_axis is None:
+        return faces
+    div = torch.empty_like(U)
+    dvel = torch.empty_like(v)
+    F1, v1, F1h, v1h = (avg + (None,) * 4)[:4]
+    err = lib.qk_axis_div(F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
+                          _ptr(F1), _ptr(v1), _ptr(F1h), _ptr(v1h),
+                          div.data_ptr(), dvel.data_ptr(), X, Y, Z, axis,
+                          int(wall), float(dx_axis), stream)
+    check(err, "axis_div")
+    if avg_with is not None:
+        return div, dvel
+    return faces + (div, dvel)
+
+
+def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):
+    """K3 (`pallas_sweep.apply_update_pallas`): returns (U_finalized,
+    n_invalid) with n_invalid a 0-d integer tensor counting the cells whose
+    raw update was invalid before the floors. `dt` may be a float or a
+    one-element tensor on the state's device."""
+    if not _on_cuda(U):
+        return apply_update_plain(U, Ug0, divs, dvels, dt, opts)
+    from .._cuda import check, library
+
+    lib = library()
+    axes = sorted(divs)
+    if axes != [0, 1, 2] or sorted(dvels) != axes:
+        raise NotImplementedError("the CUDA apply kernel takes three axes")
+    if opts.n_scalars > 0:
+        raise NotImplementedError("the CUDA apply kernel takes no passive scalars")
+    _check_kernel_inputs(opts, U, Ug0, *(divs[d] for d in axes),
+                         *(dvels[d] for d in axes))
+    _check_shapes([(Ug0, U.shape, "Ug0")]
+                  + [(divs[d], U.shape, "div") for d in axes]
+                  + [(dvels[d], U.shape[1:], "dvel") for d in axes])
+    dt_t = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(1)
+    out = torch.empty_like(U)
+    n_bad = torch.zeros(1, dtype=torch.int32, device=U.device)
+    err = lib.qk_apply(U.data_ptr(), Ug0.data_ptr(),
+                       *(divs[d].data_ptr() for d in axes),
+                       *(dvels[d].data_ptr() for d in axes),
+                       dt_t.data_ptr(), out.data_ptr(), n_bad.data_ptr(),
+                       U[0].numel(), float(opts.density_floor),
+                       float(opts.temperature_floor), float(opts.eos.c_v)
+                       if opts.temperature_floor > 0.0 else 0.0,
+                       opts.eos.gamma - 1.0,
+                       int(opts.use_dual_energy), _stream(U))
+    check(err, "apply_update")
+    launch_counts["apply_update"] += 1
+    return out, n_bad.reshape(())
+
+
+# ------------------------------------------------------ all-axis sweeps
+def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
+                              avg_with: dict | None = None, *,
+                              emit_avg_flux=False, accumulate=False,
+                              div_only=False, fo_mask=None, fo_from=None,
+                              acc_init=None, corr_masks=None,
+                              corr_init=None) -> dict:
+    """Sweep all axes once from the CONSERVED state, emitting fluxes and
+    their divergences (`pallas_sweep.compute_fluxes_pallas_div`). Returns
+    a dict with ``fluxes``, ``facevels``, ``flux_hi``, ``vel_hi``, ``divs``,
+    ``dvels``; with ``avg_with`` (stage 2, the stage-1 dict) the divs hold
+    the divergence of the time-averaged flux and the face dicts are empty."""
+    _unsupported(emit_avg_flux=emit_avg_flux, accumulate=accumulate,
+                 div_only=div_only, fo_mask=fo_mask, fo_from=fo_from,
+                 acc_init=acc_init, corr_masks=corr_masks, corr_init=corr_init)
+    dmins, chi_cell, _ = precompute_transverse(Ug, opts, bc_kinds,
+                                               state_is_cons=True)
+    out = {"fluxes": {}, "facevels": {}, "flux_hi": {}, "vel_hi": {},
+           "divs": {}, "dvels": {}}
+    for d in opts.active_axes:
+        bc_axis = None if bc_kinds is None else bc_kinds.get(d)
+        avg_axis = None
+        if avg_with is not None:
+            avg_axis = (avg_with["fluxes"][d], avg_with["facevels"][d])
+            if bc_axis is not None:
+                avg_axis += (avg_with["flux_hi"][d], avg_with["vel_hi"][d])
+        res = compute_axis_flux(Ug, d, opts, chi_cell, dmins, False,
+                                bc_axis=bc_axis, dx_axis=opts.dx[d],
+                                avg_with=avg_axis, state_is_cons=True)
+        if avg_axis is not None:
+            out["divs"][d], out["dvels"][d] = res
+            continue
+        if bc_axis is None:
+            F, v, dv, dl = res
+        else:
+            F, v, Fh, vh, dv, dl = res
+            out["flux_hi"][d] = Fh
+            out["vel_hi"][d] = vh
+        out["fluxes"][d] = F
+        out["facevels"][d] = v
+        out["divs"][d] = dv
+        out["dvels"][d] = dl
+    return out
+
+
+def compute_fluxes_pallas(Ug, opts, first_order: bool = False,
+                          bc_kinds: dict | None = None):
+    """All-axis face fluxes of the conserved state with cons->prim outside
+    the kernels (`pallas_sweep.compute_fluxes_pallas`). With `bc_kinds`
+    returns (fluxes, facevels, flux_hi, vel_hi), else (fluxes, facevels)."""
+    prim = euler.cons_to_prim(Ug, opts.eos, opts.reconstruct_eint)
+    if first_order:
+        dmins, chi_cell = {}, None
+    else:
+        dmins, chi_cell, _ = precompute_transverse(prim, opts, bc_kinds)
+    fluxes, facevels, flux_hi, vel_hi = {}, {}, {}, {}
+    for d in opts.active_axes:
+        bc_axis = None if bc_kinds is None else bc_kinds.get(d)
+        res = compute_axis_flux(prim, d, opts, chi_cell, dmins, first_order,
+                                bc_axis=bc_axis)
+        fluxes[d], facevels[d] = res[0], res[1]
+        if bc_axis is not None:
+            flux_hi[d], vel_hi[d] = res[2], res[3]
+    if bc_kinds is None:
+        return fluxes, facevels
+    return fluxes, facevels, flux_hi, vel_hi

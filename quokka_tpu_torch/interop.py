@@ -1,0 +1,42 @@
+"""Carry state and solver configuration across from `quokka_tpu`.
+
+A physics solver has no weights: what the two packages must share to
+compute the same step is the state and the solver configuration. Both come
+as plain numpy arrays and plain dicts, so this module never imports jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .eos import IdealGasEOS
+from .hydro.advance import HydroOptions
+
+
+def state_from_numpy(U, device, dtype=torch.float32) -> torch.Tensor:
+    """A contiguous [nvar, X, Y, Z] tensor from any array-like."""
+    return torch.tensor(np.array(U), dtype=dtype, device=device).contiguous()
+
+
+def hydro_options_from_fields(d: dict):
+    """(HydroOptions, IdealGasEOS) from the field dict of a
+    `quokka_tpu.hydro.advance.HydroOptions` (as `dataclasses.asdict` gives
+    it: the EOS is a nested dict). Fields of the TPU's kernel switch and
+    ghost-padded layout (`use_pallas`, `nghost`) are dropped; an unknown
+    field raises."""
+    eos_f = d["eos"]
+    if not isinstance(eos_f, dict):
+        eos_f = dataclasses.asdict(eos_f)
+    eos = IdealGasEOS(**eos_f)
+    known = {f.name for f in dataclasses.fields(HydroOptions)}
+    fields = {k: v for k, v in d.items()
+              if k not in ("eos", "use_pallas", "nghost")}
+    unknown = set(fields) - known
+    if unknown:
+        raise ValueError(f"HydroOptions fields not in the port: {sorted(unknown)}")
+    fields["active_axes"] = tuple(fields["active_axes"])
+    fields["dx"] = tuple(fields["dx"])
+    return HydroOptions(eos=eos, **fields), eos

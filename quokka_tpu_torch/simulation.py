@@ -1,0 +1,291 @@
+"""The unigrid hydro Simulation: state ownership, evolve loop, timestep control.
+
+Counterpart of `quokka_tpu.simulation.Simulation` (reference
+``src/simulation.hpp:141`` and ``src/QuokkaSimulation.hpp:64``) for the
+hydro slice: the deck knobs, CFL timestep with the dt change limiter, the
+hydro retry ladder, the conservation audit and the performance
+figure-of-merit. The state lives on the `device` the caller names; on a
+CUDA device every hydro stage runs through the K1-K3 kernels.
+
+Deck keys of subsystems the port does not have yet (radiation, gravity,
+cooling, chemistry, AMR, output) raise NotImplementedError naming the key.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import ParmParse
+from .grid import Grid
+from .hydro import euler
+from .hydro.advance import HydroOptions, advance_hydro_rk2
+from .indices import EGAS, RHO
+from .registry import BC_PERIODIC, BC_REFLECT, Problem
+
+# deck key -> predicate on its value that means "this subsystem is on"
+_UNPORTED_KEYS = {
+    "amr.max_level": lambda v: int(v) > 0,
+    "cooling.enabled": lambda v: bool(int(v)),
+    "chemistry.enabled": lambda v: bool(int(v)),
+    "plotfile_interval": lambda v: int(v) > 0,
+    "checkpoint_interval": lambda v: int(v) > 0,
+    "projection_interval": lambda v: int(v) > 0,
+    "statistics_interval": lambda v: int(v) > 0,
+    "ascent_interval": lambda v: int(v) > 0,
+    "restartfile": lambda v: bool(str(v)),
+    "quokka.diagnostics": lambda v: True,
+    "max_walltime": lambda v: bool(str(v)),
+}
+_UNPORTED_PREFIXES = ("radiation.", "gravity.", "particles.")
+
+
+class Simulation:
+    """Single-level (unigrid) hydro simulation on one device."""
+
+    def __init__(self, problem: Problem, pp: Optional[ParmParse] = None, *,
+                 device, precision: str | None = None):
+        self.problem = problem
+        self.pp = pp or ParmParse()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        self._check_unported_keys()
+        phys = problem.physics
+        if phys.radiation_enabled or phys.gravity_enabled or phys.mhd_enabled:
+            raise NotImplementedError(
+                f"problem {problem.name!r}: radiation, gravity and MHD are not ported yet")
+
+        n_cell = self.pp.get_list("amr.n_cell", [64, 1, 1])
+        while len(n_cell) < 3:
+            n_cell.append(1)
+        prob_lo = self.pp.get_list("geometry.prob_lo", [0.0, 0.0, 0.0])
+        prob_hi = self.pp.get_list("geometry.prob_hi", [1.0, 1.0, 1.0])
+        while len(prob_lo) < 3:
+            prob_lo.append(0.0)
+        while len(prob_hi) < 3:
+            prob_hi.append(1.0)
+        self.grid = Grid(tuple(n_cell), tuple(prob_lo), tuple(prob_hi))
+
+        prec = precision or self.pp.get_str("precision", "double")
+        self.dtype = torch.float64 if prec == "double" else torch.float32
+
+        # runtime knobs (defaults mirror the reference's readParameters,
+        # src/simulation.hpp:541-636, and QuokkaSimulation.hpp:340-396)
+        self.cfl = self.pp.get_float("cfl", 0.3)
+        self.stop_time = self.pp.get_float("stop_time", 1.0)
+        self.max_timesteps = self.pp.get_int("max_timesteps", 10000)
+        self.init_dt = self.pp.get_float("init_dt", 1.0e30)
+        self.max_dt = self.pp.get_float("max_dt", 1.0e30)
+        self.constant_dt = self.pp.get_float("constant_dt", -1.0)
+        self.verbose = self.pp.get_int("verbose", 1)
+
+        hpp = self.pp
+        self.layout = phys.layout()
+        self.eos = problem.make_eos()
+        self.periodic = tuple(problem.bcs.is_periodic(d) for d in range(3))
+        self.hydro_opts = HydroOptions(
+            eos=self.eos,
+            active_axes=self.grid.active_axes,
+            dx=self.grid.dx,
+            reconstruction_order=hpp.get_int("hydro.reconstruction_order", 3),
+            use_flattening=bool(hpp.get_int("hydro.use_flattening", 1)),
+            reconstruct_eint=problem.hydro.reconstruct_eint,
+            riemann="hllc",
+            K_visc=hpp.get_float("hydro.artificial_viscosity_coefficient", 0.0),
+            n_scalars=phys.n_scalars,
+            n_mscalars=phys.n_mscalars,
+            density_floor=hpp.get_float("density_floor", 0.0),
+            temperature_floor=hpp.get_float("temperature_floor", 0.0),
+            use_dual_energy=bool(hpp.get_int("hydro.use_dual_energy", 1)),
+            rk_order=hpp.get_int("hydro.rk_integrator_order", 2),
+            fuse_update=bool(hpp.get_int("hydro.fuse_update", 1)),
+        )
+        self._gf = self._ghost_free_config()
+
+        self.U: Optional[torch.Tensor] = None
+        self.t = 0.0
+        self.dt_prev = float("inf")
+        self.istep = 0
+        self.cell_updates = 0
+        self.fofc_cells = 0  # invalid cells that triggered FOFC, summed
+        self.fofc_fallbacks = 0  # stages that took the FOFC fallback
+        self.init_sums: Optional[np.ndarray] = None
+
+    def _check_unported_keys(self):
+        for key, vals in self.pp.table.items():
+            pred = _UNPORTED_KEYS.get(key)
+            on = pred(vals[0]) if pred is not None else key.startswith(_UNPORTED_PREFIXES)
+            if on:
+                raise NotImplementedError(
+                    f"deck key {key!r} = {vals} selects a subsystem that "
+                    "quokka_tpu_torch does not port yet")
+
+    def _ghost_free_config(self):
+        """Stepping mode for the hydro advance: every axis unpadded, walls
+        read through the kernels' index map. Returns {"ng", "bc_kinds"}
+        with bc_kinds[axis] = (lo, hi) for a wall axis, None if periodic."""
+        kinds = {}
+        for d in self.hydro_opts.active_axes:
+            lo, hi = self.problem.bcs.axis(d)
+            if self.periodic[d]:
+                kinds[d] = None
+            elif lo == hi == BC_REFLECT:
+                kinds[d] = (lo, hi)
+            else:
+                raise NotImplementedError(
+                    f"axis {d} boundary ({lo}, {hi}): the port supports "
+                    f"{BC_PERIODIC} and {BC_REFLECT} walls")
+        return {"ng": (0, 0, 0), "bc_kinds": kinds}
+
+    # ------------------------------------------------------------------ step
+    def _step(self, U, dt):
+        """One hydro step; stats carry max_signal and valid as device
+        tensors."""
+        U_new, stats = advance_hydro_rk2(
+            U, dt, self.hydro_opts, None, self._gf["ng"], self.periodic,
+            bc_kinds=self._gf["bc_kinds"])
+        smax = euler.max_signal_speed(U_new, self.eos).max()
+        valid = euler.is_state_valid(U_new, self.eos).all()
+        return U_new, {"max_signal": smax, "valid": valid, **stats}
+
+    def _sums(self, U):
+        return (U.sum(dim=(1, 2, 3), dtype=torch.float64)
+                * self.grid.cell_volume()).cpu().numpy()
+
+    # ------------------------------------------------------------------ setup
+    def set_initial_conditions(self):
+        U = self.problem.set_initial_conditions(self.grid, dtype=self.dtype,
+                                                device=self.device)
+        expected = (self.layout.nvar, *self.grid.n_cell)
+        if tuple(U.shape) != expected:
+            raise ValueError(f"IC shape {tuple(U.shape)} != expected {expected}")
+        self.U = U.to(dtype=self.dtype, device=self.device).contiguous()
+        self.init_sums = self._sums(self.U)
+
+    # --------------------------------------------------------------- timestep
+    def compute_timestep(self) -> float:
+        if self.constant_dt > 0.0:
+            dt = self.constant_dt
+        else:
+            smax = float(euler.max_signal_speed(self.U, self.eos).max())
+            dt = self.cfl * self.grid.dx_min / smax
+            dt = min(dt, 1.1 * self.dt_prev)  # change_max limiter
+            dt = min(dt, self.max_dt)
+            if self.t == 0.0:
+                dt = min(dt, self.init_dt)
+        # avoid overshooting stop_time (reference src/simulation.hpp:805-809)
+        eps = 1.0e-3 * dt
+        if self.t + dt > self.stop_time - eps:
+            dt = self.stop_time - self.t
+        return dt
+
+    # ----------------------------------------------------------------- evolve
+    def advance_single_step(self, dt: float) -> bool:
+        """One hydro step with the retry ladder (reference
+        `advanceHydroAtLevelWithRetries`, ``src/QuokkaSimulation.hpp:886-990``).
+        Returns True on success (self.U updated)."""
+        max_retries = 6
+        U_start = self.U
+        for retry in range(max_retries + 1):
+            nsub = 2**retry
+            dt_sub = dt / nsub
+            U = U_start
+            ok = True
+            cells, fallbacks = 0, 0
+            for _ in range(nsub):
+                U, stats = self._step(U, dt_sub)
+                valid, smax, n_fofc = torch.stack([
+                    stats["valid"].double(), stats["max_signal"].double(),
+                    stats["n_fofc"].double()]).tolist()
+                cells += int(n_fofc)
+                fallbacks += stats["fofc_fallbacks"]
+                dt_cfl = self.cfl * self.grid.dx_min / smax
+                if not (valid and not dt_sub > 1.1 * dt_cfl):
+                    ok = False
+                    break
+            if ok:
+                self.U = U
+                self.fofc_cells += cells
+                self.fofc_fallbacks += fallbacks
+                return True
+            if self.verbose:
+                print(f"\t>> Re-trying hydro advance with reduced timestep "
+                      f"(nsubsteps={2*nsub}, dt={dt/(2*nsub):.3e})")
+        return False
+
+    def evolve(self):
+        from .utils.profiler import prof
+
+        if self.U is None:
+            self.set_initial_conditions()
+        prof.reset(enabled=bool(self.pp.get_int("profile.enabled", 0)))
+        self._sync()
+        start_walltime = _time.perf_counter()
+        ncells = self.grid.num_cells
+
+        while self.t < self.stop_time * (1.0 - 1e-14) and self.istep < self.max_timesteps:
+            self.problem.compute_before_timestep(self)
+            with prof.region("computeTimestep"):
+                dt = self.compute_timestep()
+            if dt <= 0.0:
+                break
+            if self.verbose:
+                print(f"Coarse STEP {self.istep + 1} starts t = {self.t:.6e} dt = {dt:.6e}")
+            with prof.region("HydroSolver"):
+                ok = self.advance_single_step(dt)
+                prof.sync(self.U)
+            if not ok:
+                raise RuntimeError(
+                    f"Hydro update exceeded max_retries at step {self.istep}; cannot continue.")
+            self.t += dt
+            self.dt_prev = dt
+            self.istep += 1
+            self.cell_updates += ncells
+
+        self._sync()
+        prof.report()
+        elapsed = _time.perf_counter() - start_walltime
+        self.elapsed_walltime = elapsed
+        # performance FOM (reference src/simulation.hpp:972-980)
+        if elapsed > 0 and self.cell_updates > 0:
+            mzones = self.cell_updates / elapsed / 1.0e6
+            self.zone_updates_per_second = mzones * 1.0e6
+            if self.verbose:
+                print(f"Performance figure-of-merit: {elapsed/self.cell_updates*1e6:.6f} "
+                      f"μs/zone-update [={mzones:.3f} Mupdates/s] on {self.device_name()}")
+        else:
+            self.zone_updates_per_second = 0.0
+        if self.verbose:
+            print(f"FOFC: {self.fofc_fallbacks} stage fallbacks, "
+                  f"{self.fofc_cells} invalid cells")
+        self._conservation_audit()
+        self.problem.compute_after_evolve(self)
+
+    def device_name(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return str(self.device)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------- diagnostics
+    def _conservation_audit(self):
+        final = self._sums(self.U)
+        init = self.init_sums
+        self.conservation_abs_err = final - init
+        with np.errstate(divide="ignore", invalid="ignore"):
+            self.conservation_rel_err = np.where(init != 0, (final - init) / init, np.nan)
+        if self.verbose:
+            print(f"\nInitial mass = {init[RHO]:.12e}")
+            print(f"Final mass   = {final[RHO]:.12e}")
+            print(f"Initial gas energy = {init[EGAS]:.12e}")
+            print(f"Final gas energy   = {final[EGAS]:.12e}")
+            if init[EGAS] != 0:
+                print(f"\trelative conservation error = "
+                      f"{(final[EGAS] - init[EGAS]) / init[EGAS]:.3e}\n")

@@ -1,0 +1,85 @@
+"""Shared inputs and tolerances of the port parity tests (tests/port)."""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from quokka_tpu.eos import IdealGasEOS as JEOS
+from quokka_tpu.hydro import advance as jadv
+from quokka_tpu.registry import BC_REFLECT
+
+from quokka_tpu_torch.interop import hydro_options_from_fields, state_from_numpy
+
+REFLECT = (BC_REFLECT, BC_REFLECT)
+BC_KINDS = {
+    "reflect_all": {0: REFLECT, 1: REFLECT, 2: REFLECT},
+    "periodic_x": {0: None, 1: REFLECT, 2: REFLECT},
+}
+
+
+def make_state(shape, seed=0, rough=False):
+    """Seeded conserved state (float64 numpy); `rough` plants a density /
+    pressure well and wall shocks that drive the update invalid and fire
+    the FOFC fallback (same recipe as tests/test_ghostfree.py)."""
+    rng = np.random.default_rng(seed)
+    rho = 1.0 + 0.5 * rng.random(shape)
+    vx = 0.3 * rng.standard_normal(shape)
+    vy = 0.3 * rng.standard_normal(shape)
+    vz = 0.3 * rng.standard_normal(shape)
+    eint = 1.0 + rng.random(shape)
+    if rough:
+        rho[2, 2, 2] = 1e-4
+        eint[2, 2, 2] = 1e-6
+        vx[3, 2, 2] = 8.0
+        vx[1, 2, 2] = -8.0
+        n = shape[0]
+        eint[0, :, :] *= 30.0
+        eint[1, :, :] *= 4.0
+        vx[0, :, :] = 2.0
+        vx[1, :, :] = -1.5
+        eint[:, :, n - 1] *= 25.0
+        eint[:, :, n - 2] *= 3.0
+        vz[:, :, n - 1] = -2.0
+        vz[:, :, n - 2] = 1.2
+    ke = 0.5 * rho * (vx**2 + vy**2 + vz**2)
+    return np.stack([rho, rho * vx, rho * vy, rho * vz, rho * eint + ke,
+                     rho * eint])
+
+
+def jax_opts(n, **kw):
+    return jadv.HydroOptions(
+        dx=(1.0 / n, 1.0 / n, 1.0 / n), eos=JEOS(gamma=1.4),
+        active_axes=(0, 1, 2), reconstruction_order=3, use_pallas=True,
+        reconstruct_eint=False, **kw)
+
+
+def port_opts(jopts):
+    return hydro_options_from_fields(dataclasses.asdict(jopts))[0]
+
+
+def t32(a):
+    return state_from_numpy(a, "cpu", torch.float32)
+
+
+def ulp_close(b, a, rtol=1e-5, ulp_of_max=64, what=""):
+    """Per-component agreement of port result `a` with reference `b` at f32
+    roundoff: rtol 1e-5 plus `ulp_of_max` ulps of the component's largest
+    magnitude (the bound of tests/test_fused_update.py). Non-finite
+    patterns must agree exactly."""
+    a = np.asarray(a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a,
+                   np.float32)
+    b = np.asarray(b, np.float32)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    fin = np.isfinite(b)
+    np.testing.assert_array_equal(np.isfinite(a), fin, err_msg=what)
+    np.testing.assert_array_equal(a[~fin], b[~fin], err_msg=what)
+    if a.ndim <= 2:
+        a, b, fin = a[None], b[None], fin[None]
+    if a.ndim == 3:
+        a, b, fin = a[None], b[None], fin[None]
+    for c in range(a.shape[0]):
+        m = fin[c]
+        atol = ulp_of_max * np.spacing(np.max(np.abs(b[c][m]), initial=0.0))
+        np.testing.assert_allclose(a[c][m], b[c][m], rtol=rtol, atol=atol,
+                                   err_msg=f"{what} component {c}")
