@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of quokka_tpu_torch on one CUDA GPU: build the hand-written
-kernels, hold each against its plain PyTorch version at the main path's
-shapes, then run the main path -- 20 steps of the Sedov 256^3 f32 blast
-from decks/benchmark_unigrid_256.in through `Simulation(device="cuda")`.
+kernels, hold each against its plain PyTorch version at the main paths'
+shapes, compare small runs with the CPU, then run the two main paths
+through `Simulation` on the card:
+
+- hydro: 10 steps of the Sedov 256^3 f32 blast from
+  decks/benchmark_unigrid_256.in (kernels K1-K3);
+- radhydro: RadhydroBench 256^3 f32 (the JAX package's bench.py:54-62
+  deck), 10 steps with the fused substep (K1-K4) and 2 steps stage by
+  stage (K1-K3, K5, K6).
 
 Run from the repository root:  python3 chip_smoke.py
-Phases print as they go; any failure exits non-zero. The last two lines are
-the card's name and power limit and {"ok": true, "device": {...}}; the line
-before them is the kernels' JSON summary. The full nvcc/ptxas log is kept
-beside the built library in quokka_tpu_torch/_build/.
+Phases print as they go; any failure exits non-zero. The last three lines
+are the kernels' JSON summary, the card's name and power limit, and
+{"ok": true, "device": {...}}. The full nvcc/ptxas log is kept beside the
+built library in quokka_tpu_torch/_build/.
 """
 
 import dataclasses
@@ -28,7 +34,16 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                   "quokka_tpu/hydro/pallas_sweep.py:1148"),
     "apply_update": ("K3 apply_update", "quokka_tpu_torch/csrc/apply.cu",
                      "quokka_tpu/hydro/pallas_sweep.py:1409"),
+    "rad_stage1": ("K4 fused_substep stage 1", "quokka_tpu_torch/csrc/rad_substep.cu",
+                   "quokka_tpu/radiation/pallas_substep.py:183"),
+    "rad_stage2": ("K4 fused_substep stage 2", "quokka_tpu_torch/csrc/rad_substep.cu",
+                   "quokka_tpu/radiation/pallas_substep.py:196"),
+    "rad_source": ("K5 source_update", "quokka_tpu_torch/csrc/rad_source.cu",
+                   "quokka_tpu/radiation/pallas_source.py:59"),
+    "rad_div": ("K6 compute_rad_div", "quokka_tpu_torch/csrc/rad_sweep.cu",
+                "quokka_tpu/radiation/pallas_sweep.py:115"),
 }
+HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
 
 
 def phase(name):
@@ -56,6 +71,83 @@ def rough_state(n, seed=7):
                      rho * eint])
 
 
+def rough_rad_state(n, seed=9):
+    """Seeded [10, n, n, n] f32 radhydro state on the card: moving gas (the
+    work term is non-zero), |f| -> 1 and E near the floor beside E ~ 1, so
+    reconstructed faces go inadmissible and the donor-cell fallback fires."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n, n, n)
+
+    def rand(*s):
+        return torch.rand(s, generator=g, device="cuda", dtype=torch.float64)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device="cuda", dtype=torch.float64)
+
+    rho = 0.5 + rand(*shape)
+    v = 0.3 * randn(3, *shape)
+    T = 0.5 + rand(*shape)
+    Eint = rho * 1.5 * T
+    E = T**4 * (0.5 + rand(*shape))
+    nvec = randn(3, *shape)
+    nvec /= nvec.norm(dim=0)
+    fmag = 0.5 * rand(*shape)
+    fmag[rand(*shape) < 0.1] = 0.9999
+    E[rand(*shape) < 0.1] = 2e-10
+    F = nvec * fmag * 1.0e3 * E
+    ke = 0.5 * rho * (v * v).sum(dim=0)
+    U = torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], Eint + ke, Eint,
+                     E, F[0], F[1], F[2]])
+    return U.float().contiguous()
+
+
+def run_cases(title, cases, timed, summary, failed, extra_of=None):
+    """Check each case against its plain version; time the timed input."""
+    from quokka_tpu_torch import kernel_check
+
+    print(f"-- {title}")
+    for case in cases:
+        ok, max_abs, max_rel, got, ref = case.check()
+        extra = extra_of(case, got, ref) if extra_of else ""
+        if extra is None:
+            ok, extra = False, " (extra check failed)"
+        line = f"{case.label:28s} max_abs {max_abs:.3e} max_rel {max_rel:.3e}"
+        del got, ref
+        s = summary[case.kernel]
+        if timed(case):
+            ms = kernel_check.time_ms(case.run_kernel)
+            plain_ms = kernel_check.time_ms(case.run_plain)
+            nbytes, ops = case.cost()
+            b_ms, b_by = kernel_check.bound_ms(nbytes, ops)
+            s["ms"] += ms
+            s["plain_ms"] += plain_ms
+            s["bound_ms"] += b_ms
+            s["bytes"] += nbytes
+            s["ops"] += ops
+            line += (f" | kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {b_ms:.3f} ms "
+                     f"({b_by}: {nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)")
+        print(f"  {'ok  ' if ok else 'FAIL'} {line}{extra}", flush=True)
+        s["max_abs_err"] = max(s["max_abs_err"], max_abs)
+        if not ok:
+            failed.append(f"{title}: {case.label}")
+
+
+def gpu_vs_cpu(a, b, what, rtol, atol_frac):
+    """|a - b| <= rtol |b| + atol_frac x (component max of b), per component."""
+    worst = 0.0
+    for c in range(b.shape[0]):
+        scale = float(b[c].abs().max())
+        diff = (a[c] - b[c]).abs()
+        worst = max(worst, float(diff.max()) / scale if scale > 0 else float(diff.max()))
+        if not bool((diff <= rtol * b[c].abs() + atol_frac * scale).all()):
+            raise SystemExit(f"{what}: component {c} off by {float(diff.max()):.3e} "
+                             f"(scale {scale:.3e})")
+    print(f"  ok   {what}: max |diff| / component max {worst:.3e} "
+          f"(limit rtol {rtol:g} + atol {atol_frac:g} x max)")
+
+
 def main() -> int:
     import torch
 
@@ -79,27 +171,41 @@ def main() -> int:
     print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
 
-    from quokka_tpu_torch import ParmParse, Simulation, _cuda, kernel_check
-    from quokka_tpu_torch.benchmarks import bench_hydro
+    from quokka_tpu_torch import ParmParse, PowerLawOpacity, Simulation, _cuda, kernel_check
+    from quokka_tpu_torch.benchmarks import bench_hydro, bench_radhydro
     from quokka_tpu_torch.hydro import sweep
     from quokka_tpu_torch.hydro.advance import advance_hydro_rk2
     from quokka_tpu_torch.interop import state_from_numpy
+    from quokka_tpu_torch.problems.radhydro_bench import DECK_256, RadhydroBenchProblem
     from quokka_tpu_torch.problems.sedov import SedovProblem
+    from quokka_tpu_torch.radiation import sweep as rsweep
     from quokka_tpu_torch.registry import BC_REFLECT
+
+    def reset_counts():
+        sweep.reset_launch_counts()
+        rsweep.reset_launch_counts()
+
+    def read_counts():
+        return {**sweep.launch_counts, **rsweep.launch_counts}
 
     # ---- 2. build
     phase("2. build")
     t0 = time.perf_counter()
     _cuda.library()
     print(f"built {_cuda.build_info['path']} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_cuda.build_info['seconds']:.1f} s)")
+          f"(nvcc, one process per source, {_cuda.build_info['seconds']:.1f} s)")
     for line in _cuda.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    # ---- 3. kernels against their plain versions, at the main path's shapes
-    phase("3. kernels vs plain PyTorch (tolerance: rtol 1e-5 + 64 ulps of "
-          "each component's max)")
+    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes": 0, "ops": 0} for k in KERNELS}
+    failed = []
+
+    # ---- 3. kernels against their plain versions, at the main paths' shapes
+    phase("3. kernels vs plain PyTorch (tolerance: rtol 1e-5 + 64 ulps of each "
+          "component's max; through the Newton coupling, max |diff| <= 2e-5 x "
+          "the component's max)")
     pp = ParmParse.from_file(str(DECK), overrides=["max_timesteps=3", "verbose=0"])
     warm = Simulation(SedovProblem(), pp, device="cuda")
     warm.set_initial_conditions()
@@ -125,43 +231,55 @@ def main() -> int:
         ("rough state + viscosity, T floor, reconstruct_eint", U_rough, U_rough2,
          mixed, 0.2 / n, opts_extra),
     ]
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
-    failed = []
+
+    def k3_counts(case, got, ref):
+        if case.kernel != "apply_update":
+            return ""
+        nk, npl = int(got[1]), int(ref[1])
+        return f" invalid cells kernel {nk} plain {npl}" if (nk > 0) == (npl > 0) else None
+
     for title, U, U2, bc, dt_in, opts_in in inputs:
-        print(f"-- {title}")
         timed = title.startswith("Sedov")
-        for case in kernel_check.cases(U, U2, opts_in, bc, dt_in):
-            got = case.run_kernel()
-            ref = case.run_plain()
-            torch.cuda.synchronize()
-            ok, max_abs, max_rel = kernel_check.compare(got, ref)
-            if case.kernel == "apply_update":
-                nk, npl = int(got[1]), int(ref[1])
-                ok = ok and (nk > 0) == (npl > 0)
-                extra = f" invalid cells kernel {nk} plain {npl}"
-            else:
-                extra = ""
-            line = f"{case.label:28s} max_abs {max_abs:.3e} max_rel {max_rel:.3e}"
-            if timed and "first order" not in case.label and "avg" not in case.label:
-                ms = kernel_check.time_ms(case.run_kernel)
-                plain_ms = kernel_check.time_ms(case.run_plain)
-                summary[case.kernel]["ms"] += ms
-                summary[case.kernel]["plain_ms"] += plain_ms
-                line += f" | kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
-            print(f"  {'ok  ' if ok else 'FAIL'} {line}{extra}", flush=True)
-            s = summary[case.kernel]
-            s["max_abs_err"] = max(s["max_abs_err"], max_abs)
-            if not ok:
-                failed.append(f"{title}: {case.label}")
-            del got, ref
-    del warm, U_sedov, U_sedov2, U_rough, U_rough2
+        run_cases(title, kernel_check.cases(U, U2, opts_in, bc, dt_in), lambda c, t=timed: (
+            t and "first order" not in c.label and "avg" not in c.label),
+            summary, failed, k3_counts)
+    del warm, U_sedov, U_sedov2, U_rough, U_rough2, inputs
     torch.cuda.empty_cache()
-    print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; "
-          "K2 sums the three stage-1 sweeps")
+
+    # radiation: RadhydroBench after 2 steps, and a rough state with
+    # T-dependent opacities
+    rpp = ParmParse.from_string(DECK_256, ["max_timesteps=2", "verbose=0"])
+    rwarm = Simulation(RadhydroBenchProblem(), rpp, device="cuda", precision="single")
+    rwarm.set_initial_conditions()
+    rwarm.evolve()
+    rad = rwarm._radiation
+    nsub = rad.n_substeps(rwarm.dt_prev)
+    dt_rad = float(torch.tensor(rwarm.dt_prev / nsub, dtype=torch.float32))
+
+    class RoughOpacity(RadhydroBenchProblem):
+        planck_opacity = PowerLawOpacity(10.0, -1.0, -1.5)
+        energy_mean_opacity = PowerLawOpacity(8.0, -1.0, -1.0)
+        flux_mean_opacity = PowerLawOpacity(12.0, -1.0, 0.5)
+
+    rad_inputs = [
+        (f"RadhydroBench 256^3 after 2 steps (dt_rad {dt_rad:.6e})", rwarm.U,
+         RadhydroBenchProblem()),
+        ("rough radhydro state, T-dependent power-law opacities", rough_rad_state(n),
+         RoughOpacity()),
+    ]
+    for title, U, prob in rad_inputs:
+        timed = title.startswith("RadhydroBench")
+        run_cases(title, kernel_check.rad_cases(U, None, dt_rad, rad.opts, rwarm.eos,
+                                                prob, rwarm.grid.dx),
+                  lambda c, t=timed: t, summary, failed)
+    del rwarm, rad_inputs, U
+    torch.cuda.empty_cache()
+    print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2 and K6 sum "
+          "the three axes, K5 its two stages")
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
-    # ---- 4. a small input against the plain path on the CPU
+    # ---- 4. small inputs against the plain path on the CPU
     phase("4. Sedov 32^3 f32, 5 steps: GPU kernels vs CPU plain versions")
     finals = {}
     for dev in ("cuda", "cpu"):
@@ -197,45 +315,105 @@ def main() -> int:
                                                               int(sc["n_fofc"]))):
         raise SystemExit("the FOFC step disagrees between GPU and CPU")
 
-    # ---- 5. the main path
-    phase("5. main path: Sedov 256^3 f32, 20 steps, decks/benchmark_unigrid_256.in")
-    pp = ParmParse.from_file(str(DECK), overrides=["max_timesteps=20", "verbose=1"])
+    print("-- RadhydroBench 32^3 f32, 3 steps: GPU vs CPU, fused (A) and per-stage (B)")
+    rad_finals = {}
+    for fused in (1, 0):
+        for dev in ("cuda", "cpu"):
+            small = ParmParse.from_string(DECK_256, [
+                "amr.n_cell=32 32 32", "max_timesteps=3", "verbose=0",
+                f"radiation.fused_substep={fused}"])
+            sim = Simulation(RadhydroBenchProblem(), small, device=dev, precision="single")
+            sim.set_initial_conditions()
+            sim.evolve()
+            rad_finals[fused, dev] = sim.U.double().cpu()
+    for fused, cfg in ((1, "A"), (0, "B")):
+        gpu_vs_cpu(rad_finals[fused, "cuda"], rad_finals[fused, "cpu"],
+                   f"config {cfg} GPU vs CPU", 5e-6, 5e-6)
+    gpu_vs_cpu(rad_finals[1, "cuda"], rad_finals[0, "cuda"], "GPU config A vs B", 5e-6, 5e-6)
+
+    # ---- 5. the hydro main path
+    phase("5. main path 1: Sedov 256^3 f32, 10 steps, decks/benchmark_unigrid_256.in")
+    pp = ParmParse.from_file(str(DECK), overrides=["max_timesteps=10", "verbose=1"])
     sim = Simulation(SedovProblem(), pp, device="cuda")
     sim.set_initial_conditions()
     torch.cuda.reset_peak_memory_stats()
-    sweep.reset_launch_counts()
+    reset_counts()
     sim.evolve()
-    launches = dict(sweep.launch_counts)
-    mzones = sim.zone_updates_per_second / 1e6
-    print(f"FOM: {mzones:.3f} Mzone-updates/s over {sim.istep} steps "
-          f"({sim.elapsed_walltime:.3f} s wall, first step included) "
+    sedov_launches = read_counts()
+    print(f"FOM: {sim.zone_updates_per_second / 1e6:.3f} Mzone-updates/s over "
+          f"{sim.istep} steps ({sim.elapsed_walltime:.3f} s wall, first step included) "
           f"on {smi}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     rel = sim.conservation_rel_err
     print(f"conservation: mass rel err {rel[0]:.3e}, energy rel err {rel[4]:.3e}")
     print(f"FOFC: {sim.fofc_fallbacks} stage fallbacks, {sim.fofc_cells} invalid cells")
-    print(f"launches in the main path: {launches}")
+    print(f"launches in the main path: {sedov_launches}")
     finite = bool(torch.isfinite(sim.U).all())
-    if sim.istep != 20 or not finite:
+    if sim.istep != 10 or not finite:
         raise SystemExit(f"main path: {sim.istep} steps, finite state {finite}")
     if not abs(rel[0]) < 1e-5:
         raise SystemExit(f"mass conservation error {rel[0]:.3e} >= 1e-5")
-    missing = [k for k in KERNELS if launches[k] <= 0]
+    missing = [k for k in HYDRO_KEYS if sedov_launches[k] <= 0]
     if missing:
-        raise SystemExit(f"kernels not launched on the main path: {missing}")
+        raise SystemExit(f"kernels not launched on the Sedov path: {missing}")
     del sim
     bench = Simulation(SedovProblem(), pp, device="cuda")
     mz_bench, secs = bench_hydro(bench, n_warmup=2, n_steps=10)
     print(f"bench_hydro (dt on the device, 10 steps after 2): {mz_bench:.3f} "
           f"Mzone-updates/s ({secs:.3f} s) on {smi}")
+    del bench
+    torch.cuda.empty_cache()
+
+    # ---- 6. the radhydro main path
+    rad_launches = {}
+    for fused, cfg, nsteps, need in ((1, "A (fused substep, K4)", 10,
+                                      HYDRO_KEYS + ("rad_stage1", "rad_stage2")),
+                                     (0, "B (per stage, K5 + K6)", 2,
+                                      HYDRO_KEYS + ("rad_source", "rad_div"))):
+        phase(f"6. main path 2: RadhydroBench 256^3 f32, config {cfg}, {nsteps} steps")
+        rpp = ParmParse.from_string(DECK_256, [f"max_timesteps={nsteps}", "verbose=1",
+                                               f"radiation.fused_substep={fused}"])
+        sim = Simulation(RadhydroBenchProblem(), rpp, device="cuda", precision="single")
+        sim.set_initial_conditions()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sim.evolve()
+        launches = read_counts()
+        nsub = sim._radiation.n_substeps(sim.dt_prev)
+        rel = sim.conservation_rel_err
+        finite = bool(torch.isfinite(sim.U).all())
+        print(f"FOM: {sim.zone_updates_per_second / 1e6:.3f} hydro Mzone-updates/s over "
+              f"{sim.istep} steps ({sim.elapsed_walltime:.3f} s wall, first step "
+              f"included), {nsub} radiation substeps a step, on {smi}")
+        print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"conservation: mass rel err {rel[0]:.3e}; finite state {finite}")
+        print(f"launches in this path: {launches}")
+        if sim.istep != nsteps or not finite:
+            raise SystemExit(f"radhydro config {cfg}: {sim.istep} steps, finite {finite}")
+        if not abs(rel[0]) < 1e-5:
+            raise SystemExit(f"mass conservation error {rel[0]:.3e} >= 1e-5")
+        missing = [k for k in need if launches[k] <= 0]
+        if missing:
+            raise SystemExit(f"kernels not launched on radhydro config {cfg}: {missing}")
+        rad_launches.update({k: launches[k] for k in need if k not in HYDRO_KEYS})
+        del sim
+        torch.cuda.empty_cache()
+    bench = Simulation(RadhydroBenchProblem(), ParmParse.from_string(DECK_256, ["verbose=0"]),
+                       device="cuda", precision="single")
+    mz_rad, secs, nsub = bench_radhydro(bench, n_warmup=1, n_steps=3)
+    print(f"bench_radhydro (fixed dt, {nsub} substeps a step, 3 steps after 1): "
+          f"{mz_rad:.3f} hydro Mzone-updates/s ({secs:.3f} s) on {smi}")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
         s = summary[key]
+        _, bound_by = kernel_check.bound_ms(s["bytes"], s["ops"])
         rows.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[key],
+                     "replaces": replaces,
+                     "launches": sedov_launches[key] if key in HYDRO_KEYS else rad_launches[key],
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                     "plain_ms": s["plain_ms"]})
+                     "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                     "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

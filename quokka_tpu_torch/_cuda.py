@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, loaded through ``ctypes``. The library lands in
+with a plain C interface, loaded through ``ctypes``: one ``nvcc -c`` per
+source, all started together, then one link. The library lands in
 ``_build/`` beside this file, named by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads at once.
 
@@ -25,8 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
 build_info: dict = {}
@@ -41,6 +43,12 @@ _SIGNATURES = {
                     _I, _F, _P],
     "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                  _F, _F, _F, _F, _I, _P],
+    # radiation kernels: the last pointer before the stream is a host
+    # `RadParams` (radiation/sweep.py), copied into the launch by value
+    "qk_rad_div": [_P, _P, _L, _L, _L, _I, _P, _P],
+    "qk_rad_source": [_P, _P, _P, _L, _F, _I, _P, _P],
+    "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
+    "qk_rad_stage2": [_P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
 }
 
 
@@ -62,21 +70,40 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     so = BUILD_DIR / f"libquokka_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{log[-6000:]}")
+        nvcc = _nvcc()
+        jobs = []
+        for src in sources:
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, obj, proc in jobs:
+            out, _ = proc.communicate()
+            log += " ".join(cmd) + "\n" + out
+            if proc.returncode != 0:
+                failed.append(f"{Path(cmd[-1]).name} (code {proc.returncode})")
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        if not failed:
+            cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log += " ".join(cmd) + "\n" + res.stdout + res.stderr
+            if res.returncode != 0:
+                failed.append(f"link (code {res.returncode})")
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        so.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {failed}:\n{log[-6000:]}")
         os.replace(tmp, so)
         build_info.update(seconds=time.perf_counter() - t0, log=log, built=True)
     else:

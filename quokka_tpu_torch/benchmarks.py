@@ -1,6 +1,8 @@
-"""Benchmark runner: an asynchronous step loop with dt computed on the device.
+"""Benchmark runners: an asynchronous step loop with dt computed on the device
+(hydro), and a fixed-dt radhydro loop.
 
-Counterpart of `quokka_tpu.benchmarks.build_step_runner` / `bench_hydro`.
+Counterpart of `quokka_tpu.benchmarks.build_step_runner` / `bench_hydro` /
+`bench_radhydro`.
 The reference's FOM is million zone-updates/s printed by `evolve()`
 (``src/simulation.hpp:972-980``). Here the host only launches steps: the CFL
 dt = cfl * dx_min / max(|v| + cs), with the 1.1x change limiter, stays a
@@ -56,3 +58,48 @@ def bench_hydro(sim, n_warmup: int = 2, n_steps: int = 10, dt_init: float = 1e-8
     _sync(U)
     elapsed = time.perf_counter() - t0
     return sim.grid.num_cells * n_steps / elapsed / 1e6, elapsed
+
+
+def build_radhydro_step(sim, dt: float):
+    """`step(U, t) -> U_new` of one radhydro step at the fixed `dt`: the
+    hydro advance of the gas block, then the radiation subcycle with the
+    substep count fixed with dt. Returns (step, nsub)."""
+    rad = sim._radiation
+    opts = sim.hydro_opts
+    gf = sim._ghost_free_config()
+    nh = sim.layout.nvar_hydro
+    nsub = rad.n_substeps(dt)
+    dt_rad = dt / nsub
+
+    def step(U, t):
+        Uh, _stats = advance_hydro_rk2(U[:nh], dt, opts, None, gf["ng"],
+                                       sim.periodic, bc_kinds=gf["bc_kinds"])
+        U = torch.cat([Uh, U[nh:]])
+        for i in range(nsub):
+            U = rad.substep(U, t + i * dt_rad, dt_rad)
+        return U
+
+    return step, nsub
+
+
+def bench_radhydro(sim, n_warmup: int = 1, n_steps: int = 5):
+    """Time full radhydro steps at the fixed dt of the initial state
+    (`build_radhydro_step`). Returns (Mzones_per_sec, s, nsub); the FOM
+    counts hydro zone-updates, as the reference does (radiation substeps
+    are extra work per zone-update, reference ``src/simulation.hpp:972-980``)."""
+    if sim.U is None:
+        sim.set_initial_conditions()
+    dt = sim.compute_timestep()
+    step, nsub = build_radhydro_step(sim, dt)
+    U, t = sim.U, 0.0
+    for _ in range(n_warmup):
+        U = step(U, t)
+        t += dt
+    _sync(U)
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        U = step(U, t)
+        t += dt
+    _sync(U)
+    elapsed = time.perf_counter() - t0
+    return sim.grid.num_cells * n_steps / elapsed / 1e6, elapsed, nsub

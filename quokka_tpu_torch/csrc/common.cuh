@@ -1,5 +1,6 @@
 // Shared device helpers for the hydro kernels (K1 transverse.cu, K2 sweep.cu,
-// K3 apply.cu).
+// K3 apply.cu); the radiation kernels (K4-K6) take the index map, the
+// NaN-propagating min/max and PPM from here (rad_common.cuh).
 //
 // Layout: the state is [6, X, Y, Z] f32, contiguous, z fastest, exactly as
 // the JAX package keeps it. All offsets are 64-bit: 6 x 1024^3 elements
@@ -42,6 +43,38 @@ __device__ __forceinline__ float mx(float a, float b) {
 }
 __device__ __forceinline__ float sgn(float a) {
   return a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : a);
+}
+
+// PPM on one component: (new_minus, new_plus) of the middle cell of
+// (qm2, qm1, q0, qp1, qp2) -- reconstruct.ppm_faces (the JAX package's
+// quokka_tpu/hydro/reconstruct.py:59-107, the same function without chi):
+// the 4th-order interface estimates grouped for FP symmetry, clamped to the
+// 3-cell range, the MC-limited PLM slope at a local extremum and the CW84
+// overshoot resets elsewhere. Shared by the hydro sweep (K2) and the
+// radiation transport (K4, K6).
+__device__ __forceinline__ void ppm_cell(float qm2, float qm1, float q0,
+                                         float qp1, float qp2, float& minus,
+                                         float& plus) {
+  const float c1 = (float)(7.0 / 12.0);
+  const float c2 = (float)(-1.0 / 12.0);
+  const float lo = mn(mn(qm1, q0), qp1);
+  const float hi = mx(mx(qm1, q0), qp1);
+  float a_minus = (c1 * q0 + c2 * qp1) + (c1 * qm1 + c2 * qm2);
+  float a_plus = (c1 * qp1 + c2 * qp2) + (c1 * q0 + c2 * qm1);
+  a_minus = mn(mx(a_minus, lo), hi);
+  a_plus = mn(mx(a_plus, lo), hi);
+  const float dq_minus = q0 - a_minus;
+  const float dq_plus = a_plus - q0;
+  const bool extremum = (dq_plus * dq_minus) <= 0.0f;
+  const float a = qp1 - q0, b = q0 - qm1;
+  const float dq0 = (0.5f * (sgn(a) + sgn(b))) *
+                    mn(0.5f * fabsf(a + b), mn(2.0f * fabsf(a), 2.0f * fabsf(b)));
+  const bool reset_minus = fabsf(dq_minus) >= 2.0f * fabsf(dq_plus);
+  const bool reset_plus = fabsf(dq_plus) >= 2.0f * fabsf(dq_minus);
+  const float mono_minus = reset_minus ? q0 - 2.0f * dq_plus : a_minus;
+  const float mono_plus = reset_plus ? q0 + 2.0f * dq_minus : a_plus;
+  minus = extremum ? q0 - 0.5f * dq0 : mono_minus;
+  plus = extremum ? q0 + 0.5f * dq0 : mono_plus;
 }
 
 // Cell index along a sweep axis of length n, through the wall map:

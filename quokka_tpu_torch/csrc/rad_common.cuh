@@ -1,0 +1,438 @@
+// Shared device functions of the radiation kernels K4 (rad_substep.cu), K5
+// (rad_source.cu) and K6 (rad_sweep.cu): the M1 closure and Eddington
+// tensor, the per-face HLL flux with its donor-cell fallback, the face
+// states of the four (E, f) primitives, the per-axis transport divergence,
+// amendRadState, and the per-cell implicit matter coupling.
+//
+// Layout: the state is [10, X, Y, Z] f32 (6 gas + E, Fx, Fy, Fz of one
+// photon group), contiguous, z fastest, as the JAX package keeps it; a
+// radiation block is [4, X, Y, Z]. Every axis is periodic and unpadded:
+// stencil cells are read through map_cell's wrap (common.cuh).
+//
+// Rounding: each expression keeps the operation order of the plain PyTorch
+// versions (radiation/system.py, radiation/source_terms.py) and of the JAX
+// package they mirror; the library is built with -fmad=false and without
+// fast math. Python-float constants arrive in RadParams already rounded
+// once from their double expressions (chat/c, chat*c, c/chat, 1/dx, ...),
+// which is what a Python float does when it meets an f32 tensor.
+#pragma once
+
+#include "common.cuh"
+
+namespace qk {
+
+constexpr int NVR = 10;  // state components with one radiation group
+constexpr int RS = 6;    // first radiation component
+constexpr int MAX_NEWTON_ITER = 100;
+constexpr int MAX_OUTER_ITER = 5;
+constexpr float A32 = 0.5f;  // IMEX_A32 (exact in f32)
+
+struct Opacity {
+  float k0, rho_exp, T_exp;  // kappa = k0 * rho^rho_exp * T^T_exp
+};
+
+// Host-built constants, passed by value. Mirrored by a ctypes.Structure in
+// radiation/sweep.py: keep the two in the same order.
+struct RadParams {
+  float c;             // c_light
+  float chat;          // reduced speed of light
+  float chat_over_c;   // chat / c
+  float chat_times_c;  // chat * c
+  float cscale;        // c / chat
+  float c_times_chat;  // c * chat
+  float c_sq;          // c * c
+  float arad;          // radiation constant
+  float four_arad;     // 4 * arad
+  float erad_floor;    // Erad_floor / n_groups
+  float c_v;           // EOS specific heat: Eint = rho * c_v * T
+  float resid_tol;     // Newton tolerance, max(1e-11, 50 eps_f32)
+  float lag_tol;       // work-term lag tolerance 1e-13
+  float work_rtol;     // 1e-8
+  float inv_dx[3];     // 1 / dx per axis
+  Opacity kP, kE, kF;  // Planck, energy-mean, flux-mean
+  int beta_order;
+  int include_work;    // include_work_term (and beta_order != 0)
+  int recon_order;     // 1 donor cell, 2 PLM (minmod), 3 PPM
+};
+
+// x^a as registry.power evaluates it: exponents 1, -1, 2 and 1/2 exactly.
+__device__ __forceinline__ float ipow(float x, float a) {
+  if (a == 1.0f) return x;
+  if (a == -1.0f) return 1.0f / x;
+  if (a == 2.0f) return x * x;
+  if (a == 0.5f) return sqrtf(x);
+  return powf(x, a);
+}
+
+__device__ __forceinline__ float opacity(const Opacity& o, float rho, float T) {
+  float k = o.k0;
+  if (o.rho_exp != 0.0f) k = k * ipow(rho, o.rho_exp);
+  if (o.T_exp != 0.0f) k = k * ipow(T, o.T_exp);
+  return k;
+}
+
+__device__ __forceinline__ float pow4(float x) { return (x * x) * (x * x); }
+
+// Levermore 1984 closure chi as a function of f^2
+// (system.eddington_factor_sq).
+__device__ __forceinline__ float edd_factor_sq(float f2) {
+  f2 = mn(mx(f2, 0.0f), 1.0f);
+  const float f_fac = sqrtf(4.0f - 3.0f * f2);
+  return (3.0f + 4.0f * f2) / (5.0f + 2.0f * f_fac);
+}
+
+// Row `row` of the Eddington tensor (system.eddington_tensor; every element
+// is computed on its own there, so a row equals the full tensor's row).
+__device__ __forceinline__ void eddington_row(const float f[3], int row,
+                                              float out[3]) {
+  const float f2 = (f[0] * f[0] + f[1] * f[1]) + f[2] * f[2];
+  const float chi = edd_factor_sq(f2);
+  const float Tdiag = 0.5f * (1.0f - chi);
+  const float tf = f2 > 0.0f ? (0.5f * (3.0f * chi - 1.0f)) / f2 : 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    out[j] = Tdiag * (row == j ? 1.0f : 0.0f) + (tf * f[row]) * f[j];
+}
+
+// One side of a face after the admissibility test: the reconstructed (E, f)
+// state, or the donor cell's conserved state where E <= 0 or |f|^2 >= 1.
+struct RadSide {
+  float erad, F[3], f[3];
+};
+
+__device__ __forceinline__ RadSide unpack_side(const float q[4],
+                                               const float cons[4], float c) {
+  RadSide s;
+  const float f2 = (q[1] * q[1] + q[2] * q[2]) + q[3] * q[3];
+  const bool bad = (q[0] <= 0.0f) || (f2 >= 1.0f);
+  s.erad = bad ? cons[0] : q[0];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s.F[k] = bad ? cons[1 + k] : (q[1 + k] * c) * q[0];
+  const float inv_cE = 1.0f / (c * s.erad);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s.f[k] = s.F[k] * inv_cE;
+  return s;
+}
+
+// HLL flux of one photon group at one face along `axis`
+// (system._hll_group_flux): frozen-Eddington transport flux on each side,
+// wave speeds -s_L chat and +s_R chat with s = max(0.1, sqrt(T_nn)).
+template <int axis>
+__device__ __forceinline__ void hll_face(const float qL[4], const float qR[4],
+                                         const float cL[4], const float cR[4],
+                                         const RadParams& p, float out[4]) {
+  const RadSide L = unpack_side(qL, cL, p.c);
+  const RadSide R = unpack_side(qR, cR, p.c);
+  float rowL[3], rowR[3];
+  eddington_row(L.f, axis, rowL);
+  eddington_row(R.f, axis, rowR);
+  float FL[4] = {L.F[axis], rowL[0] * L.erad, rowL[1] * L.erad, rowL[2] * L.erad};
+  float FR[4] = {R.F[axis], rowR[0] * R.erad, rowR[1] * R.erad, rowR[2] * R.erad};
+  const float sL = mx(sqrtf(rowL[axis]), 0.1f);
+  const float sR = mx(sqrtf(rowR[axis]), 0.1f);
+  FL[0] = FL[0] * p.chat_over_c;
+  FR[0] = FR[0] * p.chat_over_c;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    FL[k] = FL[k] * p.chat_times_c;
+    FR[k] = FR[k] * p.chat_times_c;
+  }
+  const float UL[4] = {L.erad, L.F[0], L.F[1], L.F[2]};
+  const float UR[4] = {R.erad, R.F[0], R.F[1], R.F[2]};
+  const float inv = 1.0f / (sR + sL);
+  const float wL = sR * inv;
+  const float wR = sL * inv;
+  const float wD = ((sR * sL) * inv) * p.chat;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    out[k] = (wL * FL[k] + wR * FR[k]) - wD * (UR[k] - UL[k]);
+}
+
+__device__ __forceinline__ float minmod(float a, float b) {
+  return (0.5f * (sgn(a) + sgn(b))) * mn(fabsf(a), fabsf(b));
+}
+
+// Face states of one primitive component from its 7-cell line w[0..6]
+// (cells i-3 .. i+3): the lo face (between i-1 and i) gets (qL_lo, qR_lo),
+// the hi face (between i and i+1) gets (qL_hi, qR_hi)
+// (reconstruct.reconstruct_faces: qL(f) from cell f-1, qR(f) from cell f).
+__device__ __forceinline__ void line_faces(const float w[7], int order,
+                                           float& qL_lo, float& qR_lo,
+                                           float& qL_hi, float& qR_hi) {
+  if (order == 3) {
+    float m_unused, p_unused, minus_i, plus_i;
+    ppm_cell(w[0], w[1], w[2], w[3], w[4], m_unused, qL_lo);
+    ppm_cell(w[1], w[2], w[3], w[4], w[5], minus_i, plus_i);
+    ppm_cell(w[2], w[3], w[4], w[5], w[6], qR_hi, p_unused);
+    qR_lo = minus_i;
+    qL_hi = plus_i;
+  } else if (order == 2) {
+    const float s_m1 = minmod(w[3] - w[2], w[2] - w[1]);
+    const float s_0 = minmod(w[4] - w[3], w[3] - w[2]);
+    const float s_p1 = minmod(w[5] - w[4], w[4] - w[3]);
+    qL_lo = w[2] + 0.5f * s_m1;
+    qR_lo = w[3] - 0.5f * s_0;
+    qL_hi = w[3] + 0.5f * s_0;
+    qR_hi = w[4] - 0.5f * s_p1;
+  } else {
+    qL_lo = w[2];
+    qR_lo = w[3];
+    qL_hi = w[3];
+    qR_hi = w[4];
+  }
+}
+
+// Contribution of `axis` to the transport divergence of cell `idx` (at
+// coordinates co): (F(lo face) - F(hi face)) * inv_dx, from the radiation
+// block R [4, X, Y, Z] (the kernels' compute_rad_div_pallas body).
+template <int axis>
+__device__ __forceinline__ void rad_div_axis(const float* __restrict__ R,
+                                             int64_t ncell, int64_t idx,
+                                             const int64_t co[3],
+                                             const int64_t dims[3],
+                                             const RadParams& p, float div[4]) {
+  const int64_t n = dims[axis];
+  const int64_t stride = axis == 0 ? dims[1] * dims[2] : (axis == 1 ? dims[2] : 1);
+  const int64_t base = idx - co[axis] * stride;
+  float cons[7][4], prim[7][4];
+#pragma unroll
+  for (int o = 0; o < 7; ++o) {
+    bool flip;
+    const int64_t off =
+        base + map_cell(co[axis] - 3 + o, n, BC_PERIODIC, BC_PERIODIC, flip) * stride;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cons[o][k] = R[k * ncell + off];
+    const float cE = p.c * cons[o][0];
+    prim[o][0] = cons[o][0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) prim[o][k] = cons[o][k] / cE;
+  }
+  float qL_lo[4], qR_lo[4], qL_hi[4], qR_hi[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float w[7] = {prim[0][k], prim[1][k], prim[2][k], prim[3][k],
+                        prim[4][k], prim[5][k], prim[6][k]};
+    line_faces(w, p.recon_order, qL_lo[k], qR_lo[k], qL_hi[k], qR_hi[k]);
+  }
+  float F_lo[4], F_hi[4];
+  hll_face<axis>(qL_lo, qR_lo, cons[2], cons[3], p, F_lo);
+  hll_face<axis>(qL_hi, qR_hi, cons[3], cons[4], p, F_hi);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) div[k] = (F_lo[k] - F_hi[k]) * p.inv_dx[axis];
+}
+
+// Sum of the three axes' contributions in the JAX order ((x + y) + z).
+__device__ __forceinline__ void rad_div_3d(const float* __restrict__ R,
+                                           int64_t ncell, int64_t idx,
+                                           const int64_t co[3],
+                                           const int64_t dims[3],
+                                           const RadParams& p, float div[4]) {
+  float d1[4], d2[4];
+  rad_div_axis<0>(R, ncell, idx, co, dims, p, div);
+  rad_div_axis<1>(R, ncell, idx, co, dims, p, d1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) div[k] = div[k] + d1[k];
+  rad_div_axis<2>(R, ncell, idx, co, dims, p, d2);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) div[k] = div[k] + d2[k];
+}
+
+// amendRadState (system.amend_rad_state): E >= floor, |F| <= c E.
+__device__ __forceinline__ void amend(float R[4], const RadParams& p) {
+  const float E = mx(R[0], p.erad_floor);
+  const float Fnorm = sqrtf((R[1] * R[1] + R[2] * R[2]) + R[3] * R[3]);
+  const float Fmax = p.c * E;
+  const float scale = Fnorm > Fmax ? Fmax / (Fnorm > 0.0f ? Fnorm : 1.0f) : 1.0f;
+  R[0] = E;
+#pragma unroll
+  for (int k = 1; k < 4; ++k) R[k] = R[k] * scale;
+}
+
+// ---------------------------------------------------------------- K5 body
+
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
+}
+
+struct NewtonOut {
+  float Egas, Erad, R, work, kP, kE, kF, fourPiB;
+};
+
+// Newton-Raphson in (Egas, R) for one cell
+// (source_terms._newton_energy_exchange); stops when this cell converges.
+__device__ __forceinline__ NewtonOut newton(float Egas0, float Erad0,
+                                            float rho, const float mom0[3],
+                                            const float Frad0[3], float Src,
+                                            float Etot0, float dt,
+                                            bool has_work, float work_init,
+                                            const RadParams& p) {
+  const float cv_rho = rho * p.c_v;  // eint_temp_derivative
+  float T = Egas0 / cv_rho;          // tgas_from_eint
+  float fourPiB = p.arad * pow4(T);
+  float kP = opacity(p.kP, rho, T);
+  float kE = opacity(p.kE, rho, T);
+  const float kF0 = opacity(p.kF, rho, T);
+  float kPoE = kE > 0.0f ? kP / kE : 1.0f;
+  float work;
+  if (has_work)
+    work = work_init;
+  else if (p.beta_order != 0 && p.include_work)
+    work = (((dot3(mom0, Frad0) * (2.0f * kE - kF0)) * p.chat) / p.c_sq) * dt;
+  else
+    work = 0.0f;
+  float tau = ((dt * rho) * kP) * p.chat;
+  float R = (fourPiB - Erad0 / kPoE) * tau + work;
+  float Egas = Egas0, Erad = Erad0;
+  for (int it = 0; it < MAX_NEWTON_ITER; ++it) {
+    const float F_G = (Egas - Egas0) + p.cscale * R;
+    const float F_D = (Erad - Erad0) - (R + Src);
+    const float F_D_abs = tau > 0.0f ? fabsf(F_D) : fabsf(F_D + R);
+    if ((fabsf(F_G) < p.resid_tol * Etot0) &&
+        (p.cscale * F_D_abs < p.resid_tol * Etot0))
+      break;
+    const float d_fourpiB_dT = p.four_arad * (T * (T * T));
+    const float dEg_dT = kPoE * d_fourpiB_dT;
+    const float J00 = 1.0f;
+    const float J01 = p.cscale;
+    const float J10 = dEg_dT / cv_rho;
+    // -1e100 of the JAX package is -inf in float32
+    const float J11 = tau > 0.0f ? -kPoE / tau - 1.0f : -__int_as_float(0x7f800000);
+    const float det = J00 * J11 - J01 * J10;
+    const float y0 = -F_G;
+    const float y1 = -F_D;
+    const float dEgas = (J11 * y0 - J01 * y1) / det;
+    const float dR = (J00 * y1 - J10 * y0) / det;
+    // enable_dE_constrain: a jump beyond max(T_gas, T_rad) takes T_rad
+    const float T_rad = sqrtf(sqrtf(mx(Erad, 0.0f) / p.arad));
+    const bool constrain = dEgas / cv_rho > mx(T, T_rad);
+    const float Egas_new = constrain ? cv_rho * T_rad : Egas + dEgas;
+    const float R_new = constrain ? R : R + dR;
+    const float T_new = Egas_new / cv_rho;
+    const float fourPiB_new = p.arad * pow4(T_new);
+    const float kP_new = opacity(p.kP, rho, T_new);
+    const float kE_new = opacity(p.kE, rho, T_new);
+    const float kPoE_new = kE_new > 0.0f ? kP_new / kE_new : 1.0f;
+    const float tau_new = ((dt * rho) * kP_new) * p.chat;
+    Erad = tau_new > 0.0f ? kPoE_new * (fourPiB_new - (R_new - work) / tau_new) : Erad;
+    Egas = Egas_new;
+    R = R_new;
+    T = T_new;
+    fourPiB = fourPiB_new;
+    kP = kP_new;
+    kE = kE_new;
+    kPoE = kPoE_new;
+    tau = tau_new;
+  }
+  return {Egas, Erad, R, work, kP, kE, opacity(p.kF, rho, T), fourPiB};
+}
+
+// Implicit flux update + momentum deposition (source_terms flux_update).
+__device__ __forceinline__ void flux_update(const NewtonOut& nw, float rho,
+                                            const float mom0[3],
+                                            const float Frad0[3], float dt,
+                                            const RadParams& p,
+                                            float Frad_t1[3], float dMom[3]) {
+  if (p.beta_order != 0) {
+    const float erad = nw.Erad;
+    const float f[3] = {Frad0[0] / (p.c * erad), Frad0[1] / (p.c * erad),
+                        Frad0[2] / (p.c * erad)};
+    const float F_coeff = ((p.chat * rho) * nw.kF) * dt;
+    const float Planck_term = nw.kP * nw.fourPiB + (nw.kF - nw.kE) * erad;
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      float T[3];
+      eddington_row(f, n, T);
+      const float p_term = ((Planck_term * p.chat) * dt) * mom0[n];
+      float pressure_term = 0.0f;
+#pragma unroll
+      for (int z = 0; z < 3; ++z) pressure_term = pressure_term + (mom0[z] * T[z]) * erad;
+      pressure_term = ((pressure_term * p.chat) * dt) * nw.kF;
+      Frad_t1[n] = ((Frad0[n] + p_term) + pressure_term) / (1.0f + F_coeff);
+    }
+  } else {
+    const float denom = 1.0f + ((rho * nw.kF) * p.chat) * dt;
+#pragma unroll
+    for (int n = 0; n < 3; ++n) Frad_t1[n] = Frad0[n] / denom;
+  }
+#pragma unroll
+  for (int n = 0; n < 3; ++n) dMom[n] = -(Frad_t1[n] - Frad0[n]) / p.c_times_chat;
+}
+
+__device__ __forceinline__ float work_term(const float mom0[3],
+                                           const float Frad[3],
+                                           const float dMom[3], float kE,
+                                           float kF, float dt,
+                                           const RadParams& p) {
+  const float mom1[3] = {mom0[0] + dMom[0], mom0[1] + dMom[1], mom0[2] + dMom[2]};
+  return (((dot3(mom1, Frad) * p.chat) / p.c_sq) * (2.0f * kE - kF)) * dt;
+}
+
+__device__ __forceinline__ bool lag_converged(float work_new, float work_old,
+                                              float R, float Etot0,
+                                              const RadParams& p) {
+  const float dwork = fabsf(work_new - work_old);
+  return (fabsf(work_new) == 0.0f) || (p.cscale * dwork < p.lag_tol * Etot0) ||
+         (dwork <= p.lag_tol * fabsf(R)) || (dwork <= p.work_rtol * fabsf(work_new));
+}
+
+// The implicit matter coupling of one cell, in place on its NVR values
+// (source_terms.add_source_terms_single_group, non-isothermal): Newton
+// solve, implicit flux update, and the lagged work-term outer loop, each
+// stopping when this cell converges.
+__device__ __forceinline__ void source_cell(float u[NVR], float Src_rate,
+                                            bool has_src, float dt_radiation,
+                                            int stage, const RadParams& p) {
+  const float dt = stage == 1 ? dt_radiation : (1.0f - A32) * dt_radiation;
+  const float guf = stage == 1 ? A32 : 1.0f;
+  const float rho = u[0];
+  const float mom0[3] = {u[1], u[2], u[3]};
+  const float Erad0 = u[RS];
+  const float Frad0[3] = {u[RS + 1], u[RS + 2], u[RS + 3]};
+  const float Src = has_src ? (Src_rate * dt) * p.chat : 0.0f;
+  const float ke0 = (0.5f * dot3(mom0, mom0)) / rho;
+  const float Egas0 = u[4] - ke0;
+  const float Etot0 = Egas0 + p.cscale * (Erad0 + Src);
+
+  const NewtonOut nw = newton(Egas0, Erad0, rho, mom0, Frad0, Src, Etot0, dt,
+                              false, 0.0f, p);
+  float Egas_g = nw.Egas, Erad_g = nw.Erad, R = nw.R, work = nw.work;
+  float Frad_t1[3], dMom[3];
+  flux_update(nw, rho, mom0, Frad0, dt, p, Frad_t1, dMom);
+  if (p.beta_order != 0 && p.include_work) {
+    const float work_i = work_term(mom0, Frad_t1, dMom, nw.kE, nw.kF, dt, p);
+    bool done = lag_converged(work_i, work, R, Etot0, p);
+    if (!done) work = work_i;
+    for (int ite = 1; ite < MAX_OUTER_ITER && !done; ++ite) {
+      const NewtonOut n2 = newton(Egas0, Erad0, rho, mom0, Frad0, Src, Etot0,
+                                  dt, true, work, p);
+      float Fn[3], dMn[3];
+      flux_update(n2, rho, mom0, Frad0, dt, p, Fn, dMn);
+      const float work_new = work_term(mom0, Fn, dMn, n2.kE, n2.kF, dt, p);
+      done = lag_converged(work_new, work, n2.R, Etot0, p);
+      Egas_g = n2.Egas;
+      Erad_g = n2.Erad;
+      R = n2.R;
+      work = work_new;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        Frad_t1[n] = Fn[n];
+        dMom[n] = dMn[n];
+      }
+    }
+  }
+
+  float mom1[3];
+#pragma unroll
+  for (int n = 0; n < 3; ++n) mom1[n] = mom0[n] + dMom[n] * guf;
+  const float Egas_final = Egas0 + (Egas_g - Egas0) * guf;
+  const float ke1 = (0.5f * dot3(mom1, mom1)) / rho;
+#pragma unroll
+  for (int n = 0; n < 3; ++n) u[1 + n] = mom1[n];
+  u[5] = Egas_final;
+  u[4] = Egas_final + ke1;
+  u[RS] = Erad_g;
+#pragma unroll
+  for (int n = 0; n < 3; ++n) u[RS + 1 + n] = Frad_t1[n];
+}
+
+}  // namespace qk

@@ -173,33 +173,6 @@ __device__ __forceinline__ void hllc(const Face& L, const Face& R, float du,
   }
 }
 
-// PPM on one component: (new_minus, new_plus) of the middle cell of
-// (qm2, qm1, q0, qp1, qp2) -- reconstruct.ppm_faces.
-__device__ __forceinline__ void ppm_cell(float qm2, float qm1, float q0,
-                                         float qp1, float qp2, float& minus,
-                                         float& plus) {
-  const float c1 = (float)(7.0 / 12.0);
-  const float c2 = (float)(-1.0 / 12.0);
-  const float lo = mn(mn(qm1, q0), qp1);
-  const float hi = mx(mx(qm1, q0), qp1);
-  float a_minus = (c1 * q0 + c2 * qp1) + (c1 * qm1 + c2 * qm2);
-  float a_plus = (c1 * qp1 + c2 * qp2) + (c1 * q0 + c2 * qm1);
-  a_minus = mn(mx(a_minus, lo), hi);
-  a_plus = mn(mx(a_plus, lo), hi);
-  const float dq_minus = q0 - a_minus;
-  const float dq_plus = a_plus - q0;
-  const bool extremum = (dq_plus * dq_minus) <= 0.0f;
-  const float a = qp1 - q0, b = q0 - qm1;
-  const float dq0 = (0.5f * (sgn(a) + sgn(b))) *
-                    mn(0.5f * fabsf(a + b), mn(2.0f * fabsf(a), 2.0f * fabsf(b)));
-  const bool reset_minus = fabsf(dq_minus) >= 2.0f * fabsf(dq_plus);
-  const bool reset_plus = fabsf(dq_plus) >= 2.0f * fabsf(dq_minus);
-  const float mono_minus = reset_minus ? q0 - 2.0f * dq_plus : a_minus;
-  const float mono_plus = reset_plus ? q0 + 2.0f * dq_minus : a_plus;
-  minus = extremum ? q0 - 0.5f * dq0 : mono_minus;
-  plus = extremum ? q0 + 0.5f * dq0 : mono_plus;
-}
-
 // The sweep axis is a template parameter: the canonical-frame component
 // indices (1+axis, 1+vax, 1+wax) become compile-time constants, which keeps
 // the 6 x 6 stencil and the face states in registers.

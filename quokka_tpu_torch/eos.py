@@ -60,5 +60,14 @@ class IdealGasEOS:
             return torch.full_like(rho, self.cs_isothermal)
         return torch.sqrt(self.gamma * P / rho)
 
+    def tgas_from_eint(self, rho, eint):
+        """T from internal energy density (rho*e); ideal gas."""
+        return eint / (rho * self.c_v)
+
     def eint_from_tgas(self, rho, T):
         return rho * self.c_v * T
+
+    def eint_temp_derivative(self, rho, T):
+        """d(Eint)/dT at constant rho (= rho * c_v)."""
+        del T
+        return rho * self.c_v

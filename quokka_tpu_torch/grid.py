@@ -11,6 +11,8 @@ from dataclasses import dataclass
 from functools import cached_property
 from typing import Tuple
 
+import torch
+
 
 @dataclass(frozen=True)
 class Grid:
@@ -48,6 +50,17 @@ class Grid:
     @property
     def num_cells(self) -> int:
         return self.n_cell[0] * self.n_cell[1] * self.n_cell[2]
+
+    def cell_centers(self, axis: int, dtype=torch.float64, device="cuda") -> torch.Tensor:
+        """1D tensor of cell-center coordinates along `axis`."""
+        lo, dx, n = self.prob_lo[axis], self.dx[axis], self.n_cell[axis]
+        return lo + (torch.arange(n, dtype=dtype, device=device) + 0.5) * dx
+
+    def cell_center_mesh(self, dtype=torch.float64, device="cuda"):
+        """Broadcastable (x, y, z) coordinates of shape [nx,1,1], [1,ny,1],
+        [1,1,nz]."""
+        return tuple(self.cell_centers(d, dtype, device).reshape(
+            [-1 if a == d else 1 for a in range(3)]) for d in range(3))
 
     def cell_volume(self) -> float:
         v = 1.0

@@ -14,6 +14,7 @@ import torch
 
 from .eos import IdealGasEOS
 from .hydro.advance import HydroOptions
+from .radiation.system import RadOptions
 
 
 def state_from_numpy(U, device, dtype=torch.float32) -> torch.Tensor:
@@ -40,3 +41,15 @@ def hydro_options_from_fields(d: dict):
     fields["active_axes"] = tuple(fields["active_axes"])
     fields["dx"] = tuple(fields["dx"])
     return HydroOptions(eos=eos, **fields), eos
+
+
+def rad_options_from_fields(d: dict) -> RadOptions:
+    """RadOptions from the field dict of a `quokka_tpu.radiation.system.
+    RadOptions` (`dataclasses.asdict`). The TPU's kernel switch
+    `use_pallas` is dropped; an unknown field raises."""
+    known = {f.name for f in dataclasses.fields(RadOptions)}
+    fields = {k: v for k, v in d.items() if k != "use_pallas"}
+    unknown = set(fields) - known
+    if unknown:
+        raise ValueError(f"RadOptions fields not in the port: {sorted(unknown)}")
+    return RadOptions(**fields)

@@ -1,6 +1,6 @@
 """Hold each CUDA kernel against its plain PyTorch version on the same
-device inputs, and time both (used by ``chip_smoke.py`` and the
-cuda-marked tests).
+device inputs, time both, and give the least time the card could take
+(used by ``chip_smoke.py`` and the cuda-marked tests).
 
 Tolerance: per output component, |kernel - plain| <= rtol * |plain| +
 ulps x (one ulp of the component's largest magnitude), with rtol 1e-5 and
@@ -8,7 +8,18 @@ ulps x (one ulp of the component's largest magnitude), with rtol 1e-5 and
 formulations to (tests/test_fused_update.py). The kernels are built with
 -fmad=false and IEEE division and square root, so they round like the
 plain versions' separate ops, and in practice they agree to a few ulps.
-Non-finite values must agree exactly.
+Anything through the Newton matter coupling (K4, K5) is held to max |kernel
+- plain| <= 2e-5 x the component's largest magnitude instead: an iteration
+count that differs by one at roundoff moves a cell by its last Newton
+correction. Non-finite values must agree exactly.
+
+Bound: the larger of the bytes the function must move (each input read
+once, each output written once) at 3.35 TB/s and its FP32 operations at
+67 TFLOP/s (the H100 SXM's published peaks). Operation counts per cell are
+counted from the CUDA sources, each +, -, *, /, sqrt, min or max as one,
+without the kernels' redundant work (a face solved by both neighbours counts
+once); the Newton work is what this input needs, counted by the plain
+version.
 """
 
 from __future__ import annotations
@@ -18,9 +29,25 @@ from typing import Callable, Iterator, List, NamedTuple
 import torch
 
 from .hydro import euler, sweep
+from .radiation import source, substep
+from .radiation import sweep as rsweep
 
 RTOL = 1e-5
 ULPS = 64
+NEWTON_REL = 2e-5  # kernels through the Newton coupling: x the component's max
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# FP32 operations per cell, counted from the CUDA sources
+OPS_K1_AXIS = 50  # cons->prim, dmin, flattening chi and its 3-point min
+OPS_K2_SWEEP = 620  # PPM of 6 components, HLLC at one face, divergence
+OPS_K3 = 80
+OPS_K6_AXIS = 280  # (E, f) prims, PPM of 4 components, HLL at one face, div
+OPS_AMEND = 12
+OPS_COUPLING_CELL = 215  # set-up, Newton start, flux update, work term, finish
+OPS_NEWTON_RESID = 11  # residuals and the convergence test
+OPS_NEWTON_ITER = 47  # one Newton update after an unconverged test
+OPS_OUTER_ITER = 185  # one work-term re-solve, besides its Newton iterations
 
 
 def _flat(x) -> List[torch.Tensor]:
@@ -48,7 +75,9 @@ def compare(got, ref, rtol: float = RTOL, ulps: int = ULPS):
         if not torch.equal(torch.isfinite(g), fin) or not torch.equal(g[~fin], r[~fin]):
             ok = False
             continue
-        per_comp = r.dim() == 4 or (r.dim() == 3 and r.shape[0] == 6)  # state or hi plane
+        per_comp = r.dim() >= 4 or (r.dim() == 3 and r.shape[0] == 6)  # state or hi plane
+        if r.dim() > 4:  # [G, 4, X, Y, Z] radiation blocks: per component too
+            g, r, fin = (a.reshape(-1, *a.shape[-3:]) for a in (g, r, fin))
         comps = [(g[c], r[c], fin[c]) for c in range(r.shape[0])] if per_comp \
             else [(g, r, fin)]
         for gc, rc, fc in comps:
@@ -79,11 +108,63 @@ def time_ms(fn: Callable[[], object], reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def compare_scaled(got, ref, rel: float = NEWTON_REL):
+    """(ok, max_abs_err, max_rel_err) with max |got - ref| <= rel x the
+    component's largest finite magnitude; non-finite values agree exactly."""
+    g_list, r_list = _flat(got), _flat(ref)
+    if len(g_list) != len(r_list):
+        return False, float("inf"), float("inf")
+    ok, max_abs, max_rel = True, 0.0, 0.0
+    for g, r in zip(g_list, r_list):
+        if g.shape != r.shape:
+            return False, float("inf"), float("inf")
+        g, r = g.float().reshape(-1, *r.shape[-3:]), r.float().reshape(-1, *r.shape[-3:])
+        for gc, rc in zip(g, r):
+            fin = torch.isfinite(rc)
+            if not torch.equal(torch.isfinite(gc), fin) or not torch.equal(gc[~fin], rc[~fin]):
+                ok = False
+                continue
+            if not bool(fin.any()):
+                continue
+            err = float((gc[fin] - rc[fin]).abs().max())
+            scale = float(rc[fin].abs().max())
+            ok = ok and err <= rel * scale
+            max_abs = max(max_abs, err)
+            max_rel = max(max_rel, err / scale if scale > 0 else (0.0 if err == 0 else float("inf")))
+    return ok, max_abs, max_rel
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(least ms, "bytes" or "operations") of work moving `nbytes` and doing
+    `ops` FP32 operations on the H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors given: one passed twice (a kernel that
+    reads the same buffer through two arguments) is counted once."""
+    distinct = {(t.data_ptr(), t.numel()): t for t in _flat(list(tensors))}
+    return sum(t.numel() * t.element_size() for t in distinct.values())
+
+
 class Case(NamedTuple):
-    kernel: str  # key of sweep.launch_counts
+    kernel: str  # key of sweep.launch_counts or radiation.sweep.launch_counts
     label: str
     run_kernel: Callable[[], object]
     run_plain: Callable[[], object]
+    cost: Callable[[], tuple] = lambda: (0, 0)  # (bytes, FP32 operations)
+    scaled: bool = False  # compare with compare_scaled (Newton coupling)
+
+    def check(self):
+        """Run both versions; (ok, max_abs_err, max_rel_err, kernel result,
+        plain result)."""
+        got = self.run_kernel()
+        ref = self.run_plain()
+        torch.cuda.synchronize()
+        res = compare_scaled(got, ref) if self.scaled else compare(got, ref)
+        return (*res, got, ref)
 
 
 def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
@@ -93,19 +174,29 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
     stage 1's faces) and first order, per axis; K3 on stage 1's
     divergences. K2 and K3 take inputs from the plain versions, so each
     kernel is compared on identical inputs."""
+    n = U[0].numel()
+    # K1 reads U and writes dmin, chi's 3-point min and chi per axis
+    k1_cost = (_nbytes(U) + 3 * _nbytes(U[0]) * len(opts.active_axes),
+               OPS_K1_AXIS * n * len(opts.active_axes))
     yield Case("transverse", "K1 all axes",
                lambda: sweep.precompute_transverse(U, opts, bc_kinds, True)[:2],
-               lambda: sweep.precompute_transverse_plain(U, opts, bc_kinds, True)[:2])
+               lambda: sweep.precompute_transverse_plain(U, opts, bc_kinds, True)[:2],
+               lambda: k1_cost)
     dmins, chi, _ = sweep.precompute_transverse_plain(U, opts, bc_kinds, True)
     dmins2, chi2, _ = sweep.precompute_transverse_plain(U2, opts, bc_kinds, True)
     prim = euler.cons_to_prim(U, opts.eos, opts.reconstruct_eint)
     divs, dvels = {}, {}
     for d in opts.active_axes:
         s1 = dict(bc_axis=bc_kinds.get(d), dx_axis=opts.dx[d], state_is_cons=True)
+        res = sweep.axis_flux_plain(U, d, opts, chi, dmins, **s1)
+        # reads U, chi and two dmin fields; writes faces, face velocities
+        # and both divergences
+        cost = (_nbytes(U, chi, *dmins.values()) - _nbytes(dmins[d]) + _nbytes(res),
+                OPS_K2_SWEEP * n)
         yield Case("axis_flux", f"K2 stage 1 axis {d}",
                    lambda d=d, kw=s1: sweep.compute_axis_flux(U, d, opts, chi, dmins, **kw),
-                   lambda d=d, kw=s1: sweep.axis_flux_plain(U, d, opts, chi, dmins, **kw))
-        res = sweep.axis_flux_plain(U, d, opts, chi, dmins, **s1)
+                   lambda d=d, kw=s1: sweep.axis_flux_plain(U, d, opts, chi, dmins, **kw),
+                   lambda cost=cost: cost)
         divs[d], dvels[d] = res[-2], res[-1]
         s2 = dict(s1, avg_with=res[:-2])
         yield Case("axis_flux", f"K2 stage 2 avg axis {d}",
@@ -115,6 +206,65 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
         yield Case("axis_flux", f"K2 first order axis {d}",
                    lambda d=d, kw=fo: sweep.compute_axis_flux(prim, d, opts, None, {}, **kw),
                    lambda d=d, kw=fo: sweep.axis_flux_plain(prim, d, opts, None, {}, **kw))
+    # K3 reads U, the stage's input state, three divergences and three
+    # dvels, and writes the state. Both RK stages of the main path pass the
+    # step's initial state as U and as the stage input (hydro/advance.py),
+    # as this call does, so U is read once.
+    k3_cost = (_nbytes(U, U, divs, dvels) + _nbytes(U), OPS_K3 * n)
     yield Case("apply_update", "K3",
                lambda: sweep.apply_update(U, U, divs, dvels, dt, opts),
-               lambda: sweep.apply_update_plain(U, U, divs, dvels, dt, opts))
+               lambda: sweep.apply_update_plain(U, U, divs, dvels, dt, opts),
+               lambda: k3_cost)
+
+
+def coupling_ops(n: int, counts: dict) -> int:
+    """FP32 operations of the matter coupling of `n` cells, with the Newton
+    and work-term iterations that the plain version counted."""
+    return (OPS_COUPLING_CELL * n + OPS_NEWTON_RESID * counts["newton_resid"]
+            + OPS_NEWTON_ITER * counts["newton_iters"]
+            + OPS_OUTER_ITER * counts["outer_iters"])
+
+
+def rad_cases(U: torch.Tensor, rad_src, dt: float, opts, eos, problem,
+              dx) -> Iterator[Case]:
+    """The radiation kernels at the shapes of the radhydro path, on the
+    [10, X, Y, Z] state U: K6 per axis, K5 at stage 1 and 2, and the two
+    K4 stage kernels (stage 2 on stage 1's plain output, so both versions
+    see identical inputs). The operation counts of K4/K5 come from the plain
+    versions' Newton counts on these inputs."""
+    n = U[0].numel()
+    rs = source.RAD_START
+    R0 = U[rs:]
+    for d in range(3):
+        cost = (2 * _nbytes(R0), OPS_K6_AXIS * n)
+        yield Case("rad_div", f"K6 axis {d}",
+                   lambda d=d: rsweep.compute_rad_div(R0, d, opts, dx[d]),
+                   lambda d=d: rsweep.rad_div_plain(R0, d, opts, dx[d]),
+                   lambda cost=cost: cost)
+    for stage in (1, 2):
+        counts = {}
+        source.source_update_plain(U, rad_src, dt, stage, opts, eos, problem, rs, counts)
+        cost = (2 * _nbytes(U) + _nbytes(rad_src), coupling_ops(n, counts))
+        yield Case("rad_source", f"K5 stage {stage}",
+                   lambda stage=stage: source.source_update(U, rad_src, dt, stage, opts,
+                                                            eos, problem, rs),
+                   lambda stage=stage: source.source_update_plain(U, rad_src, dt, stage,
+                                                                  opts, eos, problem, rs),
+                   lambda cost=cost: cost, scaled=True)
+    counts1 = {}
+    U1, div0 = substep.stage1_plain(U, rad_src, dt, opts, eos, problem, dx, counts1)
+    cost1 = (_nbytes(U, rad_src, U1, div0),
+             (3 * OPS_K6_AXIS + 8 + OPS_AMEND) * n + coupling_ops(n, counts1))
+    yield Case("rad_stage1", "K4 stage 1",
+               lambda: substep.fused_stage1(U, rad_src, dt, opts, eos, problem, dx),
+               lambda: substep.stage1_plain(U, rad_src, dt, opts, eos, problem, dx),
+               lambda: cost1, scaled=True)
+    counts2 = {}
+    U2 = substep.stage2_plain(U1, R0, div0, rad_src, dt, opts, eos, problem, dx, counts2)
+    cost2 = (_nbytes(U1, R0, div0, rad_src, U2),
+             (3 * OPS_K6_AXIS + 20 + OPS_AMEND) * n + coupling_ops(n, counts2))
+    del U2
+    yield Case("rad_stage2", "K4 stage 2",
+               lambda: substep.fused_stage2(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
+               lambda: substep.stage2_plain(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
+               lambda: cost2, scaled=True)

@@ -1,5 +1,6 @@
 """Problem catalog of the port (registered by name, like `quokka_tpu.problems`)."""
 
+from .radhydro_bench import RadhydroBenchProblem
 from .sedov import SedovProblem
 
-__all__ = ["SedovProblem"]
+__all__ = ["RadhydroBenchProblem", "SedovProblem"]

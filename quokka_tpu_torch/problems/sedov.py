@@ -39,7 +39,7 @@ class SedovProblem(Problem):
     rho0 = 1.0
     E_blast_total = 0.851072  # full-sphere blast energy (ergs)
 
-    def set_initial_conditions(self, grid, dtype=torch.float64, device="cpu"):
+    def set_initial_conditions(self, grid, dtype=torch.float64, device="cuda"):
         """Built directly on `device`; each value is a double rounded once
         to `dtype`, as the JAX package's f64-then-cast IC is."""
         cell_vol = grid.cell_volume()

@@ -1,0 +1,147 @@
+"""Radiation transport kernel K6: wrapper, plain PyTorch version, and what
+the radiation kernels K4-K6 share (launch counts, the kernels' constant
+block, input checks).
+
+Counterpart of `quokka_tpu.radiation.pallas_sweep.compute_rad_div_pallas`:
+the per-axis M1 transport divergence [G, 4, X, Y, Z] of the conserved
+radiation block. `rad_div_plain` is the JAX kernel's body in PyTorch;
+`compute_rad_div` takes it for a CPU tensor and launches the CUDA kernel
+(``csrc/rad_sweep.cu``) for a CUDA tensor, and raises for anything the
+kernel does not take.
+
+`launch_counts` counts kernel launches of K4 (both stage kernels), K5 and
+K6, so a run can show that it went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from ..hydro import reconstruct
+from ..hydro.sweep import _on_cuda, _stream
+from ..stencil import sh
+from .system import RadOptions, _hll_group_flux
+
+launch_counts = {"rad_div": 0, "rad_source": 0, "rad_stage1": 0, "rad_stage2": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+class _Opacity(ctypes.Structure):
+    _fields_ = [("k0", ctypes.c_float), ("rho_exp", ctypes.c_float),
+                ("T_exp", ctypes.c_float)]
+
+
+class RadParams(ctypes.Structure):
+    """The kernels' constant block (``struct RadParams`` of
+    csrc/rad_common.cuh, same field order). Each float is a double
+    expression rounded once, as a Python float meeting an f32 tensor is."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "c", "chat", "chat_over_c", "chat_times_c", "cscale", "c_times_chat",
+        "c_sq", "arad", "four_arad", "erad_floor", "c_v", "resid_tol",
+        "lag_tol", "work_rtol")] + [
+        ("inv_dx", ctypes.c_float * 3), ("kP", _Opacity), ("kE", _Opacity),
+        ("kF", _Opacity), ("beta_order", ctypes.c_int),
+        ("include_work", ctypes.c_int), ("recon_order", ctypes.c_int)]
+
+
+def rad_params(opts: RadOptions, dx: Sequence[float], eos=None, laws=None) -> RadParams:
+    """RadParams for the kernels; `eos` and `laws` (Planck, energy-mean,
+    flux-mean `PowerLawOpacity`) are needed by the matter coupling only."""
+    from .source_terms import LAG_TOL, resid_tol
+
+    c, chat = opts.c, opts.chat
+    p = RadParams(c=c, chat=chat, chat_over_c=chat / c, chat_times_c=chat * c,
+                  cscale=c / chat, c_times_chat=c * chat, c_sq=c * c,
+                  arad=opts.arad, four_arad=4.0 * opts.arad,
+                  erad_floor=opts.erad_floor / opts.n_groups,
+                  c_v=0.0 if eos is None else eos.c_v,
+                  resid_tol=resid_tol(torch.float32), lag_tol=LAG_TOL,
+                  work_rtol=1.0e-8, beta_order=opts.beta_order,
+                  include_work=int(opts.include_work_term),
+                  recon_order=opts.reconstruction_order)
+    for d in range(3):
+        p.inv_dx[d] = 1.0 / dx[d]
+    if laws is not None:
+        for name, law in zip(("kP", "kE", "kF"), laws):
+            setattr(p, name, _Opacity(law.kappa0, law.rho_exp, law.T_exp))
+    return p
+
+
+def check_kernel_inputs(opts: RadOptions, shape0: int, *tensors) -> None:
+    """What every radiation kernel takes: one group, float32, contiguous
+    [shape0, X, Y, Z] tensors on one device with extents >= 4."""
+    if opts.n_groups != 1:
+        raise NotImplementedError("the CUDA radiation kernels take one photon group")
+    if opts.use_wavespeed_correction:
+        raise NotImplementedError("radiation.wavespeed_correction is not ported yet")
+    if opts.reconstruction_order not in (1, 2, 3):
+        raise ValueError(f"invalid reconstruction order {opts.reconstruction_order}")
+    ref = tensors[0]
+    if ref.dim() != 4 or ref.shape[0] != shape0:
+        raise NotImplementedError(
+            f"the CUDA radiation kernel takes a [{shape0}, X, Y, Z] tensor, got "
+            f"{tuple(ref.shape)}")
+    if min(ref.shape[1:]) < 4:
+        raise ValueError(f"every extent must be >= 4, got {tuple(ref.shape)}")
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError(f"tensor on {t.device}, expected {ref.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA radiation kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA radiation kernels take contiguous tensors")
+        if tuple(t.shape[-3:]) != tuple(ref.shape[1:]):
+            raise ValueError(f"spatial shape {tuple(t.shape[-3:])} != "
+                             f"{tuple(ref.shape[1:])}")
+
+
+def rad_div_plain(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
+                  dx_axis: float) -> torch.Tensor:
+    """Plain version of K6: (F(f) - F(f+1)) * (1/dx) along `axis` of the
+    conserved block [4G, X, Y, Z], with roll (periodic) semantics.
+    Returns [G, 4, X, Y, Z]."""
+    G = opts.n_groups
+    nv, *bs = cons_flat.shape
+    ax = axis + 1
+    consg = cons_flat.reshape(G, 4, *bs)
+    E = consg[:, 0:1]
+    prim = torch.cat([E, consg[:, 1:4] / (opts.c * E)], dim=1).reshape(nv, *bs)
+    qL, qR = reconstruct.reconstruct_faces(prim, axis, opts.reconstruction_order)
+    cL = sh(cons_flat, -1, ax).reshape(G, 4, *bs)
+    qLg = qL.reshape(G, 4, *bs)
+    qRg = qR.reshape(G, 4, *bs)
+    F = torch.stack([_hll_group_flux(qLg[g], qRg[g], cL[g], consg[g], axis, opts)
+                     for g in range(G)]).reshape(nv, *bs)
+    return ((F - sh(F, 1, ax)) * (1.0 / dx_axis)).reshape(G, 4, *bs)
+
+
+def compute_rad_div(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
+                    dx_axis: float) -> torch.Tensor:
+    """K6 (`pallas_sweep.compute_rad_div_pallas`): the divergence
+    contribution of `axis`, [G, 4, X, Y, Z]."""
+    if not _on_cuda(cons_flat):
+        return rad_div_plain(cons_flat, axis, opts, dx_axis)
+    from .._cuda import check, library
+
+    lib = library()
+    check_kernel_inputs(opts, 4, cons_flat)
+    X, Y, Z = cons_flat.shape[1:]
+    dx = [1.0, 1.0, 1.0]
+    dx[axis] = dx_axis
+    params = rad_params(opts, dx)
+    out = torch.empty((1, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
+    err = lib.qk_rad_div(cons_flat.data_ptr(), out.data_ptr(), X, Y, Z, axis,
+                         ctypes.addressof(params), _stream(cons_flat))
+    check(err, "rad_div")
+    launch_counts["rad_div"] += 1
+    return out

@@ -1,19 +1,28 @@
 """Problem definition API: traits + problem classes + a name registry.
 
-Counterpart of `quokka_tpu.registry` for the hydro slice: the traits, the
-boundary-condition spec and the problem hooks that the unigrid hydro Simulation
-calls. The radiation, cooling and particle hooks are not part of the port
-yet.
+Counterpart of `quokka_tpu.registry` for the unigrid hydro and single-group
+radhydro slices: the traits, the boundary-condition spec and the problem
+hooks that the Simulation calls. The cooling, gravity and particle hooks
+are not part of the port yet.
+
+Opacities: a CUDA kernel cannot call a Python hook, so a problem states
+each mean opacity as a `PowerLawOpacity` (kappa = kappa0 rho^a T^b), which
+the kernels evaluate per cell. The hooks of the JAX package
+(`compute_planck_opacity`, `compute_energy_mean_opacity`,
+`compute_flux_mean_opacity`, energy and flux defaulting to Planck) keep
+their names and evaluate the same laws; a problem may still override a
+hook for the plain path, and the kernels then refuse it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple, Type
+from typing import Dict, Optional, Tuple, Type
 
 import torch
 
-from .eos import IdealGasEOS
+from ._numerics import sqrt
+from .eos import C_LIGHT_CGS, IdealGasEOS
 from .indices import StateLayout
 
 
@@ -64,6 +73,55 @@ class HydroTraits:
     reconstruct_eint: bool = True  # reconstruct e_int instead of pressure
 
 
+@dataclass(frozen=True)
+class RadTraits:
+    """Radiation solver constants (reference `RadSystem_Traits`,
+    ``src/radiation/radiation_system.hpp:73-84``)."""
+
+    c_light: float = C_LIGHT_CGS
+    c_hat: float = C_LIGHT_CGS  # reduced speed of light
+    radiation_constant: float = 7.565731356724124e-15
+    Erad_floor: float = 0.0
+    beta_order: int = 1  # relativistic correction order in v/c
+    energy_unit: float = 1.0  # converts group boundaries to erg if needed
+    group_edges: Tuple[float, ...] = ()  # photon energy group boundaries
+
+
+@dataclass(frozen=True)
+class PowerLawOpacity:
+    """kappa = kappa0 * rho**rho_exp * T**T_exp [cm^2/g], the form the CUDA
+    radiation kernels evaluate. Each factor is applied only when its
+    exponent is non-zero, in this order, with `power`, so the kernels and
+    this plain evaluation round alike."""
+
+    kappa0: float
+    rho_exp: float = 0.0
+    T_exp: float = 0.0
+
+    def __call__(self, rho, T):
+        k = torch.full_like(rho, self.kappa0)
+        if self.rho_exp != 0.0:
+            k = k * power(rho, self.rho_exp)
+        if self.T_exp != 0.0:
+            k = k * power(T, self.T_exp)
+        return k
+
+
+def power(x: torch.Tensor, a: float) -> torch.Tensor:
+    """x**a as the CUDA kernels evaluate it (`ipow` of csrc/rad_common.cuh):
+    exponents 1, -1, 2 and 0.5 by exact operations, any other by pow (CUDA's
+    powf on the card)."""
+    if a == 1.0:
+        return x
+    if a == -1.0:
+        return 1.0 / x
+    if a == 2.0:
+        return x * x
+    if a == 0.5:
+        return sqrt(x)
+    return torch.pow(x, a)
+
+
 # Boundary condition kinds per (axis, side); mirrors amrex::BCType.
 BC_PERIODIC = "periodic"
 BC_OUTFLOW = "outflow"
@@ -95,19 +153,67 @@ class Problem:
     Subclasses override trait attributes and hooks:
       - set_initial_conditions(grid, dtype, device) -> U[nvar, nx, ny, nz]
       - compute_before_timestep(sim), compute_after_evolve(sim)
+      - radiation: the opacity laws (`planck_opacity`, and optionally
+        `energy_mean_opacity` / `flux_mean_opacity`) and
+        set_radiation_energy_source(grid, time, dtype, device)
     """
 
     name: str = "problem"
     physics: PhysicsTraits = PhysicsTraits()
     eos_traits: EOSTraits = EOSTraits()
     hydro: HydroTraits = HydroTraits()
+    rad: RadTraits = RadTraits()
     bcs: BCSpec = BCSpec()
+    planck_opacity: Optional[PowerLawOpacity] = None
+    energy_mean_opacity: Optional[PowerLawOpacity] = None  # None: Planck's
+    flux_mean_opacity: Optional[PowerLawOpacity] = None  # None: Planck's
 
     def make_eos(self):
         return self.eos_traits.make_eos()
 
-    def set_initial_conditions(self, grid, dtype=torch.float64, device="cpu"):
+    def set_initial_conditions(self, grid, dtype=torch.float64, device="cuda"):
         raise NotImplementedError
+
+    # ---- radiation opacity hooks (reference `ComputePlanckOpacity` etc.,
+    # ``src/radiation/radiation_system.hpp:1141-1154``; energy-mean and
+    # flux-mean default to the Planck mean)
+    def compute_planck_opacity(self, rho, T):
+        if self.planck_opacity is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} enables radiation but defines no Planck opacity")
+        return self.planck_opacity(rho, T)
+
+    def compute_energy_mean_opacity(self, rho, T):
+        if self.energy_mean_opacity is not None:
+            return self.energy_mean_opacity(rho, T)
+        return self.compute_planck_opacity(rho, T)
+
+    def compute_flux_mean_opacity(self, rho, T):
+        if self.flux_mean_opacity is not None:
+            return self.flux_mean_opacity(rho, T)
+        return self.compute_planck_opacity(rho, T)
+
+    def opacity_laws(self) -> Tuple[PowerLawOpacity, PowerLawOpacity, PowerLawOpacity]:
+        """(Planck, energy-mean, flux-mean) laws for the CUDA kernels. A
+        problem that computes an opacity in an overridden hook has no law the
+        kernels can evaluate: NotImplementedError names it."""
+        for hook in ("compute_planck_opacity", "compute_energy_mean_opacity",
+                     "compute_flux_mean_opacity"):
+            if getattr(type(self), hook) is not getattr(Problem, hook):
+                raise NotImplementedError(
+                    f"problem {self.name!r} computes its opacity in {hook}(); the "
+                    "CUDA radiation kernels evaluate only a PowerLawOpacity")
+        if self.planck_opacity is None:
+            raise NotImplementedError(
+                f"problem {self.name!r} enables radiation but defines no Planck opacity")
+        P = self.planck_opacity
+        return P, self.energy_mean_opacity or P, self.flux_mean_opacity or P
+
+    def set_radiation_energy_source(self, grid, time, dtype=torch.float64,
+                                    device="cuda"):
+        """User radiation energy source dE/dt (reference `SetRadEnergySource`);
+        zero by default."""
+        return torch.zeros(grid.n_cell, dtype=dtype, device=device)
 
     def compute_before_timestep(self, sim):
         pass

@@ -1,14 +1,19 @@
-"""The unigrid hydro Simulation: state ownership, evolve loop, timestep control.
+"""The unigrid Simulation: state ownership, evolve loop, timestep control.
 
 Counterpart of `quokka_tpu.simulation.Simulation` (reference
 ``src/simulation.hpp:141`` and ``src/QuokkaSimulation.hpp:64``) for the
-hydro slice: the deck knobs, CFL timestep with the dt change limiter, the
-hydro retry ladder, the conservation audit and the performance
-figure-of-merit. The state lives on the `device` the caller names; on a
-CUDA device every hydro stage runs through the K1-K3 kernels.
+hydro and single-group radhydro slices: the deck knobs, CFL timestep with
+the dt change limiter and the radhydro substep cap, the hydro retry ladder
+with the radiation subcycle after each accepted hydro sub-step, the
+conservation audit and the performance figure-of-merit (hydro
+zone-updates, as the reference counts them). The state lives on the
+`device` the caller names, a CUDA device unless the caller asks for the
+CPU; there every hydro stage runs through K1-K3 and every radiation
+substep through K4 (or K5 and K6 stage by stage).
 
-Deck keys of subsystems the port does not have yet (radiation, gravity,
-cooling, chemistry, AMR, output) raise NotImplementedError naming the key.
+Deck keys of subsystems the port does not have yet (gravity, cooling,
+chemistry, AMR, output, the unported radiation features) raise
+NotImplementedError naming the key.
 """
 
 from __future__ import annotations
@@ -39,15 +44,25 @@ _UNPORTED_KEYS = {
     "restartfile": lambda v: bool(str(v)),
     "quokka.diagnostics": lambda v: True,
     "max_walltime": lambda v: bool(str(v)),
+    "radiation.wavespeed_correction": lambda v: bool(int(v)),
+    "radiation.mixed_precision_coupling": lambda v: bool(int(v)),
+    "radiation.opacity_model": lambda v: str(v) != "piecewise_constant",
+    "radiation.dust_gas_interaction_coeff": lambda v: True,
 }
 _UNPORTED_PREFIXES = ("radiation.", "gravity.", "particles.")
+# radiation deck keys the port reads; `use_pallas` is the TPU's kernel
+# switch, accepted and without effect (the port always runs its kernels)
+_RADIATION_KEYS = {
+    "radiation.cfl", "radiation.max_substeps", "radiation.reconstruction_order",
+    "radiation.include_work_term", "radiation.fused_substep", "radiation.use_pallas",
+}
 
 
 class Simulation:
-    """Single-level (unigrid) hydro simulation on one device."""
+    """Single-level (unigrid) hydro or radhydro simulation on one device."""
 
     def __init__(self, problem: Problem, pp: Optional[ParmParse] = None, *,
-                 device, precision: str | None = None):
+                 device="cuda", precision: str | None = None):
         self.problem = problem
         self.pp = pp or ParmParse()
         self.device = torch.device(device)
@@ -55,9 +70,12 @@ class Simulation:
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self._check_unported_keys()
         phys = problem.physics
-        if phys.radiation_enabled or phys.gravity_enabled or phys.mhd_enabled:
+        if phys.gravity_enabled or phys.mhd_enabled:
             raise NotImplementedError(
-                f"problem {problem.name!r}: radiation, gravity and MHD are not ported yet")
+                f"problem {problem.name!r}: gravity and MHD are not ported yet")
+        if phys.radiation_enabled and phys.n_groups != 1:
+            raise NotImplementedError(
+                f"problem {problem.name!r}: multigroup radiation is not ported yet")
 
         n_cell = self.pp.get_list("amr.n_cell", [64, 1, 1])
         while len(n_cell) < 3:
@@ -114,11 +132,15 @@ class Simulation:
         self.fofc_cells = 0  # invalid cells that triggered FOFC, summed
         self.fofc_fallbacks = 0  # stages that took the FOFC fallback
         self.init_sums: Optional[np.ndarray] = None
+        self._radiation = None  # attached with the initial conditions
 
     def _check_unported_keys(self):
         for key, vals in self.pp.table.items():
             pred = _UNPORTED_KEYS.get(key)
-            on = pred(vals[0]) if pred is not None else key.startswith(_UNPORTED_PREFIXES)
+            if pred is not None:
+                on = pred(vals[0])
+            else:
+                on = key.startswith(_UNPORTED_PREFIXES) and key not in _RADIATION_KEYS
             if on:
                 raise NotImplementedError(
                     f"deck key {key!r} = {vals} selects a subsystem that "
@@ -143,11 +165,14 @@ class Simulation:
 
     # ------------------------------------------------------------------ step
     def _step(self, U, dt):
-        """One hydro step; stats carry max_signal and valid as device
-        tensors."""
-        U_new, stats = advance_hydro_rk2(
-            U, dt, self.hydro_opts, None, self._gf["ng"], self.periodic,
+        """One hydro step of the gas block; stats carry max_signal and valid
+        as device tensors. Radiation components belong to the radiation
+        subsystem (reference: hydro fluxes cover ncompHydro_ components)."""
+        nh = self.layout.nvar_hydro
+        Uh_new, stats = advance_hydro_rk2(
+            U[:nh], dt, self.hydro_opts, None, self._gf["ng"], self.periodic,
             bc_kinds=self._gf["bc_kinds"])
+        U_new = torch.cat([Uh_new, U[nh:]]) if nh < U.shape[0] else Uh_new
         smax = euler.max_signal_speed(U_new, self.eos).max()
         valid = euler.is_state_valid(U_new, self.eos).all()
         return U_new, {"max_signal": smax, "valid": valid, **stats}
@@ -165,14 +190,29 @@ class Simulation:
             raise ValueError(f"IC shape {tuple(U.shape)} != expected {expected}")
         self.U = U.to(dtype=self.dtype, device=self.device).contiguous()
         self.init_sums = self._sums(self.U)
+        if self.layout.radiation_enabled:
+            from .radiation.advance import RadiationAdvance
+
+            self._radiation = RadiationAdvance(self)
 
     # --------------------------------------------------------------- timestep
     def compute_timestep(self) -> float:
         if self.constant_dt > 0.0:
             dt = self.constant_dt
         else:
-            smax = float(euler.max_signal_speed(self.U, self.eos).max())
+            if not self.layout.hydro_enabled and self._radiation is not None:
+                # radiation-only: the signal speed is the reduced speed of
+                # light, and the global `cfl` limits the coarse step
+                smax = self.problem.rad.c_hat
+            else:
+                smax = float(euler.max_signal_speed(self.U, self.eos).max())
             dt = self.cfl * self.grid.dx_min / smax
+            if self._radiation is not None:
+                # radhydro: cap dt so the subcycle count stays within
+                # max_substeps, at the radiation cfl (reference :424-434)
+                ropts = self._radiation.opts
+                dt = min(dt, ropts.max_substeps * ropts.cfl
+                         * self.grid.dx_min / ropts.chat)
             dt = min(dt, 1.1 * self.dt_prev)  # change_max limiter
             dt = min(dt, self.max_dt)
             if self.t == 0.0:
@@ -185,9 +225,14 @@ class Simulation:
 
     # ----------------------------------------------------------------- evolve
     def advance_single_step(self, dt: float) -> bool:
-        """One hydro step with the retry ladder (reference
-        `advanceHydroAtLevelWithRetries`, ``src/QuokkaSimulation.hpp:886-990``).
-        Returns True on success (self.U updated)."""
+        """One hydro(+radiation) step with the retry ladder (reference
+        `advanceHydroAtLevelWithRetries`, ``src/QuokkaSimulation.hpp:886-990``);
+        the radiation subcycles after each accepted hydro sub-step. Returns
+        True on success (self.U updated)."""
+        rad = self._radiation
+        if not self.layout.hydro_enabled and rad is not None:
+            self.U = rad.subcycle(self.U, self.t, dt)
+            return True
         max_retries = 6
         U_start = self.U
         for retry in range(max_retries + 1):
@@ -207,6 +252,8 @@ class Simulation:
                 if not (valid and not dt_sub > 1.1 * dt_cfl):
                     ok = False
                     break
+                if rad is not None:
+                    U = rad.subcycle(U, self.t, dt_sub)
             if ok:
                 self.U = U
                 self.fofc_cells += cells

@@ -1,4 +1,4 @@
-"""K1-K3 CUDA kernels against their plain PyTorch versions on the card, at a
+"""K1-K6 CUDA kernels against their plain PyTorch versions on the card, at a
 small size (marked `cuda`; skips without a GPU). `chip_smoke.py` runs the
 same checks at the main path's 256^3 shapes."""
 
@@ -8,6 +8,7 @@ import torch
 
 from quokka_tpu_torch import kernel_check
 from quokka_tpu_torch.hydro import sweep
+from quokka_tpu_torch.radiation import sweep as rsweep
 
 from torch_port_common import BC_KINDS, jax_opts, make_state, port_opts
 
@@ -35,3 +36,18 @@ def test_kernels_match_plain(cuda_device, bc_name):
         assert ok, (case.label, max_abs)
     assert all(v > 0 for v in sweep.launch_counts.values())
     assert np.isfinite(max_abs)
+
+
+@pytest.mark.parametrize("opacity,rough", [("bench", False), ("tdep", True)])
+def test_rad_kernels_match_plain(cuda_device, opacity, rough):
+    from test_torch_rad_kernels import (DT, DX, EOS, make_rad_state, port_opts,
+                                        port_problem, jax_opts)
+
+    U = torch.tensor(make_rad_state(seed=21, rough=rough), dtype=torch.float32,
+                     device=cuda_device)
+    rsweep.reset_launch_counts()
+    for case in kernel_check.rad_cases(U, None, float(np.float32(DT)), port_opts(jax_opts()),
+                                       EOS, port_problem(opacity), (DX,) * 3):
+        ok, max_abs, _, _, _ = case.check()
+        assert ok, (case.label, max_abs)
+    assert all(v > 0 for v in rsweep.launch_counts.values())

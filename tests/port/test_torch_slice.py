@@ -27,6 +27,7 @@ from quokka_tpu.hydro import advance as jadv
 from quokka_tpu.problems.sedov import SedovProblem as JSedov
 
 import quokka_tpu_torch
+from quokka_tpu_torch import kernel_check
 from quokka_tpu_torch.benchmarks import bench_hydro, build_step_runner
 from quokka_tpu_torch.hydro.advance import advance_hydro_rk2
 from quokka_tpu_torch.problems.sedov import SedovProblem
@@ -132,9 +133,27 @@ def test_step_runner_matches_simulation_step():
     assert mzones > 0 and seconds > 0
 
 
+def test_kernel_bound_reads_each_buffer_once():
+    """The bound of K3 counts the state once where the main path passes it as
+    both the base and the stage input: 6 components read, 18 divergence and
+    3 face-velocity rows read, 6 components written, 4 B each."""
+    n = 8
+    U = t32(make_state((n, n, n), seed=4))
+    assert kernel_check._nbytes(U, U) == kernel_check._nbytes(U) == U.numel() * 4
+    assert kernel_check._nbytes(U, U.clone()) == 2 * U.numel() * 4
+    cases = {c.label: c for c in kernel_check.cases(
+        U, U, port_opts(jax_opts(n)), BC_KINDS["reflect_all"], 0.1 / n)}
+    nbytes, _ = cases["K3"].cost()
+    assert nbytes == (6 + 18 + 3 + 6) * 4 * n**3
+
+
 def test_import_keeps_jax_out():
     code = ("import sys, quokka_tpu_torch, quokka_tpu_torch.simulation, "
-            "quokka_tpu_torch.benchmarks, quokka_tpu_torch.interop; "
+            "quokka_tpu_torch.benchmarks, quokka_tpu_torch.interop, "
+            "quokka_tpu_torch.kernel_check, quokka_tpu_torch.problems, "
+            "quokka_tpu_torch.step_profile, "
+            "quokka_tpu_torch.radiation.advance, quokka_tpu_torch.radiation.source, "
+            "quokka_tpu_torch.radiation.substep, quokka_tpu_torch.radiation.sweep; "
             "bad = [m for m in sys.modules if m in ('jax', 'quokka_tpu') or m.startswith(('jax.', 'quokka_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
