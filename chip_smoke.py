@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of quokka_tpu_torch on one CUDA GPU: build the hand-written
 kernels, hold each against its plain PyTorch version at the main paths'
-shapes, compare small runs with the CPU, then run the two main paths
-through `Simulation` on the card:
+shapes, compare small runs with the CPU, then run the three main paths on
+the card:
 
 - hydro: 10 steps of the Sedov 256^3 f32 blast from
-  decks/benchmark_unigrid_256.in (kernels K1-K3);
+  decks/benchmark_unigrid_256.in through `Simulation` (kernels K1-K3);
 - radhydro: RadhydroBench 256^3 f32 (the JAX package's bench.py:54-62
   deck), 10 steps with the fused substep (K1-K4) and 2 steps stage by
-  stage (K1-K3, K5, K6).
+  stage (K1-K3, K5, K6);
+- MHD: Orszag-Tang 256^3 f32 (the JAX package's bench.py:310-318 deck),
+  20 steps of the windowed loop through `MHDSimulation` (K8).
 
 Run from the repository root:  python3 chip_smoke.py
 Phases print as they go; any failure exits non-zero. The last three lines
@@ -42,6 +44,8 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                    "quokka_tpu/radiation/pallas_source.py:59"),
     "rad_div": ("K6 compute_rad_div", "quokka_tpu_torch/csrc/rad_sweep.cu",
                 "quokka_tpu/radiation/pallas_sweep.py:115"),
+    "mhd_axis": ("K8 compute_mhd_axis", "quokka_tpu_torch/csrc/mhd_sweep.cu",
+                 "quokka_tpu/mhd/pallas_sweep.py:98"),
 }
 HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
 
@@ -134,18 +138,22 @@ def run_cases(title, cases, timed, summary, failed, extra_of=None):
             failed.append(f"{title}: {case.label}")
 
 
-def gpu_vs_cpu(a, b, what, rtol, atol_frac):
-    """|a - b| <= rtol |b| + atol_frac x (component max of b), per component."""
+def gpu_vs_cpu(a, b, what, rtol, atol_frac, groups=None):
+    """|a - b| <= rtol |b| + atol_frac x scale, per component; the scale is
+    the largest magnitude of b over the component's group (default: the
+    component alone)."""
     worst = 0.0
-    for c in range(b.shape[0]):
-        scale = float(b[c].abs().max())
-        diff = (a[c] - b[c]).abs()
-        worst = max(worst, float(diff.max()) / scale if scale > 0 else float(diff.max()))
-        if not bool((diff <= rtol * b[c].abs() + atol_frac * scale).all()):
-            raise SystemExit(f"{what}: component {c} off by {float(diff.max()):.3e} "
-                             f"(scale {scale:.3e})")
-    print(f"  ok   {what}: max |diff| / component max {worst:.3e} "
-          f"(limit rtol {rtol:g} + atol {atol_frac:g} x max)")
+    for group in groups or [[c] for c in range(b.shape[0])]:
+        scale = float(b[group].abs().max())
+        for c in group:
+            diff = (a[c] - b[c]).abs()
+            worst = max(worst, float(diff.max()) / scale if scale > 0 else float(diff.max()))
+            if not bool((diff <= rtol * b[c].abs() + atol_frac * scale).all()):
+                raise SystemExit(f"{what}: component {c} off by {float(diff.max()):.3e} "
+                                 f"(scale {scale:.3e})")
+    print(f"  ok   {what}: max |diff| / scale {worst:.3e} "
+          f"(limit rtol {rtol:g} + atol {atol_frac:g} x scale)")
+    return worst
 
 
 def main() -> int:
@@ -171,11 +179,16 @@ def main() -> int:
     print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
 
-    from quokka_tpu_torch import ParmParse, PowerLawOpacity, Simulation, _cuda, kernel_check
-    from quokka_tpu_torch.benchmarks import bench_hydro, bench_radhydro
+    from quokka_tpu_torch import (MHDSimulation, ParmParse, PowerLawOpacity, Simulation,
+                                  _cuda, kernel_check)
+    from quokka_tpu_torch.benchmarks import bench_hydro, bench_mhd, bench_radhydro
     from quokka_tpu_torch.hydro import sweep
     from quokka_tpu_torch.hydro.advance import advance_hydro_rk2
+    from quokka_tpu_torch.hydro.riemann import HLLD_REGIONS
     from quokka_tpu_torch.interop import state_from_numpy
+    from quokka_tpu_torch.mhd import sweep as msweep
+    from quokka_tpu_torch.mhd.advance import b_cell_from_faces, cons_to_prim_mhd
+    from quokka_tpu_torch.problems import mhd
     from quokka_tpu_torch.problems.radhydro_bench import DECK_256, RadhydroBenchProblem
     from quokka_tpu_torch.problems.sedov import SedovProblem
     from quokka_tpu_torch.radiation import sweep as rsweep
@@ -184,9 +197,10 @@ def main() -> int:
     def reset_counts():
         sweep.reset_launch_counts()
         rsweep.reset_launch_counts()
+        msweep.reset_launch_counts()
 
     def read_counts():
-        return {**sweep.launch_counts, **rsweep.launch_counts}
+        return {**sweep.launch_counts, **rsweep.launch_counts, **msweep.launch_counts}
 
     # ---- 2. build
     phase("2. build")
@@ -274,7 +288,38 @@ def main() -> int:
                   lambda c, t=timed: t, summary, failed)
     del rwarm, rad_inputs, U
     torch.cuda.empty_cache()
-    print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2 and K6 sum "
+
+    # MHD: Orszag-Tang after 3 steps (timed), and a rough seeded state that
+    # takes every HLLD region and branch, with PLM, PPM and the floors
+    mpp = ParmParse.from_string(mhd.DECK_256, ["max_timesteps=3"])
+    mwarm = MHDSimulation(mhd.OrszagTangProblem(), mpp, precision="single")
+    mwarm.set_initial_conditions()
+    mwarm.evolve()
+    mprim = cons_to_prim_mhd(mwarm.U, b_cell_from_faces(mwarm.Bf), mwarm.opts).contiguous()
+    run_cases(f"Orszag-Tang 256^3 after 3 steps (t {mwarm.t:.6e}, max |div B| "
+              f"{mwarm.final_divb:.3e})",
+              kernel_check.mhd_cases(mprim, mwarm.Bf, mwarm.opts), lambda c: True,
+              summary, failed)
+    mopts = mwarm.opts
+    del mwarm, mprim
+    rprim, rbxf = kernel_check.rough_mhd_state(n)
+    rprim = torch.tensor(rprim, dtype=torch.float32, device="cuda")
+    rbxf = [torch.tensor(b, dtype=torch.float32, device="cuda") for b in rbxf]
+    for order, floors in ((2, (0.0, 0.0)), (3, (0.0, 0.0)), (2, (0.6, 0.1))):
+        ropts = dataclasses.replace(mopts, reconstruction_order=order,
+                                    density_floor=floors[0], pressure_floor=floors[1])
+        tag = f" order {order}" + (f" floors {floors}" if floors[0] > 0 else "")
+        run_cases(f"rough MHD state{tag}", kernel_check.mhd_cases(rprim, rbxf, ropts, tag),
+                  lambda c: False, summary, failed)
+        counts = dict.fromkeys(HLLD_REGIONS, 0)
+        for d in range(3):
+            msweep.mhd_axis_plain(rprim, rbxf[d], d, ropts, counts)
+        print(f"  HLLD faces by region and branch (3 axes): {counts}")
+        if min(counts.values()) == 0:
+            failed.append(f"rough MHD state{tag}: an HLLD region or branch not taken")
+    del rprim, rbxf
+    torch.cuda.empty_cache()
+    print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2, K6 and K8 sum "
           "the three axes, K5 its two stages")
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
@@ -289,13 +334,17 @@ def main() -> int:
         sim.set_initial_conditions()
         sim.evolve()
         finals[dev] = sim.U.double().cpu()
+    sedov_gap = 0.0
     for c in range(6):
         ref = finals["cpu"][c]
         diff = float((finals["cuda"][c] - ref).abs().max())
         scale = float(ref.abs().max())
+        sedov_gap = max(sedov_gap, diff / scale)
         print(f"  component {c}: max |gpu - cpu| {diff:.3e} (limit 1e-5 x {scale:.3e})")
         if not diff <= 1e-5 * scale:
             raise SystemExit(f"GPU and CPU disagree on component {c}")
+    print(f"  Sedov 32^3 max |gpu - cpu| / component max: {sedov_gap:.3e} (2.4e-07 "
+          "while the hydro plain code took PyTorch's CPU sqrt)")
 
     print("-- rough 32^3 state, one step through the FOFC fallback: GPU vs CPU")
     U32 = rough_state(32)
@@ -330,6 +379,23 @@ def main() -> int:
         gpu_vs_cpu(rad_finals[fused, "cuda"], rad_finals[fused, "cpu"],
                    f"config {cfg} GPU vs CPU", 5e-6, 5e-6)
     gpu_vs_cpu(rad_finals[1, "cuda"], rad_finals[0, "cuda"], "GPU config A vs B", 5e-6, 5e-6)
+
+    print("-- Orszag-Tang 32^3 f32, 5 steps: GPU (K8) vs CPU, windowed and host loops")
+    mhd_finals = {}
+    for verbose in (0, 1):
+        for dev in ("cuda", "cpu"):
+            small = ParmParse.from_string(mhd.DECK_256, [
+                "amr.n_cell=32 32 32", "max_timesteps=5", f"verbose={verbose}"])
+            sim = MHDSimulation(mhd.OrszagTangProblem(), small, precision="single", device=dev)
+            sim.set_initial_conditions()
+            sim.evolve()
+            mhd_finals[verbose, dev] = torch.cat([sim.U, torch.stack(sim.Bf)]).double().cpu()
+            print(f"  verbose={verbose} {dev}: {sim.istep} steps, t {sim.t:.9e}, "
+                  f"max |div B| {sim.final_divb:.3e}")
+    for verbose, loop in ((0, "windowed"), (1, "host")):
+        gpu_vs_cpu(mhd_finals[verbose, "cuda"], mhd_finals[verbose, "cpu"],
+                   f"{loop} loop GPU vs CPU", 3e-5, 3e-5,
+                   groups=[[0], [1, 2, 3], [4], [5, 6, 7]])
 
     # ---- 5. the hydro main path
     phase("5. main path 1: Sedov 256^3 f32, 10 steps, decks/benchmark_unigrid_256.in")
@@ -403,6 +469,50 @@ def main() -> int:
     mz_rad, secs, nsub = bench_radhydro(bench, n_warmup=1, n_steps=3)
     print(f"bench_radhydro (fixed dt, {nsub} substeps a step, 3 steps after 1): "
           f"{mz_rad:.3f} hydro Mzone-updates/s ({secs:.3f} s) on {smi}")
+    del bench
+    torch.cuda.empty_cache()
+
+    # ---- 7. the MHD main path
+    phase("7. main path 3: Orszag-Tang MHD 256^3 f32, 20 steps, windowed loop "
+          "(bench.py:310-318 deck)")
+    mpp = ParmParse.from_string(mhd.DECK_256, ["max_timesteps=20", "verbose=0"])
+    sim = MHDSimulation(mhd.OrszagTangProblem(), mpp, precision="single")
+    sim.set_initial_conditions()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sim.evolve()
+    mhd_launches = read_counts()
+    rel = sim.conservation_rel_err
+    finite = bool(torch.isfinite(sim.U).all()) and all(bool(torch.isfinite(b).all())
+                                                       for b in sim.Bf)
+    print(f"FOM: {sim.zone_updates_per_second / 1e6:.3f} Mzone-updates/s over "
+          f"{sim.istep} steps ({sim.elapsed_walltime:.3f} s wall, first step included, "
+          f"t = {sim.t:.6e}) on {smi}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"conservation: mass rel err {rel[0]:.3e}, energy rel err {rel[4]:.3e}; "
+          f"max |div B| {sim.final_divb:.3e} (initial {sim.init_divb:.3e}); finite {finite}")
+    print(f"launches in this path: {mhd_launches}")
+    if sim.istep != 20 or not finite:
+        raise SystemExit(f"MHD main path: {sim.istep} steps, finite state {finite}")
+    if not (abs(rel[0]) < 1e-5 and abs(rel[4]) < 1e-5):
+        raise SystemExit(f"MHD conservation error: mass {rel[0]:.3e}, energy {rel[4]:.3e}")
+    # the JAX package's bar, max |div B| < 1e-4 on its 32^2 grid
+    # (__graft_entry__.py:208-225), carried to this grid: the div B that f32
+    # roundoff leaves in the CT update scales as 1/dx
+    divb_limit = 1e-4 * (1.0 / 32) / sim.grid.dx_min
+    print(f"max |div B| {sim.final_divb:.3e}, limit {divb_limit:.3e} (1e-4 at dx = 1/32, "
+          "x 1/dx)")
+    if not sim.final_divb < divb_limit:
+        raise SystemExit(f"MHD max |div B| {sim.final_divb:.3e} >= {divb_limit:.3e}")
+    if mhd_launches["mhd_axis"] != 6 * 20:
+        raise SystemExit(f"K8 launched {mhd_launches['mhd_axis']} times, not 6 a step")
+    del sim
+    torch.cuda.empty_cache()
+    bench = MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(mhd.DECK_256),
+                          precision="single")
+    mz_mhd, secs = bench_mhd(bench, n_warmup=2, n_steps=10)
+    print(f"bench_mhd (windowed loop, 10 steps after 2): {mz_mhd:.3f} Mzone-updates/s "
+          f"({secs:.3f} s) on {smi}")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
@@ -410,7 +520,9 @@ def main() -> int:
         _, bound_by = kernel_check.bound_ms(s["bytes"], s["ops"])
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": sedov_launches[key] if key in HYDRO_KEYS else rad_launches[key],
+                     "launches": (sedov_launches[key] if key in HYDRO_KEYS else
+                                  mhd_launches[key] if key in msweep.launch_counts else
+                                  rad_launches[key]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": bound_by, "library_ms": None})

@@ -1,8 +1,8 @@
 """Benchmark runners: an asynchronous step loop with dt computed on the device
-(hydro), and a fixed-dt radhydro loop.
+(hydro), a fixed-dt radhydro loop, and the MHD windowed loop.
 
 Counterpart of `quokka_tpu.benchmarks.build_step_runner` / `bench_hydro` /
-`bench_radhydro`.
+`bench_radhydro` and of the JAX package's `bench.py:run_mhd`.
 The reference's FOM is million zone-updates/s printed by `evolve()`
 (``src/simulation.hpp:972-980``). Here the host only launches steps: the CFL
 dt = cfl * dx_min / max(|v| + cs), with the 1.1x change limiter, stays a
@@ -103,3 +103,24 @@ def bench_radhydro(sim, n_warmup: int = 1, n_steps: int = 5):
     _sync(U)
     elapsed = time.perf_counter() - t0
     return sim.grid.num_cells * n_steps / elapsed / 1e6, elapsed, nsub
+
+
+def bench_mhd(sim, n_warmup: int = 2, n_steps: int = 10):
+    """Time `n_steps` MHD steps of `sim.evolve()` after `n_warmup`, as the
+    JAX package's bench does (`bench.py:run_mhd`): warm up, run the timed
+    window lengths once, restore the state, then time them. With
+    `verbose = 0` that is the windowed loop. Returns (Mzone-updates/s, s)."""
+    if sim.U is None:
+        sim.set_initial_conditions()
+    sim.max_timesteps = sim.istep + n_warmup
+    sim.evolve()
+    sim.max_timesteps = sim.istep + n_steps
+    save = (sim.U, sim.Bf, sim.t, sim.istep, sim.cell_updates, list(sim.dts))
+    sim.evolve()
+    sim.U, sim.Bf, sim.t, sim.istep, sim.cell_updates, sim.dts = save
+    n0 = sim.cell_updates
+    sim._sync()
+    t0 = time.perf_counter()
+    sim.evolve()
+    elapsed = time.perf_counter() - t0
+    return (sim.cell_updates - n0) / elapsed / 1e6, elapsed

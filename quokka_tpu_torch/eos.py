@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ._numerics import sqrt
+
 # CGS constants (match AMReX-Microphysics usage in the reference)
 K_BOLTZMANN_CGS = 1.380649e-16  # erg/K
 M_U_CGS = 1.66053906892e-24  # atomic mass unit, g
@@ -58,7 +60,7 @@ class IdealGasEOS:
     def sound_speed(self, rho, P):
         if self.is_isothermal:
             return torch.full_like(rho, self.cs_isothermal)
-        return torch.sqrt(self.gamma * P / rho)
+        return sqrt(self.gamma * P / rho)
 
     def tgas_from_eint(self, rho, eint):
         """T from internal energy density (rho*e); ideal gas."""

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .._numerics import sqrt
 from ..eos import IdealGasEOS
 from ..indices import EGAS, EINT, MX1, MX2, MX3, PPRES, PRHO, RHO, SCALAR0
 
@@ -71,7 +72,7 @@ def max_signal_speed(U: torch.Tensor, eos: IdealGasEOS) -> torch.Tensor:
     vx = U[MX1] / rho
     vy = U[MX2] / rho
     vz = U[MX3] / rho
-    vmag = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    vmag = sqrt(vx * vx + vy * vy + vz * vz)
     return eos.sound_speed(rho, pressure(U, eos)) + vmag
 
 

@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from .._numerics import sqrt
 from ..indices import EGAS, EINT, MX1, PEINT, PPRES, PRHO, PVX1, RHO
 from ..registry import BC_REFLECT
 from ..stencil import sh
@@ -110,7 +111,7 @@ def _face_state(q: torch.Tensor, axis: int, opts) -> FaceState:
         else:
             P = q[PPRES]
             Eint = q[PEINT]
-        cs = torch.sqrt(eos.gamma * P * rinv)
+        cs = sqrt(eos.gamma * P * rinv)
         E = eos.eint_from_pres(rho, P) + ke
     return FaceState(rho=rho, u=u, v=v, w=w, P=P, cs=cs, E=E, Eint=Eint,
                      rinv=rinv)

@@ -14,6 +14,7 @@ import torch
 
 from .eos import IdealGasEOS
 from .hydro.advance import HydroOptions
+from .mhd.advance import MHDOptions
 from .radiation.system import RadOptions
 
 
@@ -53,3 +54,23 @@ def rad_options_from_fields(d: dict) -> RadOptions:
     if unknown:
         raise ValueError(f"RadOptions fields not in the port: {sorted(unknown)}")
     return RadOptions(**fields)
+
+
+def mhd_options_from_fields(d: dict) -> MHDOptions:
+    """MHDOptions from the field dict of a `quokka_tpu.mhd.advance.MHDOptions`
+    (`dataclasses.asdict`); the two have the same fields (`use_pallas`
+    selects kernel K8 here). An unknown field raises."""
+    known = {f.name for f in dataclasses.fields(MHDOptions)}
+    unknown = set(d) - known
+    if unknown:
+        raise ValueError(f"MHDOptions fields not in the port: {sorted(unknown)}")
+    fields = dict(d)
+    fields["active_axes"] = tuple(fields["active_axes"])
+    fields["dx"] = tuple(fields["dx"])
+    return MHDOptions(**fields)
+
+
+def mhd_state_from_numpy(U, Bf, device, dtype=torch.float32):
+    """(U [5, X, Y, Z], [Bf_x, Bf_y, Bf_z]) as contiguous tensors."""
+    return state_from_numpy(U, device, dtype), [state_from_numpy(b, device, dtype)
+                                                for b in Bf]

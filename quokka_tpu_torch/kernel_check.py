@@ -26,9 +26,11 @@ from __future__ import annotations
 
 from typing import Callable, Iterator, List, NamedTuple
 
+import numpy as np
 import torch
 
 from .hydro import euler, sweep
+from .mhd import sweep as msweep
 from .radiation import source, substep
 from .radiation import sweep as rsweep
 
@@ -48,6 +50,11 @@ OPS_COUPLING_CELL = 215  # set-up, Newton start, flux update, work term, finish
 OPS_NEWTON_RESID = 11  # residuals and the convergence test
 OPS_NEWTON_ITER = 47  # one Newton update after an unconverged test
 OPS_OUTER_ITER = 185  # one work-term re-solve, besides its Newton iterations
+# K8, per cell: faces of 7 primitives (per component: none, PLM-minmod, PPM),
+# one HLLD face (the double-star path, the longest), floors, divergence
+OPS_K8_RECON = {1: 0, 2: 14, 3: 57}
+OPS_K8_HLLD = 315
+OPS_K8_REST = 14
 
 
 def _flat(x) -> List[torch.Tensor]:
@@ -150,7 +157,7 @@ def _nbytes(*tensors) -> int:
 
 
 class Case(NamedTuple):
-    kernel: str  # key of sweep.launch_counts or radiation.sweep.launch_counts
+    kernel: str  # key of the launch counts of hydro, radiation or mhd sweep
     label: str
     run_kernel: Callable[[], object]
     run_plain: Callable[[], object]
@@ -268,3 +275,62 @@ def rad_cases(U: torch.Tensor, rad_src, dt: float, opts, eos, problem,
                lambda: substep.fused_stage2(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
                lambda: substep.stage2_plain(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
                lambda: cost2, scaled=True)
+
+
+def k8_ops_per_cell(order: int) -> int:
+    return 7 * OPS_K8_RECON[order] + OPS_K8_HLLD + OPS_K8_REST
+
+
+def mhd_cases(prim: torch.Tensor, bxf, opts, tag: str = "") -> Iterator[Case]:
+    """K8 per axis on the primitives `prim` [8, X, Y, Z] and the staggered
+    face fields `bxf` [Bf_x, Bf_y, Bf_z]: reads 7 primitives (the cell field
+    along the axis is not needed: the face field takes its place) and one
+    face field, writes 8 rows."""
+    n = prim[0].numel()
+    for d in range(3):
+        cost = (7 * _nbytes(prim[0]) + _nbytes(bxf[d]) + _nbytes(prim),
+                k8_ops_per_cell(opts.reconstruction_order) * n)
+        yield Case("mhd_axis", f"K8 axis {d}{tag}",
+                   lambda d=d: msweep.compute_mhd_axis(prim, bxf[d], d, opts),
+                   lambda d=d: msweep.mhd_axis_plain(prim, bxf[d], d, opts),
+                   lambda cost=cost: cost)
+
+
+def rough_mhd_state(n: int, seed: int = 11):
+    """Seeded (prim [8, n, n, n], [Bf_x, Bf_y, Bf_z]) float64 numpy arrays that
+    take every HLLD region and branch along every axis: strong random fields
+    (beta ~ 0.1), slabs moving at +-30 (supersonic both ways), slabs of
+    faces with bx = 0 and with |bx| = 1e-7, and uniform blocks at rest with
+    the field along one axis only and bx^2 > gamma P (degenerate star
+    denominators)."""
+    rng = np.random.default_rng(seed)
+    shape = (n, n, n)
+    rho = 0.5 + rng.random(shape)
+    v = rng.standard_normal((3,) + shape)
+    P = 0.05 + rng.random(shape)
+    B = 2.0 * rng.standard_normal((3,) + shape)
+    q = max(n // 8, 1)
+    for d in range(3):
+        sl = [slice(None)] * 3
+        sl[(d + 1) % 3] = slice(0, q)
+        v[d][tuple(sl)] = 30.0
+        sl[(d + 1) % 3] = slice(q, 2 * q)
+        v[d][tuple(sl)] = -30.0
+    bxf = [B[d].copy() for d in range(3)]
+    for d in range(3):
+        sl = [slice(None)] * 3
+        sl[(d + 2) % 3] = slice(2 * q, 3 * q)
+        bxf[d][tuple(sl)] = 0.0
+        sl[(d + 2) % 3] = slice(3 * q, 4 * q)
+        bxf[d][tuple(sl)] = 1e-7 * np.sign(bxf[d][tuple(sl)])
+    h = n // 2
+    for d in range(3):
+        sl = [slice(h, n)] * 3
+        sl[d] = slice(0, n)
+        sl[(d + 1) % 3] = slice(h + d * q, h + (d + 1) * q)
+        sl = tuple(sl)
+        rho[sl], P[sl] = 1.0, 0.01
+        for k in range(3):
+            v[k][sl] = 0.0
+            B[k][sl] = bxf[k][sl] = 1.0 if k == d else 0.0
+    return np.concatenate([rho[None], v, P[None], B]), bxf

@@ -1,6 +1,8 @@
 """Problem catalog of the port (registered by name, like `quokka_tpu.problems`)."""
 
+from .mhd import BrioWuProblem, CPAlfvenWaveProblem, FieldLoopProblem, OrszagTangProblem
 from .radhydro_bench import RadhydroBenchProblem
 from .sedov import SedovProblem
 
-__all__ = ["RadhydroBenchProblem", "SedovProblem"]
+__all__ = ["BrioWuProblem", "CPAlfvenWaveProblem", "FieldLoopProblem",
+           "OrszagTangProblem", "RadhydroBenchProblem", "SedovProblem"]

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .._numerics import div as _div
 from .._numerics import sqrt
 from ..indices import EGAS, EINT, MX1, RHO
 from .system import IMEX_A32, RadOptions, eddington_tensor
@@ -50,12 +51,6 @@ def _pow4(x):
 
 def _dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
-def _div(x, s: float):
-    """x / s, divided: PyTorch's CUDA division by a Python number multiplies
-    by its reciprocal, one rounding more than the kernels and XLA take."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
 
 
 def add_source_terms_single_group(U, rad_src, dt_radiation, stage: int,

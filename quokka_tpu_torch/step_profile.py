@@ -11,11 +11,17 @@ warm-up step, three parts of a step are each run ``--steps`` times:
   flags that ``advance_single_step`` makes);
 - its radiation subcycle (``RadiationAdvance.subcycle``).
 
+For Orszag-Tang MHD (``problems/mhd.py:DECK_256``, f32) the parts are one
+step of the windowed loop that ``MHDSimulation.evolve()`` runs with
+``verbose = 0`` (the CFL dt on the device, the RK2 step, the dt read back)
+and one right-hand side (three K8 launches and the constrained-transport
+glue: primitives, cell field, corner EMFs, curl).
+
 Each part is timed twice from the same state, so both timings do the same
 work: on the host clock between two device
 synchronizations, and under ``torch.profiler``, whose device events give
-the time of every kernel, summed here by kernel of the port (K1-K6), "plain
-torch" for PyTorch's own kernels and "copies" for memcpy/memset. The
+the time of every kernel, summed here by kernel of the port (K1-K6, K8),
+"plain torch" for PyTorch's own kernels and "copies" for memcpy/memset. The
 device's idle share of a part is 1 - (device time) / (unprofiled wall
 time); kernels run on one stream, so their times do not overlap.
 
@@ -43,6 +49,7 @@ SEDOV_DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 # substring of a CUDA kernel's name -> the port's kernel (radiation names
 # first: "rad_div_kernel" also contains "div_kernel")
 KERNEL_OF = (
+    ("mhd_axis_kernel", "K8"),
     ("rad_stage1_kernel", "K4 stage 1"), ("rad_stage2_kernel", "K4 stage 2"),
     ("rad_source_kernel", "K5"), ("rad_div_kernel", "K6"),
     ("transverse_kernel", "K1"), ("face_kernel", "K2 faces"),
@@ -139,16 +146,38 @@ def _restorer(sim):
     return restore
 
 
-def profile_case(title: str, make_sim, reps: int) -> dict:
+def _mhd_parts(sim):
+    """{part name: callable} of one MHD step (see the module doc)."""
+    from .mhd.advance import mhd_rhs
+
+    return {"step": lambda: sim._window(1),
+            "rhs": lambda: mhd_rhs(sim.U, sim.Bf, sim.opts)}
+
+
+def _mhd_restorer(sim):
+    """`_restorer` for an MHDSimulation."""
+    U0, B0, dts = sim.U.clone(), [b.clone() for b in sim.Bf], list(sim.dts)
+    fields = {f: getattr(sim, f) for f in ("t", "istep", "cell_updates")}
+
+    def restore():
+        sim.U, sim.Bf, sim.dts = U0.clone(), [b.clone() for b in B0], list(dts)
+        for f, v in fields.items():
+            setattr(sim, f, v)
+
+    return restore
+
+
+def profile_case(title: str, make_sim, reps: int, parts_of=_parts,
+                 restorer_of=_restorer) -> dict:
     sim = make_sim()
     sim.set_initial_conditions()
     sim.evolve()  # one warm-up step (max_timesteps = 1)
     print(f"\n== {title}", flush=True)
-    if sim._radiation is not None:
+    if getattr(sim, "_radiation", None) is not None:
         print(f"radiation substeps a step: {sim._radiation.n_substeps(sim.dt_prev)}")
-    restore = _restorer(sim)
+    restore = restorer_of(sim)
     out = {}
-    for part, fn in _parts(sim).items():
+    for part, fn in parts_of(sim).items():
         restore()
         wall = wall_ms(fn, reps)
         restore()
@@ -173,11 +202,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device")
 
-    from . import ParmParse, Simulation, _cuda
+    from . import MHDSimulation, ParmParse, Simulation, _cuda
+    from .problems import mhd
     from .problems.radhydro_bench import DECK_256, RadhydroBenchProblem
     from .problems.sedov import SedovProblem
 
-    smi =subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}")
@@ -200,6 +230,11 @@ def main(argv=None) -> int:
                         ("RadhydroBench 256^3 f32, config B (per stage, K5 + K6)",
                          radhydro(0))):
         result[title] = profile_case(title, make, args.steps)
+    title = "Orszag-Tang MHD 256^3 f32 (K8)"
+    result[title] = profile_case(
+        title, lambda: MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(
+            mhd.DECK_256, ["max_timesteps=1"]), precision="single"),
+        args.steps, _mhd_parts, _mhd_restorer)
     print(json.dumps(result))
     return 0
 

@@ -153,7 +153,9 @@ def test_import_keeps_jax_out():
             "quokka_tpu_torch.kernel_check, quokka_tpu_torch.problems, "
             "quokka_tpu_torch.step_profile, "
             "quokka_tpu_torch.radiation.advance, quokka_tpu_torch.radiation.source, "
-            "quokka_tpu_torch.radiation.substep, quokka_tpu_torch.radiation.sweep; "
+            "quokka_tpu_torch.radiation.substep, quokka_tpu_torch.radiation.sweep, "
+            "quokka_tpu_torch.mhd, quokka_tpu_torch.mhd.advance, quokka_tpu_torch.mhd.sweep, "
+            "quokka_tpu_torch.mhd.simulation, quokka_tpu_torch.problems.mhd; "
             "bad = [m for m in sys.modules if m in ('jax', 'quokka_tpu') or m.startswith(('jax.', 'quokka_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
