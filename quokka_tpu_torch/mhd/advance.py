@@ -17,11 +17,12 @@ Fully periodic domains run ghost-free: every stencil is a roll whose wrap is
 the periodic boundary. Bf[d][..., i, ...] = B_d at face i-1/2 (the lo face
 of cell i); edge arrays are corner-registered the same way.
 
-On a CUDA float32 state with three active axes and `use_pallas` (the JAX
-package's name for its kernel switch), each axis's reconstruction + HLLD +
-divergence runs in kernel K8 (`mhd.sweep.compute_mhd_axis`); the corner-EMF
-assembly, the curl and the RK combine stay plain PyTorch, as they stayed
-XLA outside Pallas.
+Each active axis's reconstruction + HLLD + divergence is one call of
+`mhd.sweep.compute_mhd_axis`: kernel K8 on a CUDA state, which takes
+float32 and three active axes and raises for anything else, and K8's plain
+version on a CPU state at any dtype and any number of active axes. The
+corner-EMF assembly, the curl and the RK combine stay plain PyTorch, as
+they stayed XLA outside Pallas.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 
 from .._numerics import div, sqrt
 from ..stencil import sh
-from .sweep import _FRAMES, axis_hlld_flux, compute_mhd_axis, state_rows
+from .sweep import _FRAMES, compute_mhd_axis
 
 
 @dataclass(frozen=True)
@@ -47,8 +48,8 @@ class MHDOptions:
     limiter: str = "mc"
     density_floor: float = 0.0
     pressure_floor: float = 0.0
-    # K8 per axis (CUDA f32 with three active axes; the plain version on the
-    # CPU); False takes the per-axis torch formulation everywhere
+    # the JAX package's kernel switch, kept for its field set: it changes
+    # nothing here (a CUDA state always sweeps through K8)
     use_pallas: bool = True
 
 
@@ -169,6 +170,11 @@ def mhd_rhs(U: torch.Tensor, Bf: Sequence[torch.Tensor], opts: MHDOptions):
 
     dU/dt = -div F (HLLD fluxes); dBf/dt = -curl E with corner EMFs from the
     upwind-CT reconstruction."""
+    if U.is_cuda and tuple(opts.active_axes) != (0, 1, 2):
+        raise NotImplementedError(
+            "MHD on a CUDA device needs three active axes (K8 sweeps every "
+            f"axis), got {tuple(opts.active_axes)}; run this problem with "
+            "device='cpu'")
     B_cc = b_cell_from_faces(Bf)
     prim = cons_to_prim_mhd(U, B_cc, opts)
 
@@ -176,30 +182,16 @@ def mhd_rhs(U: torch.Tensor, Bf: Sequence[torch.Tensor], opts: MHDOptions):
     face_rho = {}   # mass flux per face axis
     dU = None
 
-    # the conditions of the JAX package's kernel branch
-    use_kernel = (opts.use_pallas and prim.dtype == torch.float32
-                  and tuple(opts.active_axes) == (0, 1, 2))
-    if use_kernel:
-        # K8 per axis: only the divergence rows and the three face rows the
-        # CT corner assembly needs reach device memory
-        for d in opts.active_axes:
-            vax, wax = _FRAMES[d]
-            out = compute_mhd_axis(prim, Bf[d], d, opts)
-            dU = out[:5] if dU is None else dU + out[:5]
-            face_rho[d] = out[5]
-            face_emf[(wax, d)] = -out[6]
-            face_emf[(vax, d)] = out[7]
-
-    for d in () if use_kernel else opts.active_axes:
+    # K8 per axis: only the divergence rows and the three face rows the CT
+    # corner assembly needs reach device memory
+    for d in opts.active_axes:
         vax, wax = _FRAMES[d]
-        F = axis_hlld_flux(prim, Bf[d], d, opts)
-        rows = state_rows(F, d)
-        contrib = div(rows - sh(rows, 1, 1 + d), opts.dx[d])
-        dU = contrib if dU is None else dU + contrib
-        # F[6] = flux of B_vax -> -E_wax; F[7] = flux of B_wax -> +E_vax
-        face_emf[(wax, d)] = -F[6]
-        face_emf[(vax, d)] = F[7]
-        face_rho[d] = F[0]
+        out = compute_mhd_axis(prim, Bf[d], d, opts)
+        dU = out[:5] if dU is None else dU + out[:5]
+        face_rho[d] = out[5]
+        # row 6 = flux of B_vax -> -E_wax; row 7 = flux of B_wax -> +E_vax
+        face_emf[(wax, d)] = -out[6]
+        face_emf[(vax, d)] = out[7]
 
     # corner EMFs and the discrete curl
     Ecc = {}

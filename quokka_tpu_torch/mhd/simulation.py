@@ -4,8 +4,11 @@ Counterpart of `quokka_tpu.mhd.simulation`: the ParmParse deck,
 `set_initial_conditions()` / `evolve()`, the CFL timestep, the conservation
 audit with the magnetic energy, max |div B| and the FOM, for fully periodic
 domains, where the solver runs ghost-free. The state lives on the `device`
-the caller names, a CUDA device unless the caller asks for the CPU; there a
-float32 state sweeps every axis through kernel K8.
+the caller names, a CUDA device unless the caller asks for the CPU. On the
+card every axis sweeps through kernel K8, which takes float32 and three
+active axes: a float64 state or a problem with fewer active axes raises
+there (run it with device="cpu"). `mhd.use_pallas` is read for the JAX
+package's deck and changes nothing.
 
 `evolve` has the JAX package's two loops. With `verbose = 0` it runs
 windows of K steps (`mhd.fused_window`, rounded down to a power of two):
@@ -21,6 +24,7 @@ raise NotImplementedError.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import List, Optional
 
@@ -166,6 +170,17 @@ class MHDSimulation:
 
     def max_divb(self) -> float:
         return float(torch.max(torch.abs(div_b(self.Bf, self.opts))))
+
+    def divb_ulps(self) -> float:
+        """max |div B| x the smallest dx, in ulps of the state's dtype at the
+        largest |B| on a face. CT leaves div B at the roundoff of the face
+        values, which this counts whatever the grid: every step rounds each
+        face to the dtype, and a cell's divergence sums six faces over dx."""
+        b_max = max(float(torch.max(torch.abs(b))) for b in self.Bf)
+        if b_max == 0.0:
+            return 0.0
+        ulp = 2.0 ** math.floor(math.log2(b_max)) * torch.finfo(self.dtype).eps
+        return self.max_divb() * self.grid.dx_min / ulp
 
     @property
     def B_cc(self) -> torch.Tensor:

@@ -13,9 +13,11 @@ on the axis's lo faces, and returns one [8, X, Y, Z] tensor:
 
 `mhd_axis_plain` is the JAX kernel's body in PyTorch (PLM-minmod / PPM /
 donor-cell faces, the density and pressure floors on the face states, the
-full HLLD flux); `compute_mhd_axis` takes it for a CPU tensor and launches
-the CUDA kernel (``csrc/mhd_sweep.cu``) for a CUDA tensor, and raises for
-anything the kernel does not take. `launch_counts` counts the launches.
+full HLLD flux); `compute_mhd_axis` takes it for a CPU tensor at any dtype
+and shape, and for a CUDA tensor launches the CUDA kernel
+(``csrc/mhd_sweep.cu``) or raises for anything the kernel does not take
+(float64, an extent < 4, a non-contiguous tensor, an order other than
+1-3). `launch_counts` counts the launches.
 """
 
 from __future__ import annotations
@@ -51,29 +53,19 @@ def _face_state(q: torch.Tensor, axis: int, opts) -> FaceState:
                      cs=zero, E=zero, Eint=zero, by=q[5 + vax], bz=q[5 + wax])
 
 
-def axis_hlld_flux(prim: torch.Tensor, bxf: torch.Tensor, axis: int, opts,
-                   counts: dict | None = None) -> torch.Tensor:
-    """Canonical HLLD flux [rho, m_ax, m_vax, m_wax, E, 0, by', bz'] on the lo
-    faces of `axis` (roll semantics): the faces of the 8 primitives, then
-    `hlld` with the staggered normal field `bxf` (single-valued at a face)."""
-    qL, qR = reconstruct.reconstruct_faces(prim, axis, opts.reconstruction_order)
-    return hlld(_face_state(qL, axis, opts), _face_state(qR, axis, opts),
-                opts.gamma, bxf, counts)
-
-
-def state_rows(F: torch.Tensor, axis: int) -> torch.Tensor:
-    """The canonical [rho, m_ax, m_vax, m_wax, E] rows of F in state order."""
-    vax, wax = _FRAMES[axis]
-    comps = {0: F[0], 1 + axis: F[1], 1 + vax: F[2], 1 + wax: F[3], 4: F[4]}
-    return torch.stack([comps[i] for i in range(5)])
-
-
 def mhd_axis_plain(prim: torch.Tensor, bxf: torch.Tensor, axis: int, opts,
                    counts: dict | None = None) -> torch.Tensor:
-    """Plain version of K8 (the module docstring's row layout). `counts`, if
+    """Plain version of K8 (the module docstring's row layout): the faces of
+    the 8 primitives, then `hlld` with the staggered normal field `bxf`
+    (single-valued at a face) for the canonical flux [rho, m_ax, m_vax,
+    m_wax, E, 0, by', bz'] on the lo faces (roll semantics). `counts`, if
     given, accumulates the faces in each HLLD region and branch."""
-    F = axis_hlld_flux(prim, bxf, axis, opts, counts)
-    rows = state_rows(F, axis)
+    qL, qR = reconstruct.reconstruct_faces(prim, axis, opts.reconstruction_order)
+    F = hlld(_face_state(qL, axis, opts), _face_state(qR, axis, opts), opts.gamma, bxf,
+             counts)
+    vax, wax = _FRAMES[axis]
+    comps = {0: F[0], 1 + axis: F[1], 1 + vax: F[2], 1 + wax: F[3], 4: F[4]}
+    rows = torch.stack([comps[i] for i in range(5)])
     div = (rows - sh(rows, 1, axis + 1)) * (1.0 / opts.dx[axis])
     return torch.cat([div, F[0][None], F[6][None], F[7][None]])
 

@@ -11,9 +11,11 @@ warm-up step, three parts of a step are each run ``--steps`` times:
   flags that ``advance_single_step`` makes);
 - its radiation subcycle (``RadiationAdvance.subcycle``).
 
-For Orszag-Tang MHD (``problems/mhd.py:DECK_256``, f32) the parts are one
+For Orszag-Tang MHD (``problems/mhd.py:DECK_256``, f32) the parts are a
 step of the windowed loop that ``MHDSimulation.evolve()`` runs with
-``verbose = 0`` (the CFL dt on the device, the RK2 step, the dt read back)
+``verbose = 0``, timed as one window of ``MHD_WINDOW`` (16) steps, the
+length of the main path's first window, and reported per step (the CFL dt
+on the device, the RK2 step, the masks; the window's dts read back once),
 and one right-hand side (three K8 launches and the constrained-transport
 glue: primitives, cell field, corner EMFs, curl).
 
@@ -56,6 +58,7 @@ KERNEL_OF = (
     ("div_kernel", "K2 divergence"), ("apply_kernel", "K3"),
 )
 PLAIN = "plain torch"
+MHD_WINDOW = 16  # steps of a window of MHDSimulation's main path
 COPIES = "copies"
 
 
@@ -150,8 +153,12 @@ def _mhd_parts(sim):
     """{part name: callable} of one MHD step (see the module doc)."""
     from .mhd.advance import mhd_rhs
 
-    return {"step": lambda: sim._window(1),
+    return {"step": lambda: sim._window(MHD_WINDOW),
             "rhs": lambda: mhd_rhs(sim.U, sim.Bf, sim.opts)}
+
+
+# steps a call of each MHD part runs (its times are reported per step)
+_MHD_STEPS = {"step": MHD_WINDOW}
 
 
 def _mhd_restorer(sim):
@@ -168,7 +175,7 @@ def _mhd_restorer(sim):
 
 
 def profile_case(title: str, make_sim, reps: int, parts_of=_parts,
-                 restorer_of=_restorer) -> dict:
+                 restorer_of=_restorer, steps_of=None) -> dict:
     sim = make_sim()
     sim.set_initial_conditions()
     sim.evolve()  # one warm-up step (max_timesteps = 1)
@@ -178,10 +185,13 @@ def profile_case(title: str, make_sim, reps: int, parts_of=_parts,
     restore = restorer_of(sim)
     out = {}
     for part, fn in parts_of(sim).items():
+        per = (steps_of or {}).get(part, 1)
         restore()
-        wall = wall_ms(fn, reps)
+        wall = wall_ms(fn, reps) / per
         restore()
         by_kernel, top = device_ms(fn, reps)
+        by_kernel = {k: v / per for k, v in by_kernel.items()}
+        top = [(name, ms / per) for name, ms in top]
         busy = sum(by_kernel.values())
         out[part] = {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
                      "by_kernel": by_kernel, "top_plain": top}
@@ -234,7 +244,7 @@ def main(argv=None) -> int:
     result[title] = profile_case(
         title, lambda: MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(
             mhd.DECK_256, ["max_timesteps=1"]), precision="single"),
-        args.steps, _mhd_parts, _mhd_restorer)
+        args.steps, _mhd_parts, _mhd_restorer, _MHD_STEPS)
     print(json.dumps(result))
     return 0
 

@@ -9,12 +9,12 @@
   3e-5 + 3e-5 x each row's max, the JAX package's own bar between its
   Pallas and XLA forms (XLA contracts products into FMAs where PyTorch
   rounds each).
-- `mhd_rhs` in its per-axis torch form against the JAX XLA form in f64 at
-  1e-12 x each component's max.
+- `mhd_rhs` (K8's plain version per axis on the CPU) against the JAX XLA
+  form in f64 at 1e-12 x each component's max.
 - `faces_from_vector_potential` and the Orszag-Tang and field-loop initial
   conditions against JAX in f64 at 1e-14, with max |div B| < 1e-12.
-- K8 against its plain version on the card at 32^3 (marked `cuda`; skips
-  without a GPU).
+- K8 against its plain version on the card at 32^3, and `mhd_rhs` on the
+  card launching K8 or raising (marked `cuda`; skip without a GPU).
 """
 
 import dataclasses
@@ -167,3 +167,26 @@ def test_k8_matches_plain_on_card():
             ok, max_abs, _, _, _ = case.check()
             assert ok, (case.label, order, max_abs)
     assert sweep.launch_counts["mhd_axis"] == 6
+
+
+@pytest.mark.cuda
+def test_mhd_rhs_on_card_launches_k8_or_raises():
+    """`use_pallas` changes nothing; float64 and fewer than three active
+    axes raise instead of taking the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    prim, bxf = _rough()
+    U = _conserved(prim, bxf)
+    for dtype, axes, want in ((torch.float32, (0, 1, 2), None),
+                              (torch.float64, (0, 1, 2), TypeError),
+                              (torch.float32, (0, 1), NotImplementedError)):
+        tU, tBf = mhd_state_from_numpy(U, bxf, "cuda", dtype)
+        opts = dataclasses.replace(_topts(_jopts(use_pallas=False)), active_axes=axes)
+        sweep.reset_launch_counts()
+        if want is None:
+            advance.mhd_rhs(tU, tBf, opts)
+            assert sweep.launch_counts["mhd_axis"] == 3
+        else:
+            with pytest.raises(want):
+                advance.mhd_rhs(tU, tBf, opts)
+            assert sweep.launch_counts["mhd_axis"] == 0
