@@ -10,7 +10,11 @@ the card:
   deck), 10 steps with the fused substep (K1-K4) and 2 steps stage by
   stage (K1-K3, K5, K6);
 - MHD: Orszag-Tang 256^3 f32 (the JAX package's bench.py:310-318 deck),
-  20 steps of the windowed loop through `MHDSimulation` (K8).
+  20 steps of the windowed loop through `MHDSimulation` (K8);
+- dense AMR: the radhydro shell at 256^3 + one level f32 (the JAX
+  package's bench.py:192-207 deck, `run_amr_shell(sparse=False)`), one
+  warm-up coarse step and three timed ones through `AMRSimulation` (K1,
+  K2, K2d, K5, K7).
 
 Run from the repository root:  python3 chip_smoke.py
 Phases print as they go; any failure exits non-zero. The last three lines
@@ -21,6 +25,7 @@ built library in quokka_tpu_torch/_build/.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,7 +51,12 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                 "quokka_tpu/radiation/pallas_sweep.py:115"),
     "mhd_axis": ("K8 compute_mhd_axis", "quokka_tpu_torch/csrc/mhd_sweep.cu",
                  "quokka_tpu/mhd/pallas_sweep.py:98"),
+    "axis_flux_avg": ("K2d compute_axis_flux emit_avg_flux", "quokka_tpu_torch/csrc/sweep.cu",
+                      "quokka_tpu/hydro/pallas_sweep.py:1148"),
+    "rad_axis_flux": ("K7 compute_rad_axis_flux", "quokka_tpu_torch/csrc/rad_axis_flux.cu",
+                      "quokka_tpu/radiation/pallas_sweep.py:53"),
 }
+AMR_KEYS = ("transverse", "axis_flux", "axis_flux_avg", "rad_source", "rad_axis_flux")
 HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
 # bar of the MHD main path's max |div B| x dx, in float32 ulps of max |B_face|
 DIVB_ULPS = 32
@@ -109,6 +119,33 @@ def rough_rad_state(n, seed=9):
     return U.float().contiguous()
 
 
+def rough_padded_hydro(n, seed, fill):
+    """Seeded [6, n, n, n] f32 gas state on the card with a density and
+    pressure well and strong shocks along every axis, periodic-padded by
+    `fill`: the padded AMR level's K2d input where PPM flattening, the
+    carbuncle fix and the HLLC branches all fire."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n, n, n)
+    rho = 1.0 + 0.5 * torch.rand(shape, generator=g, device="cuda")
+    v = 0.3 * torch.randn((3,) + shape, generator=g, device="cuda")
+    eint = 1.0 + torch.rand(shape, generator=g, device="cuda")
+    q = n // 8
+    rho[q:2 * q, q:2 * q, q:2 * q] = 1e-4
+    eint[q:2 * q, q:2 * q, q:2 * q] = 1e-6
+    for d in range(3):
+        sl = [slice(None)] * 3
+        sl[d] = slice(3 * q, 3 * q + 2)
+        eint[tuple(sl)] *= 30.0
+        v[d][tuple(sl)] = 4.0
+        sl[d] = slice(5 * q, 5 * q + 2)
+        v[d][tuple(sl)] = -4.0
+    ke = 0.5 * rho * (v * v).sum(dim=0)
+    U = torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], rho * eint + ke, rho * eint])
+    return fill(U.contiguous())
+
+
 def run_cases(title, cases, timed, summary, failed, extra_of=None):
     """Check each case against its plain version; time the timed input."""
     from quokka_tpu_torch import kernel_check
@@ -159,6 +196,10 @@ def gpu_vs_cpu(a, b, what, rtol, atol_frac, groups=None):
 
 
 def main() -> int:
+    # the dense AMR path's transients at the fine level's 520^3 are GB-sized
+    # and of many sizes: let the allocator grow segments instead of
+    # fragmenting (set before the first CUDA allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     # ---- 1. device
@@ -183,7 +224,11 @@ def main() -> int:
 
     from quokka_tpu_torch import (MHDSimulation, ParmParse, PowerLawOpacity, Simulation,
                                   _cuda, kernel_check)
-    from quokka_tpu_torch.benchmarks import bench_hydro, bench_mhd, bench_radhydro
+    from quokka_tpu_torch.amr import AMRSimulation
+    from quokka_tpu_torch.benchmarks import (bench_amr_shell, bench_hydro, bench_mhd,
+                                             bench_radhydro)
+    from quokka_tpu_torch.boundaries import fill_ghosts
+    from quokka_tpu_torch.problems import radhydro_shell
     from quokka_tpu_torch.hydro import sweep
     from quokka_tpu_torch.hydro.advance import advance_hydro_rk2
     from quokka_tpu_torch.hydro.riemann import HLLD_REGIONS
@@ -344,8 +389,83 @@ def main() -> int:
     if msweep.launch_counts["mhd_axis"] != 6:
         failed.append("mhd.use_pallas=0 did not launch K8 6 times a step")
     torch.cuda.empty_cache()
-    print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2, K6 and K8 sum "
-          "the three axes, K5 its two stages")
+
+    # dense AMR: K1, K2 stage 1, K2d, K7 and K5 at the fine level's padded
+    # 520^3 (K5 at its unpadded 512^3), on the shell's level 1 as regridding
+    # builds it (K2d's stage-2 input is one RK stage of it) and on rough
+    # seeded states where the radiation admissibility fallback fires; the
+    # times are those of K2d and K7 on the shell (K1, K2 and K5 are timed at
+    # the 256^3 main paths' shapes above)
+    from quokka_tpu_torch.hydro.advance import _advance_hydro_rk2_padded
+
+    asim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
+                         ParmParse.from_string(radhydro_shell.DECK_256, ["verbose=0"]))
+    asim.set_initial_conditions()
+    fopts = asim.level_opts[1]
+    ng, bcs = asim.ng, asim.problem.bcs
+    amr_eos, amr_problem = asim.eos, asim.problem
+
+    def fill(U):
+        return fill_ghosts(U, ng, bcs)
+
+    U1f = asim.level_U[1]
+    dt_amr = asim.compute_timestep()
+    radL = asim._get_level_rad(1)
+    dt_sub = 0.5 * dt_amr / radL.n_substeps(0.5 * dt_amr)  # a level-1 substep
+    src = radL._rad_src(asim.t, U1f)
+    Ug0 = fill(U1f[:6])
+    Ust1, _ = _advance_hydro_rk2_padded(U1f[:6], dt_amr, dataclasses.replace(fopts, rk_order=1),
+                                        fill, ng, asim.periodic)
+    Ug1 = fill(Ust1)
+    Rf = fill(U1f[6:])
+    del Ust1
+    ropts = asim._radiation.opts
+    amr_timed = ("axis_flux_avg", "rad_axis_flux")
+    run_cases(f"AMR shell level 1 (512^3, padded {tuple(Ug1.shape[1:])}, dt {dt_amr:.6e}, "
+              f"substep {dt_sub:.6e})",
+              kernel_check.amr_cases(Ug0, Ug1, Rf, fopts, ropts,
+                                     coupling=(U1f, src, dt_sub, amr_eos, amr_problem)),
+              lambda c: c.kernel in amr_timed, summary, failed)
+    del Ug0, Ug1, Rf, asim, U1f, radL, src
+    torch.cuda.empty_cache()
+    nf = 2 * n
+    Ug0 = rough_padded_hydro(nf, 31, fill)
+    Ug1 = rough_padded_hydro(nf, 32, fill)
+    Ur = rough_rad_state(nf)
+    Rf = fill(Ur[6:].contiguous())
+    run_cases("rough padded 520^3 states (hydro shocks; |f| -> 1, E at the floor)",
+              kernel_check.amr_cases(Ug0, Ug1, Rf, fopts, ropts, " rough",
+                                     coupling=(Ur, None, dt_sub, amr_eos, amr_problem)),
+              lambda c: False, summary, failed)
+    del Ug0, Ug1, Rf, Ur
+    torch.cuda.empty_cache()
+    # on the card compute_rad_fluxes launches K7 or raises: radiation.use_pallas
+    # = 0 still launches it (and K2d), a float64 AMR state raises TypeError
+    for extra, prec, want in ((["radiation.use_pallas=0", "hydro.use_pallas=0"], "single",
+                               None), ([], "double", TypeError)):
+        reset_counts()
+        small = ParmParse.from_string(radhydro_shell.DECK_256, [
+            "amr.n_cell=16 16 16", "max_timesteps=1", "verbose=0", f"precision={prec}"]
+            + extra)
+        sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(), small)
+        sim.set_initial_conditions()
+        try:
+            sim.evolve()
+            got = None
+        except TypeError as e:
+            got = type(e)
+            print(f"  AMR shell {prec} {extra}: raised {got.__name__}: {e}")
+        counts = read_counts()
+        print(f"  AMR shell 16^3 + 1 {prec} {extra}: K7 launches {counts['rad_axis_flux']}, "
+              f"K2d launches {counts['axis_flux_avg']}")
+        if got is not want:
+            failed.append(f"AMR on the card, {prec} {extra}: expected {want}, got {got}")
+        if want is None and (counts["rad_axis_flux"] <= 0 or counts["axis_flux_avg"] <= 0):
+            failed.append(f"AMR shell {extra}: K7 or K2d not launched")
+    del sim
+    torch.cuda.empty_cache()
+    print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2, K2d, K6, K7 and K8 "
+          "sum the three axes, K5 its two stages")
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
@@ -421,6 +541,27 @@ def main() -> int:
         gpu_vs_cpu(mhd_finals[verbose, "cuda"], mhd_finals[verbose, "cpu"],
                    f"{loop} loop GPU vs CPU", 3e-5, 3e-5,
                    groups=[[0], [1, 2, 3], [4], [5, 6, 7]])
+
+    print("-- AMR radhydro shell 32^3 + 1 level f32, 3 coarse steps (a regrid of "
+          "level 1 opens the third): GPU vs CPU, per level")
+    amr_finals = {}
+    for dev in ("cuda", "cpu"):
+        small = ParmParse.from_string(radhydro_shell.DECK_256, [
+            "amr.n_cell=32 32 32", "max_timesteps=3", "verbose=0"])
+        sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(), small, device=dev)
+        sim.set_initial_conditions()
+        sim.evolve()
+        amr_finals[dev] = ([u.double().cpu() for u in sim.level_U[:sim.finest_level + 1]],
+                           [m.cpu() for m in sim.level_mask[:sim.finest_level + 1]])
+        print(f"  {dev}: finest level {sim.finest_level}, active cells "
+              f"{[sim._active_cells(l) for l in range(sim.finest_level + 1)]}, t {sim.t:.9e}, "
+              f"mass rel err {sim.conservation_rel_err[0]:.3e}")
+    (Ug_l, mg_l), (Uc_l, mc_l) = amr_finals["cuda"], amr_finals["cpu"]
+    if len(Ug_l) != len(Uc_l) or not all(torch.equal(a, b) for a, b in zip(mg_l, mc_l)):
+        raise SystemExit("AMR 32^3: the GPU and CPU level masks differ")
+    for lev, (a, b) in enumerate(zip(Ug_l, Uc_l)):
+        gpu_vs_cpu(a, b, f"AMR level {lev} GPU vs CPU", 5e-6, 5e-6)
+    del amr_finals, Ug_l, Uc_l
 
     # ---- 5. the hydro main path
     phase("5. main path 1: Sedov 256^3 f32, 10 steps, decks/benchmark_unigrid_256.in")
@@ -542,13 +683,55 @@ def main() -> int:
     print(f"bench_mhd (windowed loop, 10 steps after 2): {mz_mhd:.3f} Mzone-updates/s "
           f"({secs:.3f} s) on {smi}")
 
+    del bench
+    torch.cuda.empty_cache()
+
+    # ---- 8. the dense AMR main path
+    phase("8. main path 4: dense AMR radhydro shell 256^3 + 1 level f32, 1 warm-up and "
+          "3 timed coarse steps (bench.py:192-207 deck)")
+    sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
+                        ParmParse.from_string(radhydro_shell.DECK_256, ["verbose=1"]))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sim.set_initial_conditions()
+    mz_active, mz_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=3)
+    amr_launches = read_counts()
+    rel = sim.conservation_rel_err
+    finite = all(bool(torch.isfinite(sim.level_U[lev]).all())
+                 for lev in range(sim.finest_level + 1))
+    active = [sim._active_cells(lev) for lev in range(sim.finest_level + 1)]
+    print(f"FOM: {mz_active:.3f} active Mzone-updates/s, raw {mz_raw:.3f} Mzone-updates/s "
+          f"(every cell of the dense levels), 3 coarse steps in {secs:.3f} s after 1, "
+          f"t = {sim.t:.6e}, on {smi}")
+    print(f"finest level {sim.finest_level}; active cells per level {active} of "
+          f"{[g.num_cells for g in sim.level_grids[:sim.finest_level + 1]]}; "
+          f"FOFC stage fallbacks {sim.fofc_fallbacks}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved "
+          f"(PYTORCH_CUDA_ALLOC_CONF={os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
+    print(f"composite conservation: mass rel err {rel[0]:.3e}, gas energy rel err "
+          f"{rel[4]:.3e}; finite states {finite}")
+    print(f"launches in this path: " + ", ".join(f"{k} {amr_launches[k]}" for k in AMR_KEYS))
+    if sim.istep != 4 or sim.finest_level != 1 or not finite:
+        raise SystemExit(f"AMR main path: {sim.istep} coarse steps, finest level "
+                         f"{sim.finest_level}, finite states {finite}")
+    if not abs(rel[0]) < 1e-5:
+        raise SystemExit(f"AMR composite mass conservation error {rel[0]:.3e} >= 1e-5")
+    missing = [k for k in AMR_KEYS if amr_launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the AMR path: {missing}")
+    del sim
+    torch.cuda.empty_cache()
+
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
         s = summary[key]
         _, bound_by = kernel_check.bound_ms(s["bytes"], s["ops"])
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": (sedov_launches[key] if key in HYDRO_KEYS else
+                     "launches": (amr_launches[key] if key in ("axis_flux_avg",
+                                                               "rad_axis_flux") else
+                                  sedov_launches[key] if key in HYDRO_KEYS else
                                   mhd_launches[key] if key in msweep.launch_counts else
                                   rad_launches[key]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],

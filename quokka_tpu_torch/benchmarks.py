@@ -1,8 +1,10 @@
 """Benchmark runners: an asynchronous step loop with dt computed on the device
-(hydro), a fixed-dt radhydro loop, and the MHD windowed loop.
+(hydro), a fixed-dt radhydro loop, the MHD windowed loop, and the dense
+AMR shell's coarse steps.
 
 Counterpart of `quokka_tpu.benchmarks.build_step_runner` / `bench_hydro` /
-`bench_radhydro` and of the JAX package's `bench.py:run_mhd`.
+`bench_radhydro` and of the JAX package's `bench.py:run_mhd` and
+`bench.py:run_amr_shell`.
 The reference's FOM is million zone-updates/s printed by `evolve()`
 (``src/simulation.hpp:972-980``). Here the host only launches steps: the CFL
 dt = cfl * dx_min / max(|v| + cs), with the 1.1x change limiter, stays a
@@ -124,3 +126,24 @@ def bench_mhd(sim, n_warmup: int = 2, n_steps: int = 10):
     sim.evolve()
     elapsed = time.perf_counter() - t0
     return (sim.cell_updates - n0) / elapsed / 1e6, elapsed
+
+
+def bench_amr_shell(sim, n_warmup: int = 1, n_steps: int = 3):
+    """Time `n_steps` coarse steps of an `AMRSimulation` after `n_warmup`,
+    counted as the JAX package's bench counts them (`bench.py:228-258`):
+    `evolve()` for the warm-up steps, then `evolve()` for the timed ones,
+    the figure being the active zone-updates of the timed steps over their
+    wall time. Returns (active Mzone-updates/s, raw Mzone-updates/s, s):
+    the raw figure counts every cell the dense levels advance."""
+    if sim.level_U[0] is None:
+        sim.set_initial_conditions()
+    sim.max_timesteps = sim.istep + n_warmup
+    sim.evolve()
+    n0, raw0 = sim.cell_updates, sim.cell_updates_raw
+    sim.max_timesteps = sim.istep + n_steps
+    sim._sync()
+    t0 = time.perf_counter()
+    sim.evolve()
+    elapsed = time.perf_counter() - t0
+    return ((sim.cell_updates - n0) / elapsed / 1e6,
+            (sim.cell_updates_raw - raw0) / elapsed / 1e6, elapsed)

@@ -1,5 +1,5 @@
 // Shared device functions of the radiation kernels K4 (rad_substep.cu), K5
-// (rad_source.cu) and K6 (rad_sweep.cu): the M1 closure and Eddington
+// (rad_source.cu), K6 (rad_sweep.cu) and K7 (rad_axis_flux.cu): the M1 closure and Eddington
 // tensor, the per-face HLL flux with its donor-cell fallback, the face
 // states of the four (E, f) primitives, the per-axis transport divergence,
 // amendRadState, and the per-cell implicit matter coupling.

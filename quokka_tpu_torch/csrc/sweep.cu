@@ -19,6 +19,16 @@
 //   dvel = (v(i+1) - v(i)) / dx, where with avg_with both faces are first
 //   averaged with stage 1's, 0.5 * (F1 + F2), in registers.
 //
+// K2d (emit_avg_flux, the AMR flux-register variant,
+// pallas_sweep.py:743-746 and :1066-1085): on a ghost-padded periodic
+// array, the div kernel also writes the time-averaged face flux
+// 0.5 * (F1 + F2) of the cell's lo face, and takes no stage-1 face
+// velocity: dvel stays the RAW stage-2 velocity divergence, which the
+// caller averages with stage 1's (hydro/advance.py). The padded array
+// wraps in index space, as the JAX in-block rolls do; the wrap reaches
+// ghost faces only. Its cost over K2's stage 2: one more [6, X, Y, Z]
+// write (24 B a cell) and one fewer [X, Y, Z] read.
+//
 // Why two kernels and not one thread computing faces i and i+1: that would
 // solve every Riemann problem twice, and HLLC is most of the FP32 work; the
 // face-array round trip costs (6+1) x 4 B written and read per cell, which
@@ -311,8 +321,8 @@ __global__ void div_kernel(const float* __restrict__ F,
                            const float* __restrict__ F1_hi,
                            const float* __restrict__ v1_hi,
                            float* __restrict__ div, float* __restrict__ dvel,
-                           int64_t X, int64_t Y, int64_t Z, int axis,
-                           int wall, float dx) {
+                           float* __restrict__ favg, int64_t X, int64_t Y,
+                           int64_t Z, int axis, int wall, float dx) {
   const int64_t ncell = X * Y * Z;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= ncell) return;
@@ -348,10 +358,11 @@ __global__ void div_kernel(const float* __restrict__ F,
                    fb);
     }
     div[v * ncell + idx] = (fa - fb) / dx;
+    if (favg != nullptr) favg[v * ncell + idx] = fa;
   }
   float va = vel[idx];
   float vb = on_plane ? vel_hi[poff] : vel[next];
-  if (avg) {
+  if (v1 != nullptr) {
     va = 0.5f * (v1[idx] + va);
     vb = 0.5f * ((on_plane ? v1_hi[poff] : v1[next]) + vb);
   }
@@ -384,12 +395,12 @@ extern "C" int qk_axis_div(const float* F, const float* vel, const float* F_hi,
                            const float* vel_hi, const float* F1,
                            const float* v1, const float* F1_hi,
                            const float* v1_hi, float* div, float* dvel,
-                           long long X, long long Y, long long Z, int axis,
-                           int wall, float dx, void* stream) {
+                           float* favg, long long X, long long Y, long long Z,
+                           int axis, int wall, float dx, void* stream) {
   const int64_t ncell = (int64_t)X * Y * Z;
   const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
   qk::div_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, div, dvel, X, Y, Z, axis,
-      wall, dx);
+      F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, div, dvel, favg, X, Y, Z,
+      axis, wall, dx);
   return (int)cudaGetLastError();
 }

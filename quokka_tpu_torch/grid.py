@@ -62,6 +62,12 @@ class Grid:
         return tuple(self.cell_centers(d, dtype, device).reshape(
             [-1 if a == d else 1 for a in range(3)]) for d in range(3))
 
+    def refine(self, ratio: int = 2) -> "Grid":
+        """The grid refined by `ratio` along the active axes (same domain)."""
+        n_new = tuple(n * ratio if d in self.active_axes else n
+                      for d, n in enumerate(self.n_cell))
+        return Grid(n_new, self.prob_lo, self.prob_hi)
+
     def cell_volume(self) -> float:
         v = 1.0
         for d in range(3):

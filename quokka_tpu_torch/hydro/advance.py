@@ -5,7 +5,10 @@ path (`_advance_hydro_rk2_fused`, reference ``src/QuokkaSimulation.hpp:
 1033-1325``): per stage, K1 (transverse fields) and K2 (one sweep per axis,
 emitting flux divergences; stage 2 averages with stage 1's faces) feed K3,
 which applies the update pointwise, counts invalid cells and applies the
-floors and the dual-energy sync.
+floors and the dual-energy sync. A ghost-padded level (the AMR path) runs
+the same sweeps on its padded state, K2d in stage 2 when the flux
+registers need the time-averaged face fluxes, and applies the update in
+plain torch as the JAX package does there.
 
 The FOFC fallback is a Python `if` on K3's invalid count, where the JAX
 package has a `lax.cond`: one host sync per stage. The fallback rebuilds
@@ -25,8 +28,9 @@ from ..eos import IdealGasEOS
 from ..indices import EINT, MX1, RHO
 from ..stencil import interior, sh, sh_bc
 from . import euler
-from .sweep import (_sum_divs, apply_update, compute_fluxes_pallas,
-                    compute_fluxes_pallas_div, finalize)
+from .sweep import (_sum_divs, apply_update, compute_axis_flux,
+                    compute_fluxes_pallas, compute_fluxes_pallas_div, finalize,
+                    precompute_transverse)
 
 
 @dataclass(frozen=True)
@@ -58,12 +62,13 @@ class HydroOptions:
 
 def compute_fluxes(Ug, opts: HydroOptions, first_order: bool = False,
                    bc_kinds: dict | None = None):
-    """All-axis face fluxes of an unpadded conserved state through the K1/K2
-    sweep (`first_order=True`: the donor-cell + LLF backup fluxes of FOFC).
-    Returns (fluxes, facevels, flux_hi, vel_hi)."""
-    if len(opts.active_axes) != 3 or bc_kinds is None:
-        raise NotImplementedError(
-            "compute_fluxes: only ghost-free 3D stepping (bc_kinds) is ported")
+    """All-axis face fluxes through the K1/K2 sweep (`first_order=True`: the
+    donor-cell + LLF backup fluxes of FOFC). With `bc_kinds` the state is
+    unpadded and the return is (fluxes, facevels, flux_hi, vel_hi); without,
+    the state is ghost-padded (roll semantics; the wrap reaches ghost faces
+    only) and the return is (fluxes, facevels)."""
+    if len(opts.active_axes) != 3:
+        raise NotImplementedError("compute_fluxes: only 3D stepping is ported")
     return compute_fluxes_pallas(Ug, opts, first_order, bc_kinds)
 
 
@@ -170,12 +175,20 @@ def _blend_fofc(fluxes, facevels, fo_fluxes, fo_facevels, mask_p, opts,
     return new_f, new_v, new_fh, new_vh
 
 
-def _apply_from_divs(U0_int, Ug_old, div, dvel, dt, ng, opts: HydroOptions):
-    """Pointwise flux application from the divergence totals (+ PdV)."""
+def _apply_from_divs(U0_int, Ug_old, div, dvel, dt, ng, opts: HydroOptions,
+                     consume: bool = False):
+    """Pointwise flux application from the divergence totals (+ PdV).
+    `consume`: the caller hands `div` over, and the PdV source is added to
+    it in place (the same rounding; a padded level's divergence total is
+    3.4 GB at 520^3)."""
     P = euler.pressure(Ug_old, opts.eos)
-    rhs = div.clone()
+    rhs = div if consume else div.clone()
+    del div
     rhs[EINT] = rhs[EINT] + (-P * dvel)
-    return U0_int + dt * interior(rhs, ng)
+    del P
+    upd = dt * interior(rhs, ng)
+    del rhs
+    return upd.add_(U0_int) if consume else U0_int + upd
 
 
 def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
@@ -252,6 +265,151 @@ def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
     return U2, {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
 
 
+def _padded_sweeps(Ug, opts: HydroOptions, r1: dict | None = None,
+                   emit_avg_flux: bool = False) -> dict:
+    """K1, then K2 along every axis of the ghost-padded state `Ug` (the
+    padded form of `compute_fluxes_pallas_div`). Returns ``fluxes``,
+    ``facevels`` (stage 1), ``div`` (the sorted-axis sum of the per-axis
+    flux divergences, which is all the update reads of them) and per-axis
+    ``dvels``.
+
+    Stage 2 (`r1` = stage 1's dict): K2 averages with stage 1's faces, each
+    axis's stage-1 faces being dropped from `r1` once its sweep has read
+    them; with `emit_avg_flux` (K2d) the sweep also returns the time-averaged
+    face fluxes as ``fluxes`` and its ``dvels`` are the RAW stage-2
+    velocity divergences."""
+    dmins, chi_cell, _ = precompute_transverse(Ug, opts, None, state_is_cons=True)
+    out = {"fluxes": {}, "facevels": {}, "div": None, "dvels": {}}
+    for d in opts.active_axes:
+        if r1 is None:
+            F, v, dv, dl = compute_axis_flux(Ug, d, opts, chi_cell, dmins,
+                                             dx_axis=opts.dx[d], state_is_cons=True)
+            out["fluxes"][d], out["facevels"][d] = F, v
+        else:
+            avg = (r1["fluxes"].pop(d), r1["facevels"].pop(d))
+            res = compute_axis_flux(Ug, d, opts, chi_cell, dmins, dx_axis=opts.dx[d],
+                                    avg_with=avg, state_is_cons=True,
+                                    emit_avg_flux=emit_avg_flux)
+            del avg
+            dv, dl = res[0], res[1]
+            if emit_avg_flux:
+                out["fluxes"][d] = res[2]
+            del res
+        out["div"] = dv if out["div"] is None else out["div"] + dv
+        out["dvels"][d] = dl
+        del dv
+    return out
+
+
+def _advance_hydro_rk2_padded(U, dt, opts: HydroOptions, fill_fn, ng, periodic,
+                              fill_fn2=None, return_fluxes: bool = False):
+    """RK2-SSP step of a level whose ghosts `fill_fn` pads (the padded form
+    of `_advance_hydro_rk2_fused`, the AMR path): K1 + K2 per stage on the
+    padded state, the update applied from the divergence totals in plain
+    torch (`_apply_from_divs`; K3 takes unpadded states only, as in the JAX
+    package), and the FOFC fallback reproducing the classic flux blending.
+
+    With `return_fluxes` the stage-2 sweeps are K2d: they also emit the
+    time-averaged face fluxes 0.5 (F1 + F2) for the flux registers, and
+    their velocity divergences come back raw, so they are averaged with
+    stage 1's here (divergence is linear). Returns (U_new, stats) with
+    ``n_fofc``, ``fofc_fallbacks`` and, with `return_fluxes`, ``fluxes``
+    {axis: [nv, padded X, Y, Z]}, the final (post-blend) averaged fluxes.
+
+    Host syncs: one FOFC check per stage, as on the ghost-free path. Each
+    intermediate is dropped where the JAX program lets it die: stage 1's
+    faces axis by axis as stage 2's sweeps read them (the rare fallback
+    sweeps stage 1 again, which the deterministic kernels reproduce
+    bitwise)."""
+    eos = opts.eos
+    if fill_fn2 is None:
+        fill_fn2 = fill_fn
+    no_walls = {}
+
+    Ug0 = fill_fn(U)
+
+    def fo_fluxes():
+        return compute_fluxes(Ug0, opts, first_order=True)
+
+    def apply_fluxes(fl, fv, redo_mask):
+        rhs = rhs_from_fluxes(fl, opts)
+        rhs = add_internal_energy_pdv(rhs, Ug0, fv, opts, redo_mask)
+        return U + dt * interior(rhs, ng)
+
+    def blend_stage1(r1_faces, redo1):
+        mask_p = _pad_mask(redo1, ng, periodic)
+        fo_fl, fo_fv = fo_fluxes()
+        fl, fv, _, _ = _blend_fofc(r1_faces["fluxes"], r1_faces["facevels"], fo_fl,
+                                   fo_fv, mask_p, opts, no_walls, ())
+        return fl, fv, mask_p
+
+    # ---- stage 1
+    r1 = _padded_sweeps(Ug0, opts)
+    U1_try = _apply_from_divs(U, Ug0, r1.pop("div"), _sum_divs(r1["dvels"]), dt, ng, opts,
+                              consume=True)
+    redo1 = torch.logical_not(euler.is_state_valid(U1_try, eos))
+    n1 = redo1.sum()
+    fired1 = bool(n1 > 0)  # host sync
+    fallbacks = int(fired1)
+    if fired1:
+        del U1_try
+        fl, fv, mask_p = blend_stage1(r1, redo1)
+        U1 = finalize(apply_fluxes(fl, fv, mask_p), opts)
+        del fl, fv, mask_p
+    else:
+        U1 = finalize(U1_try, opts)
+        del U1_try
+    if opts.rk_order == 1:
+        return U1, {"n_fofc": n1, "fofc_fallbacks": fallbacks}
+
+    # ---- stage 2: divergence of the time-averaged flux (K2, or K2d with
+    # return_fluxes)
+    Ug1 = fill_fn2(U1)
+    del U1
+    dvels1 = r1["dvels"]
+    r2 = _padded_sweeps(Ug1, opts, r1=r1, emit_avg_flux=return_fluxes)
+    del r1
+    dvels2 = r2.pop("dvels")
+    if return_fluxes:
+        dvels2 = {d: 0.5 * (dvels1[d] + dvels2[d]) for d in dvels2}
+    del dvels1
+    U2_try = _apply_from_divs(U, Ug0, r2.pop("div"), _sum_divs(dvels2), dt, ng, opts,
+                              consume=True)
+    del dvels2
+    redo2 = torch.logical_not(euler.is_state_valid(U2_try, eos))
+    n2 = redo2.sum()
+    if not (fired1 or bool(n2 > 0)):  # host sync
+        del redo2
+        stats = {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
+        if return_fluxes:
+            stats["fluxes"] = r2["fluxes"]
+        return finalize(U2_try, opts), stats
+
+    # fallback: stage-1 final (blended) fluxes, the raw stage-2 sweep, the
+    # time average, flux application, and the stage-2 FOFC blend
+    del U2_try, r2, redo2
+    fallbacks += 1
+    fl1f, fv1f, _ = blend_stage1(_padded_sweeps(Ug0, opts), redo1)
+    fl2r, fv2r = compute_fluxes(Ug1, opts)
+    flux_avg = {d: 0.5 * (fl1f[d] + fl2r[d]) for d in fl1f}
+    vel_avg = {d: 0.5 * (fv1f[d] + fv2r[d]) for d in fv1f}
+    del fl1f, fv1f, fl2r, fv2r
+    U2a = apply_fluxes(flux_avg, vel_avg, None)
+    redo2b = torch.logical_not(euler.is_state_valid(U2a, eos))
+    n2 = redo2b.sum()
+    fl_out = flux_avg
+    if bool(n2 > 0):  # host sync
+        mask_p = _pad_mask(redo2b, ng, periodic)
+        fo_fl, fo_fv = fo_fluxes()
+        fl_out, fv, _, _ = _blend_fofc(flux_avg, vel_avg, fo_fl, fo_fv, mask_p, opts,
+                                       no_walls, ())
+        U2a = apply_fluxes(fl_out, fv, mask_p)
+    stats = {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
+    if return_fluxes:
+        stats["fluxes"] = fl_out
+    return finalize(U2a, opts), stats
+
+
 def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
                       ng: Sequence[int] = (0, 0, 0),
                       periodic: Sequence[bool] = (True, True, True),
@@ -259,28 +417,45 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
                       return_fluxes: bool = False, redo_any_fn=None,
                       bc_kinds: dict | None = None,
                       reflux_corr_masks: dict | None = None):
-    """Full RK2-SSP hydro step (reference `advanceHydroAtLevel`) on an
-    unpadded 3D state: `bc_kinds` = {axis: (lo, hi) | None} names the wall
-    axes (None = periodic). Only the kernel-fused ghost-free formulation is
-    ported; every other configuration raises NotImplementedError.
-    `dt` is a float or a one-element tensor on the state's device.
-    Returns (U_new, stats)."""
+    """Full RK2-SSP hydro step (reference `advanceHydroAtLevel`) of a 3D
+    state, in one of two forms:
+
+    - ghost-free (`bc_kinds` = {axis: (lo, hi) | None}, None = periodic,
+      `ng` all 0, no `fill_fn`): the unigrid path, K1-K3;
+    - ghost-padded (`bc_kinds` None): `fill_fn(U)` pads the ghosts (and
+      `fill_fn2` the stage-2 state; AMR fills interpolate the parent in
+      time there), `ng` the ghost widths; `return_fluxes` adds the
+      time-averaged face fluxes for the flux registers (K2d).
+
+    Any other configuration raises NotImplementedError. `dt` is a float or
+    a one-element tensor on the state's device. Returns (U_new, stats)."""
+    padded = bc_kinds is None
     unsupported = {
-        "fill_fn": fill_fn is not None, "mask_fill_fn": mask_fill_fn is not None,
-        "fill_fn2": fill_fn2 is not None, "return_fluxes": return_fluxes,
         "redo_any_fn": redo_any_fn is not None,
         "reflux_corr_masks": reflux_corr_masks is not None,
-        "bc_kinds=None (ghost-padded stepping)": bc_kinds is None,
-        "ng != 0": any(g != 0 for g in ng),
+        "mask_fill_fn": mask_fill_fn is not None,
         "fuse_update=False": not opts.fuse_update,
         "fewer than 3 active axes": len(opts.active_axes) != 3,
         "rk_order not in (1, 2)": opts.rk_order not in (1, 2),
+        "return_fluxes with rk_order 1": return_fluxes and opts.rk_order == 1,
         "passive scalars": opts.n_scalars > 0,
         "riemann != hllc": opts.riemann != "hllc",
     }
+    if padded:
+        unsupported["ghost-padded stepping without fill_fn"] = fill_fn is None
+    else:
+        unsupported.update({
+            "fill_fn (ghost-free stepping)": fill_fn is not None,
+            "fill_fn2 (ghost-free stepping)": fill_fn2 is not None,
+            "return_fluxes (ghost-free stepping)": return_fluxes,
+            "ng != 0 (ghost-free stepping)": any(g != 0 for g in ng),
+        })
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"advance_hydro_rk2: not ported yet: {bad}")
     if U.device.type == "cuda":
         dt = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(())
+    if padded:
+        return _advance_hydro_rk2_padded(U, dt, opts, fill_fn, ng, periodic,
+                                         fill_fn2, return_fluxes)
     return _advance_hydro_rk2_fused(U, dt, opts, ng, periodic, bc_kinds)

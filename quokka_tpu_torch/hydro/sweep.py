@@ -13,7 +13,9 @@ Counterpart of `quokka_tpu.hydro.pallas_sweep`. Each kernel has
     raises for any other device and for what the kernel does not take.
 
 `launch_counts` counts kernel launches per wrapper, so a run can show that
-it went through the kernels.
+it went through the kernels: ``axis_flux`` counts K2, ``axis_flux_avg`` its
+K2d variant (`emit_avg_flux`, the stage-2 sweep of a padded AMR level that
+also emits the time-averaged face flux for the flux registers).
 
 Layout: ``[nvar, X, Y, Z]``, contiguous, z fastest. Face arrays keep the
 JAX convention: slot i is the face between cells i-1 and i (slot 0 is the
@@ -35,7 +37,8 @@ from ..stencil import sh
 from . import euler, reconstruct
 from .riemann import FaceState, hllc, llf
 
-launch_counts = {"transverse": 0, "axis_flux": 0, "apply_update": 0}
+launch_counts = {"transverse": 0, "axis_flux": 0, "axis_flux_avg": 0,
+                 "apply_update": 0}
 
 
 def reset_launch_counts() -> None:
@@ -219,11 +222,16 @@ def precompute_transverse_plain(U, opts, bc_kinds: dict | None,
 
 def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
                     first_order: bool = False, bc_axis=None, dx_axis=None,
-                    avg_with: tuple | None = None, state_is_cons: bool = False):
+                    avg_with: tuple | None = None, state_is_cons: bool = False,
+                    emit_avg_flux: bool = False):
     """Plain version of K2: one sweep along `axis`. Returns what
     `pallas_sweep.compute_axis_flux_pallas` returns for these arguments:
-    (F, v[, F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`."""
+    (F, v[, F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or
+    with `emit_avg_flux` (K2d, padded periodic arrays) (div, dvel, F_avg):
+    the divergence of the averaged flux, the RAW stage-2 velocity
+    divergence and the averaged flux 0.5 (F1 + F2)."""
     _check_bc(bc_axis)
+    _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
     vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
     dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
     dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
@@ -254,7 +262,8 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     Fd, vd, Fhd, vhd = F, v, Fh, vh
     if avg_with is not None:
         Fd = 0.5 * (avg_with[0] + F)
-        vd = 0.5 * (avg_with[1] + v)
+        if not emit_avg_flux:
+            vd = 0.5 * (avg_with[1] + v)
         if wall:
             Fhd = 0.5 * (avg_with[2] + Fh)
             vhd = 0.5 * (avg_with[3] + vh)
@@ -266,6 +275,8 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
         v_next = torch.cat([vd.narrow(axis, 1, n - 1), vhd.unsqueeze(axis)], dim=axis)
     div = (Fd - F_next) / dx_axis
     dvel = (v_next - vd) / dx_axis
+    if emit_avg_flux:
+        return div, dvel, Fd
     if avg_with is not None:
         return div, dvel
     return ((F, v, Fh, vh) if wall else (F, v)) + (div, dvel)
@@ -283,6 +294,12 @@ def apply_update_plain(U, Ug0, divs: dict, dvels: dict, dt, opts):
     U_try = U + dt * rhs
     n_bad = torch.logical_not(euler.is_state_valid(U_try, opts.eos)).sum()
     return finalize(U_try, opts), n_bad
+
+
+def _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis):
+    if emit_avg_flux and (avg_with is None or bc_axis is not None or dx_axis is None):
+        raise ValueError("emit_avg_flux (K2d) takes avg_with and dx_axis on a "
+                         "periodic (padded) axis")
 
 
 def _sum_divs(divs: dict) -> torch.Tensor:
@@ -401,14 +418,17 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
                       div_only=False, fo_mask=None, fo_from=None,
                       emit_avg_flux=False, corr_mask=None, corr_acc=None):
     """K2: one sweep along `axis` (`pallas_sweep.compute_axis_flux_pallas`
-    for the unigrid main path's variants). Returns (F, v[, F_hi, v_hi][,
-    div, dvel]), or (div, dvel) with `avg_with`."""
+    for the variants of the unigrid and dense-AMR paths). Returns (F, v[,
+    F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or (div,
+    dvel, F_avg) with `emit_avg_flux` (K2d: `axis_flux_plain` says what
+    each holds)."""
     _unsupported(acc=acc, div_only=div_only, fo_mask=fo_mask, fo_from=fo_from,
-                 emit_avg_flux=emit_avg_flux, corr_mask=corr_mask,
-                 corr_acc=corr_acc, chi_ghost_axis=chi_ghost_axis)
+                 corr_mask=corr_mask, corr_acc=corr_acc, chi_ghost_axis=chi_ghost_axis)
+    _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
     if not _on_cuda(U):
         return axis_flux_plain(U, axis, opts, chi_cell, dmins, first_order,
-                               bc_axis, dx_axis, avg_with, state_is_cons)
+                               bc_axis, dx_axis, avg_with, state_is_cons,
+                               emit_avg_flux)
     from .._cuda import check, library
 
     lib = library()
@@ -442,18 +462,24 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
                            int(first_order), float(opts.K_visc),
                            *_eos_args(opts), stream)
     check(err, "axis_flux")
-    launch_counts["axis_flux"] += 1
     faces = (F, v, Fh, vh) if wall else (F, v)
     if dx_axis is None:
+        launch_counts["axis_flux"] += 1
         return faces
     div = torch.empty_like(U)
     dvel = torch.empty_like(v)
+    favg = torch.empty_like(U) if emit_avg_flux else None
     F1, v1, F1h, v1h = (avg + (None,) * 4)[:4]
+    if emit_avg_flux:
+        v1 = None  # K2d: dvel stays the raw stage-2 velocity divergence
     err = lib.qk_axis_div(F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
                           _ptr(F1), _ptr(v1), _ptr(F1h), _ptr(v1h),
-                          div.data_ptr(), dvel.data_ptr(), X, Y, Z, axis,
-                          int(wall), float(dx_axis), stream)
+                          div.data_ptr(), dvel.data_ptr(), _ptr(favg), X, Y, Z,
+                          axis, int(wall), float(dx_axis), stream)
     check(err, "axis_div")
+    launch_counts["axis_flux_avg" if emit_avg_flux else "axis_flux"] += 1
+    if emit_avg_flux:
+        return div, dvel, favg
     if avg_with is not None:
         return div, dvel
     return faces + (div, dvel)
@@ -498,8 +524,7 @@ def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):
 
 # ------------------------------------------------------ all-axis sweeps
 def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
-                              avg_with: dict | None = None, *,
-                              emit_avg_flux=False, accumulate=False,
+                              avg_with: dict | None = None, *, accumulate=False,
                               div_only=False, fo_mask=None, fo_from=None,
                               acc_init=None, corr_masks=None,
                               corr_init=None) -> dict:
@@ -507,8 +532,10 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
     their divergences (`pallas_sweep.compute_fluxes_pallas_div`). Returns
     a dict with ``fluxes``, ``facevels``, ``flux_hi``, ``vel_hi``, ``divs``,
     ``dvels``; with ``avg_with`` (stage 2, the stage-1 dict) the divs hold
-    the divergence of the time-averaged flux and the face dicts are empty."""
-    _unsupported(emit_avg_flux=emit_avg_flux, accumulate=accumulate,
+    the divergence of the time-averaged flux and the face dicts are empty.
+    The padded AMR levels sweep through `hydro.advance._padded_sweeps`
+    instead, which also drives K2d."""
+    _unsupported(accumulate=accumulate,
                  div_only=div_only, fo_mask=fo_mask, fo_from=fo_from,
                  acc_init=acc_init, corr_masks=corr_masks, corr_init=corr_init)
     dmins, chi_cell, _ = precompute_transverse(Ug, opts, bc_kinds,

@@ -74,3 +74,12 @@ def mhd_state_from_numpy(U, Bf, device, dtype=torch.float32):
     """(U [5, X, Y, Z], [Bf_x, Bf_y, Bf_z]) as contiguous tensors."""
     return state_from_numpy(U, device, dtype), [state_from_numpy(b, device, dtype)
                                                 for b in Bf]
+
+
+def amr_levels_to_numpy(sim):
+    """([U_0, U_1, ...], [mask_0, mask_1, ...]) of an `AMRSimulation`'s
+    levels up to its finest, as numpy arrays."""
+    levels = range(sim.finest_level + 1)
+    return ([sim.level_U[l].detach().cpu().numpy() for l in levels],
+            [sim.level_mask[l].detach().cpu().numpy() for l in levels])
+

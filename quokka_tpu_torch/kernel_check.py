@@ -45,6 +45,7 @@ OPS_K1_AXIS = 50  # cons->prim, dmin, flattening chi and its 3-point min
 OPS_K2_SWEEP = 620  # PPM of 6 components, HLLC at one face, divergence
 OPS_K3 = 80
 OPS_K6_AXIS = 280  # (E, f) prims, PPM of 4 components, HLL at one face, div
+OPS_K7_AXIS = 272  # K6 without the divergence: (E, f) prims, PPM, HLL
 OPS_AMEND = 12
 OPS_COUPLING_CELL = 215  # set-up, Newton start, flux update, work term, finish
 OPS_NEWTON_RESID = 11  # residuals and the convergence test
@@ -275,6 +276,131 @@ def rad_cases(U: torch.Tensor, rad_src, dt: float, opts, eos, problem,
                lambda: substep.fused_stage2(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
                lambda: substep.stage2_plain(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
                lambda: cost2, scaled=True)
+
+
+def _slabbed(fn, arrays, axis: int, nslab: int, halo: int = 0):
+    """fn(*arrays) evaluated on `nslab` slabs along spatial `axis` and put
+    back together; it bounds the plain versions' temporaries at the fine
+    level's 520^3. Each slab carries `halo` cells on either side, wrapped
+    periodically in index space as the padded level's sweeps wrap, and its
+    result is cropped to the slab. For a function whose stencil reaches at
+    most `halo` cells along `axis` the result is the same bitwise. `arrays`
+    are tensors whose spatial axes are the last three, dicts of such, or
+    None; the results are tensors, or tuples or dicts of them."""
+    if nslab <= 1:
+        return fn(*arrays)
+    n = next(t for t in _flat([a for a in arrays if a is not None])).shape[-3 + axis]
+
+    def cut(a, lo, hi):
+        if a is None:
+            return None
+        if isinstance(a, dict):
+            return {k: cut(v, lo, hi) for k, v in a.items()}
+        if halo == 0:
+            return a.narrow(a.dim() - 3 + axis, lo, hi - lo)
+        idx = torch.arange(lo - halo, hi + halo, device=a.device) % n
+        return a.index_select(a.dim() - 3 + axis, idx)
+
+    def crop(r, m):
+        if isinstance(r, dict):
+            return {k: crop(v, m) for k, v in r.items()}
+        if isinstance(r, (tuple, list)):
+            return tuple(crop(v, m) for v in r)
+        return r.narrow(r.dim() - 3 + axis, halo, m) if halo else r
+
+    def join(parts):
+        p0 = parts[0]
+        if isinstance(p0, dict):
+            return {k: join([p[k] for p in parts]) for k in p0}
+        if isinstance(p0, tuple):
+            return tuple(join([p[i] for p in parts]) for i in range(len(p0)))
+        return torch.cat(parts, dim=p0.dim() - 3 + axis)
+
+    bounds = [n * i // nslab for i in range(nslab + 1)]
+    return join([crop(fn(*(cut(a, lo, hi) for a in arrays)), hi - lo)
+                 for lo, hi in zip(bounds, bounds[1:])])
+
+
+def amr_cases(Ug0: torch.Tensor, Ug1: torch.Tensor, R: torch.Tensor, opts, ropts,
+              tag: str = "", nslab: int = 4, coupling: tuple | None = None
+              ) -> Iterator[Case]:
+    """The dense-AMR kernels at the padded level's shapes, the plain
+    versions run in `nslab` slabs:
+
+    - K1 on the padded hydro states `Ug0` (stage 1) and `Ug1` (stage 2);
+    - per axis, K2's stage-1 sweep of `Ug0` with its divergences, and K2d,
+      the stage-2 sweep of `Ug1` that averages with the stage-1 faces and
+      emits the averaged face flux;
+    - K7 per axis on the padded radiation block `R` [4, X, Y, Z];
+    - with `coupling` = (U, rad_src, dt, eos, problem), K5 at both stages
+      on the level's unpadded state U.
+
+    The sweeps take their transverse fields and stage-1 faces from the
+    kernels (each held to its plain version here), so both versions of a
+    sweep see identical inputs."""
+    n = Ug1[0].numel()
+    dmins, chi, _ = sweep.precompute_transverse(Ug1, opts, None, True)
+    dmins1, chi1, _ = sweep.precompute_transverse(Ug0, opts, None, True)
+    # K1's stencil reaches 3 cells along each axis (chi's 3-point min of a
+    # 5-point flattening); a halo of the ghost width covers it
+    for stage, Ug in ((1, Ug0), (2, Ug1)):
+        yield Case("transverse", f"K1 stage {stage}{tag}",
+                   lambda Ug=Ug: sweep.precompute_transverse(Ug, opts, None, True)[:2],
+                   lambda Ug=Ug: _slabbed(
+                       lambda U: sweep.precompute_transverse_plain(U, opts, None, True)[:2],
+                       (Ug,), 0, nslab, halo=4))
+    for d in opts.active_axes:
+        other = (d + 1) % 3
+        s1 = dict(dx_axis=opts.dx[d], state_is_cons=True)
+
+        def plain1(U, c, dmn, d=d):
+            return sweep.axis_flux_plain(U, d, opts, c, dmn, **s1)
+
+        yield Case("axis_flux", f"K2 stage 1 axis {d}{tag}",
+                   lambda d=d, c=chi1, dm=dmins1: sweep.compute_axis_flux(Ug0, d, opts, c,
+                                                                          dm, **s1),
+                   lambda plain1=plain1, other=other, c=chi1, dm=dmins1: _slabbed(
+                       plain1, (Ug0, c, dm), other, nslab))
+        F1, v1 = sweep.compute_axis_flux(Ug0, d, opts, chi1, dmins1, state_is_cons=True)
+        kw = dict(dx_axis=opts.dx[d], avg_with=(F1, v1), state_is_cons=True,
+                  emit_avg_flux=True)
+        # reads Ug1, chi, two dmin fields and stage 1's faces (not its face
+        # velocities); writes div, dvel and the averaged flux
+        dm = {t: f for t, f in dmins.items() if t != d}
+        cost = (_nbytes(Ug1, chi, *dm.values(), F1) + _nbytes(Ug1) + _nbytes(Ug1[0])
+                + _nbytes(Ug1), OPS_K2_SWEEP * n)
+
+        def plain(U, c, dmn, F1s, v1s, d=d):
+            return sweep.axis_flux_plain(U, d, opts, c, dmn, dx_axis=opts.dx[d],
+                                         avg_with=(F1s, v1s), state_is_cons=True,
+                                         emit_avg_flux=True)
+
+        yield Case("axis_flux_avg", f"K2d axis {d}{tag}",
+                   lambda d=d, kw=kw: sweep.compute_axis_flux(Ug1, d, opts, chi, dmins, **kw),
+                   lambda plain=plain, other=other, F1=F1, v1=v1: _slabbed(
+                       plain, (Ug1, chi, dmins, F1, v1), other, nslab),
+                   lambda cost=cost: cost)
+    del dmins1, chi1
+    for d in range(3):
+        cost = (2 * _nbytes(R), OPS_K7_AXIS * R[0].numel())
+        yield Case("rad_axis_flux", f"K7 axis {d}{tag}",
+                   lambda d=d: rsweep.compute_rad_axis_flux(R, d, ropts),
+                   lambda d=d: _slabbed(lambda Rs: rsweep.rad_axis_flux_plain(Rs, d, ropts),
+                                        (R,), (d + 1) % 3, nslab),
+                   lambda cost=cost: cost)
+    if coupling is None:
+        return
+    U, rad_src, dt, eos, problem = coupling
+    rs = source.RAD_START
+    for stage in (1, 2):
+        yield Case("rad_source", f"K5 stage {stage}{tag}",
+                   lambda stage=stage: source.source_update(U, rad_src, dt, stage, ropts,
+                                                            eos, problem, rs),
+                   lambda stage=stage: _slabbed(
+                       lambda Us, srcs: source.source_update_plain(
+                           Us, srcs, dt, stage, ropts, eos, problem, rs),
+                       (U, rad_src), 0, nslab),
+                   scaled=True)
 
 
 def k8_ops_per_cell(order: int) -> int:

@@ -2,7 +2,9 @@
 
 from .mhd import BrioWuProblem, CPAlfvenWaveProblem, FieldLoopProblem, OrszagTangProblem
 from .radhydro_bench import RadhydroBenchProblem
+from .radhydro_shell import RadhydroShellProblem
 from .sedov import SedovProblem
 
 __all__ = ["BrioWuProblem", "CPAlfvenWaveProblem", "FieldLoopProblem",
-           "OrszagTangProblem", "RadhydroBenchProblem", "SedovProblem"]
+           "OrszagTangProblem", "RadhydroBenchProblem", "RadhydroShellProblem",
+           "SedovProblem"]

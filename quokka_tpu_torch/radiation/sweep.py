@@ -1,16 +1,22 @@
-"""Radiation transport kernel K6: wrapper, plain PyTorch version, and what
-the radiation kernels K4-K6 share (launch counts, the kernels' constant
-block, input checks).
+"""Radiation transport kernels K6 and K7: wrappers, plain PyTorch
+versions, and what the radiation kernels K4-K7 share (launch counts, the
+kernels' constant block, input checks).
 
-Counterpart of `quokka_tpu.radiation.pallas_sweep.compute_rad_div_pallas`:
-the per-axis M1 transport divergence [G, 4, X, Y, Z] of the conserved
-radiation block. `rad_div_plain` is the JAX kernel's body in PyTorch;
-`compute_rad_div` takes it for a CPU tensor and launches the CUDA kernel
-(``csrc/rad_sweep.cu``) for a CUDA tensor, and raises for anything the
-kernel does not take.
+Counterparts of `quokka_tpu.radiation.pallas_sweep`:
 
-`launch_counts` counts kernel launches of K4 (both stage kernels), K5 and
-K6, so a run can show that it went through them.
+- K6 `compute_rad_div_pallas`: the per-axis M1 transport divergence
+  [G, 4, X, Y, Z] of the conserved radiation block (`compute_rad_div`,
+  ``csrc/rad_sweep.cu``; plain version `rad_div_plain`);
+- K7 `compute_rad_axis_flux_pallas`: the per-axis M1 face flux
+  [G, 4, X, Y, Z] that the AMR flux registers consume
+  (`compute_rad_axis_flux`, ``csrc/rad_axis_flux.cu``; plain version
+  `rad_axis_flux_plain`).
+
+Each wrapper takes its plain version for a CPU tensor and launches the CUDA
+kernel for a CUDA tensor, and raises for anything the kernel does not take.
+
+`launch_counts` counts kernel launches of K4 (both stage kernels), K5, K6
+and K7, so a run can show that it went through them.
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ import torch
 from ..hydro import reconstruct
 from ..hydro.sweep import _on_cuda, _stream
 from ..stencil import sh
-from .system import RadOptions, _hll_group_flux
+from .system import RadOptions, _hll_group_flux, rad_cons_to_prim
 
-launch_counts = {"rad_div": 0, "rad_source": 0, "rad_stage1": 0, "rad_stage2": 0}
+launch_counts = {"rad_div": 0, "rad_source": 0, "rad_stage1": 0, "rad_stage2": 0,
+                 "rad_axis_flux": 0}
 
 
 def reset_launch_counts() -> None:
@@ -103,6 +110,51 @@ def check_kernel_inputs(opts: RadOptions, shape0: int, *tensors) -> None:
         if tuple(t.shape[-3:]) != tuple(ref.shape[1:]):
             raise ValueError(f"spatial shape {tuple(t.shape[-3:])} != "
                              f"{tuple(ref.shape[1:])}")
+
+
+def _prim_flat(cons_flat: torch.Tensor, opts: RadOptions) -> torch.Tensor:
+    """(E, f = F / (c E)) of the conserved block [4G, X, Y, Z]."""
+    nv, *bs = cons_flat.shape
+    return rad_cons_to_prim(cons_flat.reshape(opts.n_groups, 4, *bs),
+                            opts.c).reshape(nv, *bs)
+
+
+def rad_axis_flux_plain(cons_flat: torch.Tensor, axis: int,
+                        opts: RadOptions) -> torch.Tensor:
+    """Plain version of K7: the HLL face flux along `axis` of the conserved
+    block [4G, X, Y, Z] (roll semantics), [G, 4, X, Y, Z], slot f the face
+    between cells f-1 and f."""
+    G = opts.n_groups
+    nv, *bs = cons_flat.shape
+    qL, qR = reconstruct.reconstruct_faces(_prim_flat(cons_flat, opts), axis,
+                                           opts.reconstruction_order)
+    cL = sh(cons_flat, -1, axis + 1).reshape(G, 4, *bs)
+    cR = cons_flat.reshape(G, 4, *bs)
+    qL = qL.reshape(G, 4, *bs)
+    qR = qR.reshape(G, 4, *bs)
+    return torch.stack([_hll_group_flux(qL[g], qR[g], cL[g], cR[g], axis, opts)
+                        for g in range(G)])
+
+
+def compute_rad_axis_flux(cons_flat: torch.Tensor, axis: int,
+                          opts: RadOptions) -> torch.Tensor:
+    """K7 (`pallas_sweep.compute_rad_axis_flux_pallas`): the face flux of
+    `axis`, [G, 4, X, Y, Z]. On a CUDA tensor it launches the kernel or
+    raises: one group, float32 (else TypeError), no wavespeed correction."""
+    if not _on_cuda(cons_flat):
+        return rad_axis_flux_plain(cons_flat, axis, opts)
+    from .._cuda import check, library
+
+    lib = library()
+    check_kernel_inputs(opts, 4, cons_flat)
+    X, Y, Z = cons_flat.shape[1:]
+    params = rad_params(opts, (1.0, 1.0, 1.0))
+    out = torch.empty((1, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
+    err = lib.qk_rad_axis_flux(cons_flat.data_ptr(), out.data_ptr(), X, Y, Z, axis,
+                               ctypes.addressof(params), _stream(cons_flat))
+    check(err, "rad_axis_flux")
+    launch_counts["rad_axis_flux"] += 1
+    return out
 
 
 def rad_div_plain(cons_flat: torch.Tensor, axis: int, opts: RadOptions,

@@ -12,11 +12,11 @@ fz] with f = F/(cE). Grouped arrays are R[G, 4, X, Y, Z]. Every stencil is
 a roll, so on the unpadded state the wrap is the periodic boundary: the
 port steps radiation ghost-free and periodic only.
 
-`rad_transport_div` is the transport divergence of the substep: kernel K6
-(`sweep.compute_rad_div`, its plain version on the CPU at any dtype) per
-axis. The flux-dict formulation (`compute_rad_fluxes` + `rad_div_fluxes`)
-is the counterpart of the JAX package's XLA path, which the AMR flux
-registers will need; no step of the port runs it.
+`rad_transport_div` is the transport divergence of the unigrid substep:
+kernel K6 (`sweep.compute_rad_div`, its plain version on the CPU at any
+dtype) per axis. The flux-dict formulation (`compute_rad_fluxes`, kernel K7
+per axis, + `rad_div_fluxes`) is what the dense AMR levels run
+(`advance.LevelRadiation`): their flux registers consume the face fluxes.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from typing import Sequence
 import torch
 
 from .._numerics import sqrt
-from ..hydro import reconstruct
 from ..stencil import sh
 
 # IMEX PD-ARS constant (reference src/radiation/radiation_system.hpp:51-52;
@@ -151,35 +150,41 @@ def _hll_group_flux(qL, qR, consL, consR, axis, opts: RadOptions):
 
 
 def compute_rad_fluxes(Ug: torch.Tensor, rad_start: int, opts: RadOptions,
-                       active_axes: Sequence[int], dx: Sequence[float]) -> dict:
+                       active_axes: Sequence[int], dx: Sequence[float],
+                       tau_fn=None) -> dict:
     """HLL radiation fluxes along every active axis (reference
     `RadSystem::ComputeFluxes`, ``radiation_system.hpp:987-1135``): PPM/PLM
     faces of the primitive (E, f), per-face donor-cell fallback. Returns
-    {axis: flux [G,4,X,Y,Z]}, slot f the face between cells f-1 and f."""
+    {axis: flux [G,4,X,Y,Z]}, slot f the face between cells f-1 and f.
+
+    Each axis is kernel K7 (`sweep.compute_rad_axis_flux`): on a CUDA tensor
+    it launches the kernel or raises, whatever `radiation.use_pallas` says;
+    on the CPU it is K7's plain version at any dtype. The optical-depth
+    wavespeed correction (`tau_fn`) is not ported."""
     del dx
-    G = opts.n_groups
-    spatial = Ug.shape[1:]
-    R = Ug[rad_start:].reshape(G, 4, *spatial)
-    prim_flat = rad_cons_to_prim(R, opts.c).reshape(G * 4, *spatial)
-    cons_flat = R.reshape(G * 4, *spatial)
-    fluxes = {}
-    for d in active_axes:
-        qL, qR = reconstruct.reconstruct_faces(prim_flat, d, opts.reconstruction_order)
-        cL = sh(cons_flat, -1, d + 1).reshape(G, 4, *spatial)
-        cR = cons_flat.reshape(G, 4, *spatial)
-        qL = qL.reshape(G, 4, *spatial)
-        qR = qR.reshape(G, 4, *spatial)
-        fluxes[d] = torch.stack([_hll_group_flux(qL[g], qR[g], cL[g], cR[g], d, opts)
-                                 for g in range(G)])
-    return fluxes
+    if tau_fn is not None:
+        raise NotImplementedError("compute_rad_fluxes: the wavespeed correction "
+                                  "(tau_fn) is not ported yet")
+    from .sweep import compute_rad_axis_flux
+
+    cons_flat = Ug[rad_start:]
+    return {d: compute_rad_axis_flux(cons_flat, d, opts) for d in active_axes}
 
 
 def rad_div_fluxes(fluxes: dict, dx: Sequence[float]) -> torch.Tensor:
     """sum_d (F_d(f) - F_d(f+1)) / dx_d; fluxes[d] is [G, 4, X, Y, Z]."""
     out = None
     for d, F in fluxes.items():
-        contrib = (F - sh(F, 1, d + 2)) / dx[d]
-        out = contrib if out is None else out + contrib
+        # (F - sh(F)) / dx in the roll's buffer: at a fine level's 520^3
+        # each temporary is 2.25 GB
+        contrib = sh(F, 1, d + 2)
+        torch.sub(F, contrib, out=contrib)
+        contrib.div_(torch.full((), dx[d], dtype=F.dtype, device=F.device))
+        if out is None:
+            out = contrib
+        else:
+            out.add_(contrib)
+        del contrib
     return out
 
 

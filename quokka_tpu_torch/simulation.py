@@ -30,6 +30,9 @@ from .hydro import euler
 from .hydro.advance import HydroOptions, advance_hydro_rk2
 from .indices import EGAS, RHO
 from .registry import BC_PERIODIC, BC_REFLECT, Problem
+from .stencil import ghost_widths
+
+NGHOST = 4  # ghost cells of a padded level: PPM + flattening (reference nghost_cc)
 
 # deck key -> predicate on its value that means "this subsystem is on"
 _UNPORTED_KEYS = {
@@ -61,6 +64,9 @@ _RADIATION_KEYS = {
 class Simulation:
     """Single-level (unigrid) hydro or radhydro simulation on one device."""
 
+    # deck keys of `_UNPORTED_KEYS` that a subclass ports (AMRSimulation)
+    _ported_keys: frozenset = frozenset()
+
     def __init__(self, problem: Problem, pp: Optional[ParmParse] = None, *,
                  device="cuda", precision: str | None = None):
         self.problem = problem
@@ -87,6 +93,8 @@ class Simulation:
         while len(prob_hi) < 3:
             prob_hi.append(1.0)
         self.grid = Grid(tuple(n_cell), tuple(prob_lo), tuple(prob_hi))
+        # ghost widths of a padded level (the unigrid path steps ghost-free)
+        self.ng = ghost_widths(self.grid, NGHOST)
 
         prec = precision or self.pp.get_str("precision", "double")
         self.dtype = torch.float64 if prec == "double" else torch.float32
@@ -129,6 +137,7 @@ class Simulation:
         self.dt_prev = float("inf")
         self.istep = 0
         self.cell_updates = 0
+        self.cell_updates_raw = 0  # every cell advanced (AMR: inactive ones too)
         self.fofc_cells = 0  # invalid cells that triggered FOFC, summed
         self.fofc_fallbacks = 0  # stages that took the FOFC fallback
         self.init_sums: Optional[np.ndarray] = None
@@ -137,7 +146,9 @@ class Simulation:
     def _check_unported_keys(self):
         for key, vals in self.pp.table.items():
             pred = _UNPORTED_KEYS.get(key)
-            if pred is not None:
+            if key in self._ported_keys:
+                on = False
+            elif pred is not None:
                 on = pred(vals[0])
             else:
                 on = key.startswith(_UNPORTED_PREFIXES) and key not in _RADIATION_KEYS
@@ -291,9 +302,12 @@ class Simulation:
             self.t += dt
             self.dt_prev = dt
             self.istep += 1
-            self.cell_updates += ncells
+            n_upd = self._step_cell_updates()
+            self.cell_updates += n_upd
+            self.cell_updates_raw += n_upd
 
         self._sync()
+        self._after_steps()
         prof.report()
         elapsed = _time.perf_counter() - start_walltime
         self.elapsed_walltime = elapsed
@@ -311,6 +325,13 @@ class Simulation:
                   f"{self.fofc_cells} invalid cells")
         self._conservation_audit()
         self.problem.compute_after_evolve(self)
+
+    def _step_cell_updates(self) -> int:
+        """Zone-updates a coarse step adds to the figure of merit."""
+        return self.grid.num_cells
+
+    def _after_steps(self):
+        """Read back what the steps kept on the device (nothing here)."""
 
     def device_name(self) -> str:
         if self.device.type == "cuda":

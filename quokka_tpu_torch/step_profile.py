@@ -19,6 +19,13 @@ on the device, the RK2 step, the masks; the window's dts read back once),
 and one right-hand side (three K8 launches and the constrained-transport
 glue: primitives, cell field, corner EMFs, curl).
 
+For the dense AMR radhydro shell (``problems/radhydro_shell.py:DECK_256``,
+256^3 + one level, f32), after two warm-up coarse steps, one coarse step
+(it opens with the regrid of level 1) is timed, with its device time by
+kernel and by the profiler regions `AMRSimulation` names as the JAX package
+names them (``regrid_L0``, ``hydro_L0``, ``rad_L0``, ``hydro_L1``,
+``rad_L1``, ``reflux_L0``, ``avgdown_L0``), and its idle share.
+
 Each part is timed twice from the same state, so both timings do the same
 work: on the host clock between two device
 synchronizations, and under ``torch.profiler``, whose device events give
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -51,7 +59,7 @@ SEDOV_DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 # substring of a CUDA kernel's name -> the port's kernel (radiation names
 # first: "rad_div_kernel" also contains "div_kernel")
 KERNEL_OF = (
-    ("mhd_axis_kernel", "K8"),
+    ("mhd_axis_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
     ("rad_stage1_kernel", "K4 stage 1"), ("rad_stage2_kernel", "K4 stage 2"),
     ("rad_source_kernel", "K5"), ("rad_div_kernel", "K6"),
     ("transverse_kernel", "K1"), ("face_kernel", "K2 faces"),
@@ -205,12 +213,115 @@ def profile_case(title: str, make_sim, reps: int, parts_of=_parts,
     return out
 
 
+AMR_REGIONS = ("regrid_L0", "hydro_L0", "rad_L0", "hydro_L1", "rad_L1", "reflux_L0",
+               "avgdown_L0")
+
+
+def _amr_restorer(sim):
+    """`_restorer` for an AMRSimulation: its levels, masks and counters.
+    The saved levels wait in host memory: a second copy on the card (6 GB
+    at 256^3 + 1 level) would crowd the step's own 62 GB peak and make the
+    allocator free and re-map memory inside the timed steps."""
+    fields = {f: getattr(sim, f) for f in _STEP_FIELDS + ("cell_updates_raw",
+                                                          "finest_level")}
+    levels = ([u.cpu() if u is not None else None for u in sim.level_U],
+              list(sim.level_mask), list(sim.level_steps), dict(sim._active_cell_cache))
+    device = sim.device
+
+    def restore():
+        sim.level_U = None
+        sim.level_U = [u.to(device) if u is not None else None for u in levels[0]]
+        sim.level_mask, sim.level_steps = list(levels[1]), list(levels[2])
+        sim._active_cell_cache = dict(levels[3])
+        sim.U = sim.level_U[0]
+        for f, v in fields.items():
+            setattr(sim, f, v)
+
+    return restore
+
+
+def profile_amr(make_sim, reps: int) -> dict:
+    """One coarse step of the dense AMR shell after two warm-up steps (so
+    that it starts with a regrid of level 1): its wall time, its device time
+    by kernel and by the profiler regions `AMRSimulation` names (`AMR_REGIONS`,
+    as the JAX package names them), and its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils.profiler import prof
+
+    sim = make_sim()
+    sim.set_initial_conditions()
+    sim.evolve()  # two warm-up steps (max_timesteps = 2)
+    print(f"\n== dense AMR shell: finest level {sim.finest_level}, active cells "
+          f"{[sim._active_cells(l) for l in range(sim.finest_level + 1)]}", flush=True)
+    restore = _amr_restorer(sim)
+
+    def step():
+        dt = sim.compute_timestep()
+        if not sim.advance_single_step(dt):
+            raise RuntimeError("the coarse step failed its retries")
+        sim.t += dt
+        sim.dt_prev = dt
+        sim.istep += 1
+
+    restore()
+    wall = wall_ms(step, reps)
+    restore()
+    by_kernel, top = device_ms(step, reps)
+    busy = sum(by_kernel.values())
+    # by region: the named ranges of the hierarchy's profiler regions; the
+    # region wall times are the host clock with a device sync at each exit
+    restore()
+    prof.reset(enabled=True)
+    by_region = defaultdict(float)
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        for _ in range(reps):
+            step()
+        _sync()
+    # a kernel belongs to the region during whose host time range it started
+    # on the device: each region ends with a device sync, so what it launched
+    # has run by then (the kernels launched through ctypes have no ATen
+    # parent op to carry their time up to the region's event)
+    events = tp.events()
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == DeviceType.CPU and e.name in AMR_REGIONS]
+    for e in events:
+        # the regions' own device-side annotations are spans, not kernels
+        if e.device_type != DeviceType.CUDA or e.name in AMR_REGIONS:
+            continue
+        for lo, hi, name in spans:
+            if lo <= e.time_range.start < hi:
+                by_region[name] += e.time_range.elapsed_us() / 1e3 / reps
+                break
+    region_wall = {name.split("/")[-1]: t * 1e3 / reps for name, t in prof._acc.items()}
+    prof.reset(enabled=False)
+    out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
+           "by_kernel": by_kernel, "top_plain": top,
+           "device_ms_by_region": dict(by_region), "wall_ms_by_region": region_wall}
+    kernels = ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items()))
+    print(f"coarse step: wall {wall:.3f} ms, device {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall:.3f}; by kernel (ms): {kernels}")
+    print("  by region, device ms: " + ", ".join(
+        f"{k} {by_region.get(k, 0.0):.3f}" for k in AMR_REGIONS))
+    print("  by region, synchronized wall ms: " + ", ".join(
+        f"{k} {region_wall.get(k, 0.0):.3f}" for k in AMR_REGIONS))
+    print("  longest plain-torch kernels (ms): "
+          + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top), flush=True)
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3, help="repetitions of each part")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device")
+    # as chip_smoke.py: the AMR path's GB-sized transients of many sizes
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
     from . import MHDSimulation, ParmParse, Simulation, _cuda
     from .problems import mhd
@@ -245,6 +356,13 @@ def main(argv=None) -> int:
         title, lambda: MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(
             mhd.DECK_256, ["max_timesteps=1"]), precision="single"),
         args.steps, _mhd_parts, _mhd_restorer, _MHD_STEPS)
+    from .amr import AMRSimulation
+    from .problems import radhydro_shell
+
+    title = "dense AMR radhydro shell 256^3 + 1 level f32 (K1, K2, K2d, K5, K7)"
+    result[title] = profile_amr(
+        lambda: AMRSimulation(radhydro_shell.RadhydroShellProblem(), ParmParse.from_string(
+            radhydro_shell.DECK_256, ["max_timesteps=2", "verbose=0"])), args.steps)
     print(json.dumps(result))
     return 0
 

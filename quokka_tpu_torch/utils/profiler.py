@@ -47,11 +47,16 @@ class TinyProfiler:
         if not self.enabled:
             yield
             return
+        from torch.profiler import record_function
+
         path = "/".join(self._stack + [name])
         self._stack.append(name)
         t0 = time.perf_counter()
         try:
-            yield
+            # a named range for torch.profiler, which attributes the device
+            # time of the kernels launched inside it (step_profile.py)
+            with record_function(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self._stack.pop()

@@ -151,11 +151,14 @@ def test_import_keeps_jax_out():
     code = ("import sys, quokka_tpu_torch, quokka_tpu_torch.simulation, "
             "quokka_tpu_torch.benchmarks, quokka_tpu_torch.interop, "
             "quokka_tpu_torch.kernel_check, quokka_tpu_torch.problems, "
-            "quokka_tpu_torch.step_profile, "
+            "quokka_tpu_torch.step_profile, quokka_tpu_torch.amr_memory, "
             "quokka_tpu_torch.radiation.advance, quokka_tpu_torch.radiation.source, "
             "quokka_tpu_torch.radiation.substep, quokka_tpu_torch.radiation.sweep, "
             "quokka_tpu_torch.mhd, quokka_tpu_torch.mhd.advance, quokka_tpu_torch.mhd.sweep, "
-            "quokka_tpu_torch.mhd.simulation, quokka_tpu_torch.problems.mhd; "
+            "quokka_tpu_torch.mhd.simulation, quokka_tpu_torch.problems.mhd, "
+            "quokka_tpu_torch.amr, quokka_tpu_torch.amr.hierarchy, "
+            "quokka_tpu_torch.amr.operators, quokka_tpu_torch.boundaries, "
+            "quokka_tpu_torch.problems.radhydro_shell; "
             "bad = [m for m in sys.modules if m in ('jax', 'quokka_tpu') or m.startswith(('jax.', 'quokka_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
