@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of quokka_tpu_torch on one CUDA GPU: build the hand-written
 kernels, hold each against its plain PyTorch version at the main paths'
-shapes, compare small runs with the CPU, then run the three main paths on
+shapes, compare small runs with the CPU, then run the five main paths on
 the card:
 
 - hydro: 10 steps of the Sedov 256^3 f32 blast from
@@ -14,7 +14,10 @@ the card:
 - dense AMR: the radhydro shell at 256^3 + one level f32 (the JAX
   package's bench.py:192-207 deck, `run_amr_shell(sparse=False)`), one
   warm-up coarse step and three timed ones through `AMRSimulation` (K1,
-  K2, K2d, K5, K7).
+  K2, K2d, K5, K7);
+- lean hydro: 10 steps of Sedov 512^3 f32 (the JAX package's bench.py:76-84
+  deck, `problems/sedov.py:DECK_512`) through `Simulation`, which the
+  dispatch sends to the lean step (K1, K2c).
 
 Run from the repository root:  python3 chip_smoke.py
 Phases print as they go; any failure exits non-zero. The last three lines
@@ -24,6 +27,7 @@ built library in quokka_tpu_torch/_build/.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -55,9 +59,14 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                       "quokka_tpu/hydro/pallas_sweep.py:1148"),
     "rad_axis_flux": ("K7 compute_rad_axis_flux", "quokka_tpu_torch/csrc/rad_axis_flux.cu",
                       "quokka_tpu/radiation/pallas_sweep.py:53"),
+    "axis_flux_lean": ("K2c compute_axis_flux div_only", "quokka_tpu_torch/csrc/sweep.cu",
+                       "quokka_tpu/hydro/pallas_sweep.py:1148"),
 }
 AMR_KEYS = ("transverse", "axis_flux", "axis_flux_avg", "rad_source", "rad_axis_flux")
 HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
+LEAN_KEYS = ("transverse", "axis_flux_lean")
+# the K2c launches of one clean lean stage: what its row's time sums
+LEAN_STAGE = ("K2c clean axis 0", "K2c acc axis 1", "K2c acc axis 2")
 # bar of the MHD main path's max |div B| x dx, in float32 ulps of max |B_face|
 DIVB_ULPS = 32
 
@@ -67,12 +76,14 @@ def phase(name):
 
 
 def rough_state(n, seed=7):
-    """Seeded conserved state with a density/pressure well and strong wall
-    shocks: its update goes invalid and fires the FOFC fallback."""
+    """Seeded conserved state of n^3 cells (or of shape n) with a
+    density/pressure well and strong wall shocks: its update goes invalid
+    and fires the FOFC fallback."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    shape = (n, n, n)
+    shape = (n, n, n) if isinstance(n, int) else tuple(n)
+    nz = shape[2]
     rho = 1.0 + 0.5 * rng.random(shape, dtype=np.float32)
     v = 0.3 * rng.standard_normal((3,) + shape, dtype=np.float32)
     eint = 1.0 + rng.random(shape, dtype=np.float32)
@@ -80,8 +91,8 @@ def rough_state(n, seed=7):
     v[0, 3, 2, 2], v[0, 1, 2, 2] = 8.0, -8.0
     eint[0], eint[1] = eint[0] * 30.0, eint[1] * 4.0
     v[0, 0], v[0, 1] = 2.0, -1.5
-    eint[:, :, n - 1] *= 25.0
-    v[2, :, :, n - 1] = -2.0
+    eint[:, :, nz - 1] *= 25.0
+    v[2, :, :, nz - 1] = -2.0
     ke = 0.5 * rho * (v * v).sum(axis=0)
     return np.stack([rho, rho * v[0], rho * v[1], rho * v[2], rho * eint + ke,
                      rho * eint])
@@ -147,7 +158,8 @@ def rough_padded_hydro(n, seed, fill):
 
 
 def run_cases(title, cases, timed, summary, failed, extra_of=None):
-    """Check each case against its plain version; time the timed input."""
+    """Check each case against its plain version; time the timed ones (the
+    kernel as `run_timed` gives it, where it does)."""
     from quokka_tpu_torch import kernel_check
 
     print(f"-- {title}")
@@ -160,7 +172,7 @@ def run_cases(title, cases, timed, summary, failed, extra_of=None):
         del got, ref
         s = summary[case.kernel]
         if timed(case):
-            ms = kernel_check.time_ms(case.run_kernel)
+            ms = kernel_check.time_ms(case.run_timed or case.run_kernel)
             plain_ms = kernel_check.time_ms(case.run_plain)
             nbytes, ops = case.cost()
             b_ms, b_by = kernel_check.bound_ms(nbytes, ops)
@@ -202,6 +214,7 @@ def main() -> int:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
+    t_start = time.perf_counter()
     # ---- 1. device
     phase("1. device")
     if not torch.cuda.is_available():
@@ -237,9 +250,16 @@ def main() -> int:
     from quokka_tpu_torch.mhd.advance import b_cell_from_faces, cons_to_prim_mhd
     from quokka_tpu_torch.problems import mhd
     from quokka_tpu_torch.problems.radhydro_bench import DECK_256, RadhydroBenchProblem
-    from quokka_tpu_torch.problems.sedov import SedovProblem
+    from quokka_tpu_torch.problems.sedov import DECK_512, SedovProblem
     from quokka_tpu_torch.radiation import sweep as rsweep
     from quokka_tpu_torch.registry import BC_REFLECT
+
+    def release():
+        """Free what the phase before left: reference cycles first (an AMR
+        hierarchy holds some), then the allocator's cached blocks, so that
+        each main path's peak memory is its own."""
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def reset_counts():
         sweep.reset_launch_counts()
@@ -304,8 +324,45 @@ def main() -> int:
         run_cases(title, kernel_check.cases(U, U2, opts_in, bc, dt_in), lambda c, t=timed: (
             t and "first order" not in c.label and "avg" not in c.label),
             summary, failed, k3_counts)
+    # K2c's stage-2 redo at or below 272 cells an axis: the sweep of U1
+    # blended with U0's first-order fluxes and added onto the totals, on the
+    # walls and on a periodic x axis
+    walls = {0: reflect, 1: reflect, 2: reflect}
+    fo_from = ("fo_mask+acc+fo_from",)
+    for bc, axes, tag in ((walls, (0, 1, 2), ""), (mixed, (0,), " periodic x")):
+        run_cases(f"K2c at 256^3 on the Sedov states, fo_from{tag}",
+                  kernel_check.lean_cases(U_sedov, U_sedov2, opts, bc, seed=5,
+                                          variants=fo_from, axes=axes, tag=tag),
+                  lambda c: False, summary, failed)
     del warm, U_sedov, U_sedov2, U_rough, U_rough2, inputs
-    torch.cuda.empty_cache()
+    release()
+
+    # the lean path at 512^3: K1 and K2c on main path 5's own states (Sedov
+    # 512^3 after 2 steps, and one more RK2 step of it), every kernel input
+    # from a plain version; the plain sides run in 4 slabs
+    lsim = Simulation(SedovProblem(), ParmParse.from_string(DECK_512, ["max_timesteps=2"]),
+                      device="cuda")
+    lsim.set_initial_conditions()
+    lsim.evolve()
+    L0, lopts = lsim.U, lsim.hydro_opts
+    L1 = lsim._step(L0, lsim.dt_prev)[0]
+    del lsim
+    k1_512 = kernel_check.Case(
+        "transverse", "K1 all axes 512^3",
+        lambda: sweep.precompute_transverse(L0, lopts, walls, True)[:2],
+        lambda: kernel_check.plain_transverse(L0, lopts, walls, nslab=4))
+    run_cases("Sedov 512^3 after 2 steps, K1", [k1_512], lambda c: False, summary, failed)
+    lean_variants = ("clean", "acc", "fo_mask")
+    run_cases("Sedov 512^3 after 2 steps, K2c, reflect x/y/z (timed: one clean stage)",
+              kernel_check.lean_cases(L0, L1, lopts, walls, seed=11, variants=lean_variants,
+                                      nslab=4),
+              lambda c: c.label in LEAN_STAGE, summary, failed)
+    run_cases("Sedov 512^3 after 2 steps, K2c, periodic x",
+              kernel_check.lean_cases(L0, L1, lopts, mixed, seed=12, variants=lean_variants,
+                                      axes=(0,), nslab=4, tag=" periodic x"),
+              lambda c: False, summary, failed)
+    del L0, L1, k1_512
+    release()
 
     # radiation: RadhydroBench after 2 steps, and a rough state with
     # T-dependent opacities
@@ -334,7 +391,7 @@ def main() -> int:
                                                 prob, rwarm.grid.dx),
                   lambda c, t=timed: t, summary, failed)
     del rwarm, rad_inputs, U
-    torch.cuda.empty_cache()
+    release()
 
     # MHD: Orszag-Tang after 3 steps (timed), and a rough seeded state that
     # takes every HLLD region and branch, with PLM, PPM and the floors
@@ -388,7 +445,7 @@ def main() -> int:
     print(f"  K8 launches of the mhd.use_pallas=0 step: {msweep.launch_counts['mhd_axis']}")
     if msweep.launch_counts["mhd_axis"] != 6:
         failed.append("mhd.use_pallas=0 did not launch K8 6 times a step")
-    torch.cuda.empty_cache()
+    release()
 
     # dense AMR: K1, K2 stage 1, K2d, K7 and K5 at the fine level's padded
     # 520^3 (K5 at its unpadded 512^3), on the shell's level 1 as regridding
@@ -427,7 +484,7 @@ def main() -> int:
                                      coupling=(U1f, src, dt_sub, amr_eos, amr_problem)),
               lambda c: c.kernel in amr_timed, summary, failed)
     del Ug0, Ug1, Rf, asim, U1f, radL, src
-    torch.cuda.empty_cache()
+    release()
     nf = 2 * n
     Ug0 = rough_padded_hydro(nf, 31, fill)
     Ug1 = rough_padded_hydro(nf, 32, fill)
@@ -438,7 +495,7 @@ def main() -> int:
                                      coupling=(Ur, None, dt_sub, amr_eos, amr_problem)),
               lambda c: False, summary, failed)
     del Ug0, Ug1, Rf, Ur
-    torch.cuda.empty_cache()
+    release()
     # on the card compute_rad_fluxes launches K7 or raises: radiation.use_pallas
     # = 0 still launches it (and K2d), a float64 AMR state raises TypeError
     for extra, prec, want in ((["radiation.use_pallas=0", "hydro.use_pallas=0"], "single",
@@ -463,9 +520,10 @@ def main() -> int:
         if want is None and (counts["rad_axis_flux"] <= 0 or counts["axis_flux_avg"] <= 0):
             failed.append(f"AMR shell {extra}: K7 or K2d not launched")
     del sim
-    torch.cuda.empty_cache()
+    release()
     print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2, K2d, K6, K7 and K8 "
-          "sum the three axes, K5 its two stages")
+          "sum the three axes, K5 its two stages, K2c the three launches of a clean lean "
+          "stage at 512^3")
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
@@ -508,6 +566,30 @@ def main() -> int:
             and (sg["fofc_fallbacks"], int(sg["n_fofc"])) == (sc["fofc_fallbacks"],
                                                               int(sc["n_fofc"]))):
         raise SystemExit("the FOFC step disagrees between GPU and CPU")
+
+    print("-- the lean step forced (QUOKKA_PALLAS_LEAN=1), one step of rough states with "
+          "FOFC in both stages: 32^3, and 288 x 32 x 32 (above 272: stage 2's first order "
+          "from U1), GPU vs CPU")
+    os.environ["QUOKKA_PALLAS_LEAN"] = "1"
+    for shape in ((32, 32, 32), (288, 32, 32)):
+        U_box = rough_state(shape)
+        box_opts = dataclasses.replace(opts, dx=tuple(1.0 / s for s in shape))
+        reset_counts()
+        steps = {dev: advance_hydro_rk2(state_from_numpy(U_box, dev), 0.2 / shape[0],
+                                        box_opts, None, (0, 0, 0), (True, False, False),
+                                        bc_kinds=mixed) for dev in ("cuda", "cpu")}
+        lean_count = sweep.launch_counts["axis_flux_lean"]
+        (Ug, sg), (Uc, sc) = steps["cuda"], steps["cpu"]
+        ok, max_abs, max_rel = kernel_check.compare(Ug.cpu(), Uc)
+        print(f"  {'ok  ' if ok else 'FAIL'} {shape}: FOFC GPU {sg['fofc_fallbacks']} "
+              f"fallbacks / {int(sg['n_fofc'])} cells, CPU {sc['fofc_fallbacks']} / "
+              f"{int(sc['n_fofc'])}; K2c launches {lean_count}; state max_abs {max_abs:.3e} "
+              f"max_rel {max_rel:.3e}; bitwise {ok and max_abs == 0.0} (NaN where NaN)")
+        if not (ok and sg["fofc_fallbacks"] == 2 and lean_count > 0
+                and (sg["fofc_fallbacks"], int(sg["n_fofc"])) == (sc["fofc_fallbacks"],
+                                                                  int(sc["n_fofc"]))):
+            raise SystemExit(f"the forced lean step {shape} disagrees between GPU and CPU")
+    del os.environ["QUOKKA_PALLAS_LEAN"], steps, Ug, Uc
 
     print("-- RadhydroBench 32^3 f32, 3 steps: GPU vs CPU, fused (A) and per-stage (B)")
     rad_finals = {}
@@ -594,7 +676,7 @@ def main() -> int:
     print(f"bench_hydro (dt on the device, 10 steps after 2): {mz_bench:.3f} "
           f"Mzone-updates/s ({secs:.3f} s) on {smi}")
     del bench
-    torch.cuda.empty_cache()
+    release()
 
     # ---- 6. the radhydro main path
     rad_launches = {}
@@ -629,14 +711,14 @@ def main() -> int:
             raise SystemExit(f"kernels not launched on radhydro config {cfg}: {missing}")
         rad_launches.update({k: launches[k] for k in need if k not in HYDRO_KEYS})
         del sim
-        torch.cuda.empty_cache()
+        release()
     bench = Simulation(RadhydroBenchProblem(), ParmParse.from_string(DECK_256, ["verbose=0"]),
                        device="cuda", precision="single")
     mz_rad, secs, nsub = bench_radhydro(bench, n_warmup=1, n_steps=3)
     print(f"bench_radhydro (fixed dt, {nsub} substeps a step, 3 steps after 1): "
           f"{mz_rad:.3f} hydro Mzone-updates/s ({secs:.3f} s) on {smi}")
     del bench
-    torch.cuda.empty_cache()
+    release()
 
     # ---- 7. the MHD main path
     phase("7. main path 3: Orszag-Tang MHD 256^3 f32, 20 steps, windowed loop "
@@ -676,7 +758,7 @@ def main() -> int:
     if mhd_launches["mhd_axis"] != 6 * 20:
         raise SystemExit(f"K8 launched {mhd_launches['mhd_axis']} times, not 6 a step")
     del sim
-    torch.cuda.empty_cache()
+    release()
     bench = MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(mhd.DECK_256),
                           precision="single")
     mz_mhd, secs = bench_mhd(bench, n_warmup=2, n_steps=10)
@@ -684,13 +766,14 @@ def main() -> int:
           f"({secs:.3f} s) on {smi}")
 
     del bench
-    torch.cuda.empty_cache()
+    release()
 
     # ---- 8. the dense AMR main path
     phase("8. main path 4: dense AMR radhydro shell 256^3 + 1 level f32, 1 warm-up and "
           "3 timed coarse steps (bench.py:192-207 deck)")
     sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
                         ParmParse.from_string(radhydro_shell.DECK_256, ["verbose=1"]))
+    print(f"held before the path: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     sim.set_initial_conditions()
@@ -721,7 +804,46 @@ def main() -> int:
     if missing:
         raise SystemExit(f"kernels not launched on the AMR path: {missing}")
     del sim
-    torch.cuda.empty_cache()
+    release()
+
+    # ---- 9. the lean hydro main path
+    phase("9. main path 5: Sedov 512^3 f32, 10 steps, lean branch (bench.py:76-84 deck)")
+    sim = Simulation(SedovProblem(), ParmParse.from_string(DECK_512, [
+        "max_timesteps=10", "verbose=1"]), device="cuda")
+    print(f"held before the path: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sim.set_initial_conditions()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sim.evolve()
+    lean_launches = read_counts()
+    rel = sim.conservation_rel_err
+    finite = bool(torch.isfinite(sim.U).all())
+    print(f"FOM: {sim.zone_updates_per_second / 1e6:.3f} Mzone-updates/s over {sim.istep} "
+          f"steps ({sim.elapsed_walltime:.3f} s wall, {sim.elapsed_walltime / sim.istep * 1e3:.3f} "
+          f"ms a step, first step included) on {smi}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"conservation: mass rel err {rel[0]:.3e}, energy rel err {rel[4]:.3e}; "
+          f"finite state {finite}")
+    print(f"FOFC: {sim.fofc_fallbacks} stage fallbacks, {sim.fofc_cells} invalid cells")
+    print(f"launches in this path: {lean_launches}")
+    if sim.istep != 10 or not finite:
+        raise SystemExit(f"lean main path: {sim.istep} steps, finite state {finite}")
+    if not (abs(rel[0]) < 1e-5 and abs(rel[4]) < 1e-5):
+        raise SystemExit(f"lean path conservation error: mass {rel[0]:.3e}, "
+                         f"energy {rel[4]:.3e}")
+    missing = [k for k in LEAN_KEYS if lean_launches[k] <= 0]
+    stray = [k for k in ("axis_flux", "axis_flux_avg", "apply_update") if lean_launches[k]]
+    if missing or stray:
+        raise SystemExit(f"lean path: kernels not launched {missing}, other K2/K3 "
+                         f"variants launched {stray}")
+    del sim
+    release()
+    bench = Simulation(SedovProblem(), ParmParse.from_string(DECK_512), device="cuda")
+    mz_lean, secs = bench_hydro(bench, n_warmup=2, n_steps=10)
+    print(f"bench_hydro at 512^3 (dt on the device, 10 steps after 2): {mz_lean:.3f} "
+          f"Mzone-updates/s ({secs:.3f} s) on {smi}")
+    del bench
+    release()
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
@@ -729,7 +851,8 @@ def main() -> int:
         _, bound_by = kernel_check.bound_ms(s["bytes"], s["ops"])
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": (amr_launches[key] if key in ("axis_flux_avg",
+                     "launches": (lean_launches[key] if key == "axis_flux_lean" else
+                                  amr_launches[key] if key in ("axis_flux_avg",
                                                                "rad_axis_flux") else
                                   sedov_launches[key] if key in HYDRO_KEYS else
                                   mhd_launches[key] if key in msweep.launch_counts else
@@ -737,6 +860,7 @@ def main() -> int:
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": bound_by, "library_ms": None})
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """quokka_tpu_torch: the PyTorch + CUDA port of quokka_tpu.
 
 Three unigrid slices. `Simulation` drives the RK2-SSP PPM + HLLC hydro step
-with the first-order flux correction (kernels K1-K3) and single-group M1
+with the first-order flux correction (kernels K1-K3; K1 and K2c, the lean
+step, above 272 cells an axis) and single-group M1
 radiation hydrodynamics with IMEX substeps and the implicit matter coupling
 (kernels K4-K6); `MHDSimulation` drives constrained-transport ideal MHD
 with HLLD (kernel K8). The kernels are written by hand in CUDA for Hopper

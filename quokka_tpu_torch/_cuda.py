@@ -39,6 +39,8 @@ _SIGNATURES = {
                       _F, _F, _F, _F, _I, _P],
     "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _F, _F, _F, _F, _I, _P],
+    "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
+                     _F, _F, _I, _F, _F, _F, _F, _I, _P],
     "qk_axis_div": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                     _I, _I, _F, _P],
     "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,

@@ -3,9 +3,10 @@
 //
 // Replaces quokka_tpu/hydro/pallas_sweep.py::compute_axis_flux_pallas (the
 // pallas_call at :1148, body _sweep_body :314) for the variants the unigrid
-// main path runs: wall (reflect) or periodic axes, the divergence outputs
+// main paths run: wall (reflect) or periodic axes, the divergence outputs
 // (dx_axis), the stage-2 time average (avg_with), conserved input
-// (state_is_cons) and the first-order FOFC fluxes (donor cell + LLF).
+// (state_is_cons), the first-order FOFC fluxes (donor cell + LLF), and the
+// lean div-only sweep (K2c, below).
 //
 // face kernel: one thread per (face, transverse position), z fastest. Face
 //   slot f lies between cells f-1 and f; on a wall axis slot n (the hi
@@ -28,6 +29,20 @@
 // wraps in index space, as the JAX in-block rolls do; the wrap reaches
 // ghost faces only. Its cost over K2's stage 2: one more [6, X, Y, Z]
 // write (24 B a cell) and one fewer [X, Y, Z] read.
+//
+// K2c (div_only, the lean large-domain step, pallas_sweep.py:695-718,
+// :786-810, :924-1009, the blend of _window_flux :543-561): one kernel,
+// `lean_kernel`, one thread per cell computing both of its faces in
+// registers, so no face array reaches global memory. It takes the optional
+// in-place accumulators (acc, the JAX kernel's aliased outputs) and the
+// in-kernel FOFC blend (fo_mask, fo_from). Its bound at 512^3 is bytes, at
+// 3.35 TB/s with one f32 row 0.537 GB: a clean first axis reads U, chi and
+// two dmin fields (9 rows) and writes div and dvel (7 rows), 8.6 GB, 2.6 ms;
+// with acc it reads the 7 accumulator rows too, 12.3 GB, 3.7 ms; fo_mask
+// adds one row and fo_from six (kernel_check.lean_cases computes each
+// launch's bytes from its inputs). Solving each face twice doubles the
+// arithmetic of the K2 face kernel, ~1200 FP32 operations a cell, which at
+// 67 TFLOP/s is 2.4 ms at 512^3: still below the byte bound.
 //
 // Why two kernels and not one thread computing faces i and i+1: that would
 // solve every Riemann problem twice, and HLLC is most of the FP32 work; the
@@ -183,38 +198,25 @@ __device__ __forceinline__ void hllc(const Face& L, const Face& R, float du,
   }
 }
 
-// The sweep axis is a template parameter: the canonical-frame component
-// indices (1+axis, 1+vax, 1+wax) become compile-time constants, which keeps
-// the 6 x 6 stencil and the face states in registers.
+// One face of the sweep: slot f lies between cells f-1 and f (through the
+// wall index map, so f = n is the hi wall, or face 0 again on a periodic
+// axis). Reads cells f-3..f+2, converts them to primitives in registers,
+// builds the PPM states of cells f-1 and f, blends them with chi, and solves
+// HLLC with the carbuncle dw (CW84 viscosity when K_visc > 0); first_order
+// reads only cells f-1, f and solves LLF. Returns the flux in state
+// component order and the face velocity. The sweep axis is a template
+// parameter: the canonical-frame component indices (1+axis, 1+vax, 1+wax)
+// become compile-time constants, which keeps the 6 x 6 stencil and the face
+// states in registers.
 template <int axis>
-__global__ void face_kernel(const float* __restrict__ Q,
-                            const float* __restrict__ chi,
-                            const float* __restrict__ dminv,
-                            const float* __restrict__ dminw,
-                            float* __restrict__ F, float* __restrict__ vel,
-                            float* __restrict__ F_hi,
-                            float* __restrict__ vel_hi, int64_t X, int64_t Y,
-                            int64_t Z, int lo, int hi, int is_cons,
-                            int first_order, float K_visc, Eos e) {
-  const int64_t dims[3] = {X, Y, Z};
-  const int64_t n = dims[axis];
-  const bool wall = lo != BC_PERIODIC;
-  int64_t ext[3] = {X, Y, Z};
-  ext[axis] = wall ? n + 1 : n;
-  const int64_t total = ext[0] * ext[1] * ext[2];
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  int64_t co[3];
-  unravel(idx, ext[1], ext[2], co);
-  const int64_t f = co[axis];
-  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
-  int64_t oc[3] = {co[0], co[1], co[2]};
-  oc[axis] = 0;
-  const int64_t base = (oc[0] * Y + oc[1]) * Z + oc[2];
-  const int64_t ncell = X * Y * Z;
+__device__ __forceinline__ void sweep_face(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw,
+    int64_t ncell, int64_t base, int64_t stride, int64_t f, int64_t n, int lo,
+    int hi, int is_cons, int first_order, float K_visc, const Eos& e,
+    float Fs[NV], float& fv) {
   constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
   constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
-
   float qL[NV], qR[NV], out[NV];
   float rinv_L, rinv_R;
   if (first_order) {
@@ -282,14 +284,45 @@ __global__ void face_kernel(const float* __restrict__ Q,
   }
 
   // canonical -> state component order
-  float Fs[NV];
   Fs[0] = out[0];
   Fs[1 + axis] = out[1];
   Fs[1 + vax] = out[2];
   Fs[1 + wax] = out[3];
   Fs[4] = out[4];
   Fs[5] = out[5];
-  const float fv = Fs[0] * (Fs[0] >= 0.0f ? rinv_R : rinv_L);
+  fv = Fs[0] * (Fs[0] >= 0.0f ? rinv_R : rinv_L);
+}
+
+template <int axis>
+__global__ void face_kernel(const float* __restrict__ Q,
+                            const float* __restrict__ chi,
+                            const float* __restrict__ dminv,
+                            const float* __restrict__ dminw,
+                            float* __restrict__ F, float* __restrict__ vel,
+                            float* __restrict__ F_hi,
+                            float* __restrict__ vel_hi, int64_t X, int64_t Y,
+                            int64_t Z, int lo, int hi, int is_cons,
+                            int first_order, float K_visc, Eos e) {
+  const int64_t dims[3] = {X, Y, Z};
+  const int64_t n = dims[axis];
+  const bool wall = lo != BC_PERIODIC;
+  int64_t ext[3] = {X, Y, Z};
+  ext[axis] = wall ? n + 1 : n;
+  const int64_t total = ext[0] * ext[1] * ext[2];
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  int64_t co[3];
+  unravel(idx, ext[1], ext[2], co);
+  const int64_t f = co[axis];
+  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  int64_t oc[3] = {co[0], co[1], co[2]};
+  oc[axis] = 0;
+  const int64_t base = (oc[0] * Y + oc[1]) * Z + oc[2];
+  const int64_t ncell = X * Y * Z;
+
+  float Fs[NV], fv;
+  sweep_face<axis>(Q, chi, dminv, dminw, ncell, base, stride, f, n, lo, hi,
+                   is_cons, first_order, K_visc, e, Fs, fv);
 
   if (f < n) {
     const int64_t off = base + f * stride;
@@ -369,7 +402,95 @@ __global__ void div_kernel(const float* __restrict__ F,
   dvel[idx] = (vb - va) / dx;
 }
 
+// A cell flag of the FOFC mask at sweep coordinate c: wall ghosts are
+// unflagged (the `_pad_mask` non-periodic fill), periodic axes wrap.
+__device__ __forceinline__ float mask_at(const float* __restrict__ m,
+                                         int64_t base, int64_t stride,
+                                         int64_t c, int64_t n, int lo,
+                                         int hi) {
+  if ((c < 0 && lo != BC_PERIODIC) || (c >= n && hi != BC_PERIODIC))
+    return 0.0f;
+  return load_field(m, base, stride, c, n, lo, hi);
+}
+
+// K2c: one thread per cell solves the cell's lo face (slot c) and hi face
+// (slot c+1, the hi wall itself for the last cell of a wall axis) with
+// `sweep_face`, each face solved once by each of its two cells, and writes
+// only div = (F_lo - F_hi) / dx and dvel = (v_hi - v_lo) / dx, or adds them
+// onto the running totals in place (accumulate; div and dvel are then the
+// accumulators, read and written by the same thread). With a mask, a face
+// next to a flagged cell (face c flags on cells c-1 and c) takes the
+// first-order donor-cell + LLF flux and face velocity of `fo` (the state
+// itself when null), as the JAX blend selects them.
+template <int axis>
+__global__ void lean_kernel(const float* __restrict__ Q,
+                            const float* __restrict__ chi,
+                            const float* __restrict__ dminv,
+                            const float* __restrict__ dminw,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ fo, float* div,
+                            float* dvel, int64_t X, int64_t Y, int64_t Z,
+                            int lo, int hi, int is_cons, int first_order,
+                            float K_visc, float dx, int accumulate, Eos e) {
+  const int64_t ncell = X * Y * Z;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= ncell) return;
+  int64_t co[3];
+  unravel(idx, Y, Z, co);
+  const int64_t dims[3] = {X, Y, Z};
+  const int64_t n = dims[axis];
+  const int64_t c = co[axis];
+  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  const int64_t base = idx - c * stride;
+
+  float F[2][NV], v[2];
+#pragma unroll 1
+  for (int s = 0; s < 2; ++s)
+    sweep_face<axis>(Q, chi, dminv, dminw, ncell, base, stride, c + s, n, lo,
+                     hi, is_cons, first_order, K_visc, e, F[s], v[s]);
+  if (mask != nullptr) {
+    const float m[3] = {mask_at(mask, base, stride, c - 1, n, lo, hi),
+                        mask_at(mask, base, stride, c, n, lo, hi),
+                        mask_at(mask, base, stride, c + 1, n, lo, hi)};
+    const float* src = fo != nullptr ? fo : Q;
+#pragma unroll 1
+    for (int s = 0; s < 2; ++s)
+      if (m[s] > 0.0f || m[s + 1] > 0.0f)
+        sweep_face<axis>(src, nullptr, nullptr, nullptr, ncell, base, stride,
+                         c + s, n, lo, hi, is_cons, 1, K_visc, e, F[s], v[s]);
+  }
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    float d = (F[0][k] - F[1][k]) / dx;
+    if (accumulate) d = div[k * ncell + idx] + d;
+    div[k * ncell + idx] = d;
+  }
+  float dv = (v[1] - v[0]) / dx;
+  if (accumulate) dv = dvel[idx] + dv;
+  dvel[idx] = dv;
+}
+
 }  // namespace qk
+
+extern "C" int qk_axis_lean(const float* Q, const float* chi,
+                            const float* dminv, const float* dminw,
+                            const float* mask, const float* fo, float* div,
+                            float* dvel, long long X, long long Y, long long Z,
+                            int axis, int lo, int hi, int is_cons,
+                            int first_order, float K_visc, float dx,
+                            int accumulate, float gamma, float gm1,
+                            float inv_gm1, float s_n, int reconstruct_eint,
+                            void* stream) {
+  const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
+  const int64_t ncell = (int64_t)X * Y * Z;
+  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
+  auto kernel = axis == 0 ? qk::lean_kernel<0>
+                : (axis == 1 ? qk::lean_kernel<1> : qk::lean_kernel<2>);
+  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
+      Q, chi, dminv, dminw, mask, fo, div, dvel, X, Y, Z, lo, hi, is_cons,
+      first_order, K_visc, dx, accumulate, e);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int qk_axis_flux(const float* Q, const float* chi,
                             const float* dminv, const float* dminw, float* F,

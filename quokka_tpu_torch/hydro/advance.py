@@ -8,7 +8,11 @@ which applies the update pointwise, counts invalid cells and applies the
 floors and the dual-energy sync. A ghost-padded level (the AMR path) runs
 the same sweeps on its padded state, K2d in stage 2 when the flux
 registers need the time-averaged face fluxes, and applies the update in
-plain torch as the JAX package does there.
+plain torch as the JAX package does there. Above 272 cells an axis a
+ghost-free step takes the lean formulation (`_advance_hydro_rk2_lean`,
+K1 + K2c), as the JAX dispatch does: the sweeps emit only divergence
+totals, the FOFC blend happens in the kernel, and the update is applied in
+plain torch.
 
 The FOFC fallback is a Python `if` on K3's invalid count, where the JAX
 package has a `lax.cond`: one host sync per stage. The fallback rebuilds
@@ -19,14 +23,17 @@ fluxes of K2 on every face adjacent to an invalid cell (reference
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
 
+from .._numerics import div as true_div
 from ..eos import IdealGasEOS
 from ..indices import EINT, MX1, RHO
 from ..stencil import interior, sh, sh_bc
+from ..utils.profiler import prof
 from . import euler
 from .sweep import (_sum_divs, apply_update, compute_axis_flux,
                     compute_fluxes_pallas, compute_fluxes_pallas_div, finalize,
@@ -127,7 +134,7 @@ def _cell_div_v(Ug, opts: HydroOptions, bc_kinds):
         else:
             vp = sh_bc(vel, 1, d, *bc_axis, odd=True)
             vm = sh_bc(vel, -1, d, *bc_axis, odd=True)
-        c = 0.5 * (vp - vm) / opts.dx[d]
+        c = true_div(0.5 * (vp - vm), opts.dx[d])
         div_cc = c if div_cc is None else div_cc + c
     return div_cc
 
@@ -176,14 +183,19 @@ def _blend_fofc(fluxes, facevels, fo_fluxes, fo_facevels, mask_p, opts,
 
 
 def _apply_from_divs(U0_int, Ug_old, div, dvel, dt, ng, opts: HydroOptions,
-                     consume: bool = False):
+                     consume: bool = False, redo_mask=None, bc_kinds: dict | None = None):
     """Pointwise flux application from the divergence totals (+ PdV).
     `consume`: the caller hands `div` over, and the PdV source is added to
     it in place (the same rounding; a padded level's divergence total is
-    3.4 GB at 520^3)."""
+    3.4 GB at 520^3). `redo_mask` (bool, padded like `Ug_old`): FOFC-redo
+    cells take the central-difference divergence of the cell velocities
+    for the PdV source instead of the face-velocity one
+    (`quokka_tpu/hydro/advance.py:577-608`)."""
     P = euler.pressure(Ug_old, opts.eos)
     rhs = div if consume else div.clone()
     del div
+    if redo_mask is not None:
+        dvel = torch.where(redo_mask, _cell_div_v(Ug_old, opts, bc_kinds), dvel)
     rhs[EINT] = rhs[EINT] + (-P * dvel)
     del P
     upd = dt * interior(rhs, ng)
@@ -263,6 +275,100 @@ def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
     else:
         U2 = finalize(U2a, opts)
     return U2, {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
+
+
+# The lean step's stage-2 FOFC takes its first-order fluxes from the
+# post-FOFC stage-1 state above this extent (`quokka_tpu/hydro/advance.py:
+# 1041-1057`); the JAX dispatch sends ghost-free f32 steps of extent above
+# it, up to LEAN_MAX_EXTENT, to the lean step (`:1139-1162`, `:250`).
+LEAN_MIN_EXTENT = 272
+LEAN_MAX_EXTENT = 1088
+# profiler regions of the lean step's two RK stages (step_profile.py)
+LEAN_STAGES = ("lean_stage1", "lean_stage2")
+
+
+def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: dict):
+    """RK2-SSP step in the lean divergence formulation (`quokka_tpu/hydro/
+    advance.py:925-1078`), the JAX package's path for unigrid steps above
+    272 cells an axis. K2c emits only accumulated divergence totals, so no
+    face array is ever held:
+
+    - stage 1: div1 = sum_d div(F1_d) chained through the kernels'
+      accumulators, applied pointwise; a FOFC fallback sweeps again with
+      the flag mask as a kernel input (the first-order blend happens in the
+      kernel);
+    - stage 2: the kernels add div2 onto stage 1's totals in place and the
+      update is U + 0.5 dt (div1 + div2), the time average by linearity;
+    - a stage-2 fallback sweeps G1 = blend(F(U0), fo, m1 | m2) and chains
+      G2 = blend(F(U1), fo, m2) onto it. Above 272 cells an axis the
+      first-order fluxes of G2 come from U1 itself, at or below from U0
+      (`fo_from`), as the JAX step does.
+
+    The FOFC checks are a Python `if` on one host read a stage, where the
+    JAX package has a `lax.cond`. Returns (U_new, stats) with ``n_fofc``
+    (invalid cells of the two try states, a 0-d tensor) and
+    ``fofc_fallbacks`` (stages that fell back, an int)."""
+    eos = opts.eos
+    dtype = U.dtype
+    Ug0 = U
+
+    def sweeps(Ug, fo_mask=None, fo_from=None, acc_init=None):
+        return compute_fluxes_pallas_div(Ug, opts, bc_kinds, accumulate=True,
+                                         div_only=True, fo_mask=fo_mask,
+                                         fo_from=fo_from, acc_init=acc_init)
+
+    with prof.region(LEAN_STAGES[0]):
+        r1 = sweeps(Ug0)
+        U1_try = _apply_from_divs(U, Ug0, r1["div"], r1["dvel"], dt, ng, opts)
+        redo1 = torch.logical_not(euler.is_state_valid(U1_try, eos))
+        n1 = redo1.sum()
+        fired1 = bool(n1 > 0)  # host sync
+        m1b = _pad_mask(redo1, ng, periodic)
+        if fired1:
+            del U1_try, r1
+            rb = sweeps(Ug0, fo_mask=m1b.to(dtype))
+            div1, dvel1 = rb["div"], rb["dvel"]
+            U1 = finalize(_apply_from_divs(U, Ug0, div1, dvel1, dt, ng, opts,
+                                           redo_mask=m1b, bc_kinds=bc_kinds), opts)
+            del rb
+        else:
+            U1 = finalize(U1_try, opts)
+            div1, dvel1 = r1["div"], r1["dvel"]
+            del U1_try, r1
+    if opts.rk_order == 1:
+        return U1, {"n_fofc": n1, "fofc_fallbacks": int(fired1)}
+
+    # ---- stage 2: the averaged divergences, added onto stage 1's totals
+    with prof.region(LEAN_STAGES[1]):
+        Ug1 = U1
+        r2 = sweeps(Ug1, acc_init=(div1, dvel1))
+        del div1, dvel1
+        U2_try = _apply_from_divs(U, Ug0, r2["div"], r2["dvel"], 0.5 * dt, ng, opts,
+                                  consume=True)
+        del r2
+        redo2 = torch.logical_not(euler.is_state_valid(U2_try, eos))
+        n2 = redo2.sum()
+        stats = {"n_fofc": n1 + n2, "fofc_fallbacks": int(fired1)}
+        if not bool(n2 > 0):  # host sync
+            return finalize(U2_try, opts), stats
+
+        # fallback: G1 = blend(F(U0), fo(U0), m1 | m2), then G2 = blend(F(U1),
+        # fo, m2) chained onto it; 0.5 (G1 + G2) is the blended average
+        del U2_try
+        stats["fofc_fallbacks"] += 1
+        m2b = _pad_mask(redo2, ng, periodic)
+        g1 = sweeps(Ug0, fo_mask=(m1b | m2b).to(dtype))
+        acc = (g1["div"], g1["dvel"])
+        del g1
+        if max(U.shape[1:]) > LEAN_MIN_EXTENT:
+            # quokka_tpu/hydro/advance.py:1041-1057: first order from U1
+            g2 = sweeps(Ug1, fo_mask=m2b.to(dtype), acc_init=acc)
+        else:
+            g2 = sweeps(Ug1, fo_mask=m2b.to(dtype), fo_from=Ug0, acc_init=acc)
+        del acc
+        U2 = _apply_from_divs(U, Ug0, g2["div"], g2["dvel"], 0.5 * dt, ng, opts,
+                              consume=True, redo_mask=m2b, bc_kinds=bc_kinds)
+        return finalize(U2, opts), stats
 
 
 def _padded_sweeps(Ug, opts: HydroOptions, r1: dict | None = None,
@@ -421,11 +527,15 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
     state, in one of two forms:
 
     - ghost-free (`bc_kinds` = {axis: (lo, hi) | None}, None = periodic,
-      `ng` all 0, no `fill_fn`): the unigrid path, K1-K3;
+      `ng` all 0, no `fill_fn`): the unigrid path;
     - ghost-padded (`bc_kinds` None): `fill_fn(U)` pads the ghosts (and
       `fill_fn2` the stage-2 state; AMR fills interpolate the parent in
       time there), `ng` the ghost widths; `return_fluxes` adds the
       time-averaged face fluxes for the flux registers (K2d).
+
+    A ghost-free step takes the branch the JAX package's dispatch takes
+    (`_branch`): the lean step (K1 + K2c) above 272 cells an axis, the
+    kernel-fused one (K1-K3) at or below.
 
     Any other configuration raises NotImplementedError. `dt` is a float or
     a one-element tensor on the state's device. Returns (U_new, stats)."""
@@ -453,9 +563,43 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"advance_hydro_rk2: not ported yet: {bad}")
+    branch = _branch(U, opts, padded, return_fluxes, ng)
     if U.device.type == "cuda":
         dt = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(())
     if padded:
         return _advance_hydro_rk2_padded(U, dt, opts, fill_fn, ng, periodic,
                                          fill_fn2, return_fluxes)
+    if branch == "lean":
+        return _advance_hydro_rk2_lean(U, dt, opts, ng, periodic, bc_kinds)
     return _advance_hydro_rk2_fused(U, dt, opts, ng, periodic, bc_kinds)
+
+
+def _branch(U, opts: HydroOptions, padded: bool, return_fluxes: bool, ng) -> str:
+    """"lean" or "fused": the JAX package's dispatch
+    (`quokka_tpu/hydro/advance.py:1139-1162`) for a float32 step with three
+    active axes and the fused update. It takes the lean step for RK2 without
+    face outputs when ``QUOKKA_PALLAS_LEAN`` is "1", or when it is "auto"
+    (the default) and the extent (the padded one on a padded level) lies in
+    (272, 1088]. Above 272 every other f32 step runs the JAX package's
+    classic XLA formulation, which the port does not have: it raises there,
+    except for the padded AMR levels with flux outputs, which run the fused
+    kernels (a deviation that ROADMAP.md lists). The padded lean form is
+    not ported either. Other dtypes (float64 on the CPU) take the fused
+    formulation at every size."""
+    if U.dtype != torch.float32:
+        return "fused"
+    ext = max(U.shape[1:]) + (2 * max(ng) if padded else 0)
+    pref = os.environ.get("QUOKKA_PALLAS_LEAN", "auto")
+    lean = (opts.rk_order == 2 and not return_fluxes
+            and (pref == "1" or (pref == "auto" and LEAN_MIN_EXTENT < ext <= LEAN_MAX_EXTENT)))
+    if lean and padded:
+        raise NotImplementedError(
+            "advance_hydro_rk2: the padded (ghost-padded) lean step is not ported; "
+            "the port steps a unigrid ghost-free")
+    if lean:
+        return "lean"
+    if ext > LEAN_MIN_EXTENT and not (padded and return_fluxes):
+        raise NotImplementedError(
+            f"advance_hydro_rk2: at extent {ext} with QUOKKA_PALLAS_LEAN={pref!r} the JAX "
+            "package runs its classic unfused XLA path, which is not ported")
+    return "fused"

@@ -1,5 +1,5 @@
-"""Hydro sweep kernels K1-K3: wrappers, plain PyTorch versions, and the
-all-axis sweeps.
+"""Hydro sweep kernels K1-K3 (and K2's variants K2c, K2d): wrappers, plain
+PyTorch versions, and the all-axis sweeps.
 
 Counterpart of `quokka_tpu.hydro.pallas_sweep`. Each kernel has
 
@@ -15,7 +15,11 @@ Counterpart of `quokka_tpu.hydro.pallas_sweep`. Each kernel has
 `launch_counts` counts kernel launches per wrapper, so a run can show that
 it went through the kernels: ``axis_flux`` counts K2, ``axis_flux_avg`` its
 K2d variant (`emit_avg_flux`, the stage-2 sweep of a padded AMR level that
-also emits the time-averaged face flux for the flux registers).
+also emits the time-averaged face flux for the flux registers) and
+``axis_flux_lean`` its K2c variant (`div_only`, the lean large-domain
+sweep: only the divergences leave the kernel, optionally added onto running
+totals in place (`acc`) and with the FOFC first-order blend done in the
+kernel (`fo_mask`, `fo_from`)).
 
 Layout: ``[nvar, X, Y, Z]``, contiguous, z fastest. Face arrays keep the
 JAX convention: slot i is the face between cells i-1 and i (slot 0 is the
@@ -38,7 +42,7 @@ from . import euler, reconstruct
 from .riemann import FaceState, hllc, llf
 
 launch_counts = {"transverse": 0, "axis_flux": 0, "axis_flux_avg": 0,
-                 "apply_update": 0}
+                 "axis_flux_lean": 0, "apply_update": 0}
 
 
 def reset_launch_counts() -> None:
@@ -223,15 +227,26 @@ def precompute_transverse_plain(U, opts, bc_kinds: dict | None,
 def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
                     first_order: bool = False, bc_axis=None, dx_axis=None,
                     avg_with: tuple | None = None, state_is_cons: bool = False,
-                    emit_avg_flux: bool = False):
+                    emit_avg_flux: bool = False, *, div_only: bool = False,
+                    acc: tuple | None = None, fo_mask=None, fo_from=None):
     """Plain version of K2: one sweep along `axis`. Returns what
     `pallas_sweep.compute_axis_flux_pallas` returns for these arguments:
     (F, v[, F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or
     with `emit_avg_flux` (K2d, padded periodic arrays) (div, dvel, F_avg):
     the divergence of the averaged flux, the RAW stage-2 velocity
-    divergence and the averaged flux 0.5 (F1 + F2)."""
+    divergence and the averaged flux 0.5 (F1 + F2).
+
+    K2c (`div_only`, `pallas_sweep.py:703-718`): only (div, dvel). With
+    `fo_mask` (0/1 per cell) every face next to a flagged cell takes the
+    first-order (donor-cell + LLF) flux and face velocity of `fo_from`
+    (the state itself when None; conserved like `U` with
+    `state_is_cons`), as `pallas_sweep._window_flux` (`:543-561`) blends;
+    on a wall axis the ghost cells count as unflagged. With `acc` =
+    (div_acc, dvel_acc) the contributions are added onto the running totals
+    in place, and the totals are returned."""
     _check_bc(bc_axis)
     _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
+    _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with)
     vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
     dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
     dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
@@ -249,6 +264,24 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     if state_is_cons:
         blk = euler.cons_to_prim(blk, opts.eos, opts.reconstruct_eint)
     F, v = _sweep_body(blk, chi, dminv, dminw, axis, opts, first_order)
+    if fo_mask is not None:
+        fblk = blk
+        if fo_from is not None:
+            fblk = fo_from
+            if wall:
+                fblk = _assemble_wall_ghosts(fo_from, axis, odd_comp=MX1 + axis, g=g)
+            if state_is_cons:
+                fblk = euler.cons_to_prim(fblk, opts.eos, opts.reconstruct_eint)
+        Ff, vf = _sweep_body(fblk, None, None, None, axis, opts, True)
+        del fblk
+        mb = fo_mask
+        if wall:
+            z = torch.zeros_like(mb.narrow(axis, 0, g))
+            mb = torch.cat([z, mb, z], dim=axis)
+        flag = (sh(mb, -1, axis) > 0) | (mb > 0)
+        F = torch.where(flag[None], Ff, F)
+        v = torch.where(flag, vf, v)
+        del Ff, vf, flag
 
     Fh = vh = None
     if wall:
@@ -277,6 +310,10 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     dvel = (v_next - vd) / dx_axis
     if emit_avg_flux:
         return div, dvel, Fd
+    if div_only:
+        if acc is None:
+            return div, dvel
+        return acc[0].add_(div), acc[1].add_(dvel)
     if avg_with is not None:
         return div, dvel
     return ((F, v, Fh, vh) if wall else (F, v)) + (div, dvel)
@@ -300,6 +337,19 @@ def _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis):
     if emit_avg_flux and (avg_with is None or bc_axis is not None or dx_axis is None):
         raise ValueError("emit_avg_flux (K2d) takes avg_with and dx_axis on a "
                          "periodic (padded) axis")
+
+
+def _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with):
+    """The K2c arguments' contract (`pallas_sweep.py:786-800`); the
+    accumulators and the in-kernel blend are ported for the div-only sweep,
+    the one form the lean step runs."""
+    if div_only and (dx_axis is None or avg_with is not None):
+        raise ValueError("div_only requires dx_axis and excludes avg_with")
+    if fo_from is not None and fo_mask is None:
+        raise ValueError("fo_from requires fo_mask")
+    if not div_only and (acc is not None or fo_mask is not None):
+        raise NotImplementedError(
+            "acc and fo_mask are ported for the div_only sweep (K2c) only")
 
 
 def _sum_divs(divs: dict) -> torch.Tensor:
@@ -420,15 +470,17 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     """K2: one sweep along `axis` (`pallas_sweep.compute_axis_flux_pallas`
     for the variants of the unigrid and dense-AMR paths). Returns (F, v[,
     F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or (div,
-    dvel, F_avg) with `emit_avg_flux` (K2d: `axis_flux_plain` says what
-    each holds)."""
-    _unsupported(acc=acc, div_only=div_only, fo_mask=fo_mask, fo_from=fo_from,
-                 corr_mask=corr_mask, corr_acc=corr_acc, chi_ghost_axis=chi_ghost_axis)
+    dvel, F_avg) with `emit_avg_flux` (K2d), or (div, dvel) with
+    `div_only` (K2c; with `acc` the accumulator tensors, updated in
+    place): `axis_flux_plain` says what each holds."""
+    _unsupported(corr_mask=corr_mask, corr_acc=corr_acc, chi_ghost_axis=chi_ghost_axis)
     _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
+    _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with)
     if not _on_cuda(U):
         return axis_flux_plain(U, axis, opts, chi_cell, dmins, first_order,
                                bc_axis, dx_axis, avg_with, state_is_cons,
-                               emit_avg_flux)
+                               emit_avg_flux, div_only=div_only, acc=acc,
+                               fo_mask=fo_mask, fo_from=fo_from)
     from .._cuda import check, library
 
     lib = library()
@@ -438,6 +490,10 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
     dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
     chi = chi_cell if not first_order else None
+    if div_only:
+        return _axis_flux_lean_cuda(lib, U, axis, opts, chi, dminv, dminw, first_order,
+                                    bc_axis, dx_axis, state_is_cons, acc, fo_mask,
+                                    fo_from)
     avg = tuple(avg_with) if avg_with is not None else ()
     _check_kernel_inputs(opts, U, chi, dminv, dminw, *avg)
     lo, hi = _bc_codes(bc_axis)
@@ -483,6 +539,36 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     if avg_with is not None:
         return div, dvel
     return faces + (div, dvel)
+
+
+def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order,
+                         bc_axis, dx_axis, state_is_cons, acc, fo_mask, fo_from):
+    """Launch K2c (csrc/sweep.cu `lean_kernel`): one thread a cell solves
+    both of its faces in registers and writes only (div, dvel), or adds
+    them onto `acc` in place."""
+    from .._cuda import check
+
+    accs = tuple(acc) if acc is not None else ()
+    _check_kernel_inputs(opts, U, chi, dminv, dminw, fo_mask, fo_from, *accs)
+    X, Y, Z = U.shape[1:]
+    cell = (X, Y, Z)
+    _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin"),
+                   (fo_mask, cell, "fo_mask"), (fo_from, U.shape, "fo_from")]
+                  + list(zip(accs, (U.shape, cell), ("acc div", "acc dvel"))))
+    lo, hi = _bc_codes(bc_axis)
+    if acc is None:
+        div = torch.empty_like(U)
+        dvel = torch.empty(cell, dtype=U.dtype, device=U.device)
+    else:
+        div, dvel = acc
+    err = lib.qk_axis_lean(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+                           _ptr(fo_mask), _ptr(fo_from), div.data_ptr(), dvel.data_ptr(),
+                           X, Y, Z, axis, lo, hi, int(state_is_cons), int(first_order),
+                           float(opts.K_visc), float(dx_axis), int(acc is not None),
+                           *_eos_args(opts), _stream(U))
+    check(err, "axis_flux_lean")
+    launch_counts["axis_flux_lean"] += 1
+    return div, dvel
 
 
 def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):
@@ -534,14 +620,42 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
     ``dvels``; with ``avg_with`` (stage 2, the stage-1 dict) the divs hold
     the divergence of the time-averaged flux and the face dicts are empty.
     The padded AMR levels sweep through `hydro.advance._padded_sweeps`
-    instead, which also drives K2d."""
-    _unsupported(accumulate=accumulate,
-                 div_only=div_only, fo_mask=fo_mask, fo_from=fo_from,
-                 acc_init=acc_init, corr_masks=corr_masks, corr_init=corr_init)
+    instead, which also drives K2d.
+
+    ``div_only`` (the lean step, K2c): no face array at all; with
+    ``accumulate`` the per-axis contributions are chained through the
+    kernels' accumulators in axis order, starting from ``acc_init`` (whose
+    tensors are updated in place) when given, and the dict carries the
+    totals ``div`` and ``dvel`` instead of ``divs``/``dvels``. ``fo_mask``
+    and ``fo_from`` reach every axis's sweep (the in-kernel FOFC blend)."""
+    _unsupported(corr_masks=corr_masks, corr_init=corr_init)
+    lean_args = (accumulate, acc_init is not None, fo_mask is not None, fo_from is not None)
+    if any(lean_args) and not div_only:
+        raise NotImplementedError("accumulate, acc_init, fo_mask and fo_from are ported "
+                                  "for the div_only sweep (K2c) only")
+    if acc_init is not None and not accumulate:
+        raise ValueError("acc_init requires accumulate")
+    if div_only and avg_with is not None:
+        raise ValueError("div_only excludes avg_with")
     dmins, chi_cell, _ = precompute_transverse(Ug, opts, bc_kinds,
                                                state_is_cons=True)
     out = {"fluxes": {}, "facevels": {}, "flux_hi": {}, "vel_hi": {},
            "divs": {}, "dvels": {}}
+    if div_only:
+        acc = acc_init
+        for d in opts.active_axes:
+            bc_axis = None if bc_kinds is None else bc_kinds.get(d)
+            res = compute_axis_flux(Ug, d, opts, chi_cell, dmins, bc_axis=bc_axis,
+                                    dx_axis=opts.dx[d], state_is_cons=True,
+                                    acc=acc if accumulate else None, div_only=True,
+                                    fo_mask=fo_mask, fo_from=fo_from)
+            if accumulate:
+                acc = res
+            else:
+                out["divs"][d], out["dvels"][d] = res
+        if accumulate:
+            out["div"], out["dvel"] = acc
+        return out
     for d in opts.active_axes:
         bc_axis = None if bc_kinds is None else bc_kinds.get(d)
         avg_axis = None

@@ -33,6 +33,7 @@ from .hydro import euler, sweep
 from .mhd import sweep as msweep
 from .radiation import source, substep
 from .radiation import sweep as rsweep
+from .stencil import sh
 
 RTOL = 1e-5
 ULPS = 64
@@ -44,6 +45,7 @@ FP32_OPS_PER_S = 67e12
 OPS_K1_AXIS = 50  # cons->prim, dmin, flattening chi and its 3-point min
 OPS_K2_SWEEP = 620  # PPM of 6 components, HLLC at one face, divergence
 OPS_K3 = 80
+OPS_FO_FACE = 110  # cons->prim of two cells, two face states, LLF (K2c's blend)
 OPS_K6_AXIS = 280  # (E, f) prims, PPM of 4 components, HLL at one face, div
 OPS_K7_AXIS = 272  # K6 without the divergence: (E, f) prims, PPM, HLL
 OPS_AMEND = 12
@@ -80,7 +82,7 @@ def compare(got, ref, rtol: float = RTOL, ulps: int = ULPS):
             return False, float("inf"), float("inf")
         g, r = g.float(), r.float()
         fin = torch.isfinite(r)
-        if not torch.equal(torch.isfinite(g), fin) or not torch.equal(g[~fin], r[~fin]):
+        if not _same_nonfinite(g, r, fin):
             ok = False
             continue
         per_comp = r.dim() >= 4 or (r.dim() == 3 and r.shape[0] == 6)  # state or hi plane
@@ -99,6 +101,14 @@ def compare(got, ref, rtol: float = RTOL, ulps: int = ULPS):
             max_abs = max(max_abs, float(err.max()))
             max_rel = max(max_rel, float((err / rf.abs().clamp_min(1e-30)).max()))
     return ok, max_abs, max_rel
+
+
+def _same_nonfinite(g: torch.Tensor, r: torch.Tensor, fin: torch.Tensor) -> bool:
+    """`g` is non-finite where `r` is, with the same value there: NaN where
+    `r` has NaN, the same infinity where `r` has one."""
+    inf = torch.isinf(r)
+    return (torch.equal(torch.isfinite(g), fin) and torch.equal(torch.isnan(g), torch.isnan(r))
+            and torch.equal(g[inf], r[inf]))
 
 
 def time_ms(fn: Callable[[], object], reps: int = 5) -> float:
@@ -129,7 +139,7 @@ def compare_scaled(got, ref, rel: float = NEWTON_REL):
         g, r = g.float().reshape(-1, *r.shape[-3:]), r.float().reshape(-1, *r.shape[-3:])
         for gc, rc in zip(g, r):
             fin = torch.isfinite(rc)
-            if not torch.equal(torch.isfinite(gc), fin) or not torch.equal(gc[~fin], rc[~fin]):
+            if not _same_nonfinite(gc, rc, fin):
                 ok = False
                 continue
             if not bool(fin.any()):
@@ -164,6 +174,8 @@ class Case(NamedTuple):
     run_plain: Callable[[], object]
     cost: Callable[[], tuple] = lambda: (0, 0)  # (bytes, FP32 operations)
     scaled: bool = False  # compare with compare_scaled (Newton coupling)
+    # what to time, where run_kernel must copy an input it updates in place
+    run_timed: Callable[[], object] | None = None
 
     def check(self):
         """Run both versions; (ok, max_abs_err, max_rel_err, kernel result,
@@ -285,8 +297,8 @@ def _slabbed(fn, arrays, axis: int, nslab: int, halo: int = 0):
     periodically in index space as the padded level's sweeps wrap, and its
     result is cropped to the slab. For a function whose stencil reaches at
     most `halo` cells along `axis` the result is the same bitwise. `arrays`
-    are tensors whose spatial axes are the last three, dicts of such, or
-    None; the results are tensors, or tuples or dicts of them."""
+    are tensors whose spatial axes are the last three, dicts or tuples of
+    such, or None; the results are tensors, or tuples or dicts of them."""
     if nslab <= 1:
         return fn(*arrays)
     n = next(t for t in _flat([a for a in arrays if a is not None])).shape[-3 + axis]
@@ -296,6 +308,8 @@ def _slabbed(fn, arrays, axis: int, nslab: int, halo: int = 0):
             return None
         if isinstance(a, dict):
             return {k: cut(v, lo, hi) for k, v in a.items()}
+        if isinstance(a, tuple):
+            return tuple(cut(v, lo, hi) for v in a)
         if halo == 0:
             return a.narrow(a.dim() - 3 + axis, lo, hi - lo)
         idx = torch.arange(lo - halo, hi + halo, device=a.device) % n
@@ -401,6 +415,106 @@ def amr_cases(Ug0: torch.Tensor, Ug1: torch.Tensor, R: torch.Tensor, opts, ropts
                            Us, srcs, dt, stage, ropts, eos, problem, rs),
                        (U, rad_src), 0, nslab),
                    scaled=True)
+
+
+def plain_transverse(U: torch.Tensor, opts, bc_kinds: dict, nslab: int = 1):
+    """K1's plain version (`precompute_transverse_plain`, conserved input)
+    with each axis's fields computed in `nslab` slabs along another axis,
+    where its stencil does not reach, so the result is the same bitwise at
+    any wall kind. Returns (dmins, chi_cell)."""
+    dmins, chi_cell = {}, None
+    for t in opts.active_axes:
+        dmins[t], m3 = _slabbed(
+            lambda Us, t=t: sweep._transverse_axis_plain(Us, t, opts, bc_kinds.get(t),
+                                                         True)[:2],
+            (U,), (t + 1) % 3, nslab)
+        if m3 is not None:
+            chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
+    return dmins, chi_cell
+
+
+def lean_mask(shape, seed: int, frac: float = 0.01, device="cpu") -> torch.Tensor:
+    """A seeded 0/1 float32 FOFC mask flagging `frac` of the cells, and
+    whole lines of cells on the lo x wall, the hi y wall and the hi z
+    wall."""
+    rng = np.random.default_rng(seed)
+    m = torch.from_numpy(rng.random(shape, dtype=np.float32) < frac)
+    m[0, :, shape[2] // 3] = True
+    m[shape[0] // 2, shape[1] - 1, :] = True
+    m[:, shape[1] // 4, shape[2] - 1] = True
+    return m.to(device=device, dtype=torch.float32)
+
+
+LEAN_VARIANTS = ("clean", "acc", "fo_mask", "fo_mask+acc+fo_from")
+
+
+def lean_cases(U0: torch.Tensor, U1: torch.Tensor, opts, bc_kinds: dict, seed: int = 0,
+               variants=LEAN_VARIANTS, axes=(0, 1, 2), nslab: int = 1,
+               tag: str = "") -> Iterator[Case]:
+    """K2c (the `div_only` sweep of the lean step) per axis, in `variants`:
+
+    - ``clean``: the div-only sweep of U0 (stage 1's first axis);
+    - ``acc``: the same, added onto running totals in place (the chained
+      axes and stage 2);
+    - ``fo_mask``: with the FOFC blend on a seeded mask (`lean_mask`);
+    - ``fo_mask+acc+fo_from``: the sweep of U1 blended with U0's first-order
+      fluxes and added onto the totals (stage 2's redo at or below 272).
+
+    Every input of the kernel comes from a plain version (K1's fields by
+    `plain_transverse`, the running totals from the plain clean sweep of
+    axis 0), so no kernel output feeds both sides; the plain side runs in
+    `nslab` slabs along another axis. The accumulators are copied for each
+    compared call; `run_timed` adds onto one copy in place, as the step
+    does."""
+    n = U0[0].numel()
+    shape = tuple(U0.shape[1:])
+    k1 = {"0": plain_transverse(U0, opts, bc_kinds, nslab)}
+    if any("fo_from" in v for v in variants):
+        k1["1"] = plain_transverse(U1, opts, bc_kinds, nslab)
+    mask = lean_mask(shape, seed, device=U0.device) if any("fo_mask" in v for v in variants) \
+        else None
+    dmins0, chi0 = k1["0"]
+    acc = _slabbed(lambda U, c, dm: sweep.axis_flux_plain(
+        U, 0, opts, c, dm, bc_axis=bc_kinds.get(0), dx_axis=opts.dx[0], state_is_cons=True,
+        div_only=True), (U0, chi0, dmins0), 1, nslab)
+    timed_acc = tuple(a.clone() for a in acc)
+    for d in axes:
+        other = (d + 1) % 3
+        for v in variants:
+            stage2 = "fo_from" in v
+            U = U1 if stage2 else U0
+            dmins, chi = k1["1" if stage2 else "0"]
+            kw = dict(bc_axis=bc_kinds.get(d), dx_axis=opts.dx[d], state_is_cons=True,
+                      div_only=True)
+            m = mask if "fo_mask" in v else None
+            fo = U0 if stage2 else None
+            with_acc = "acc" in v
+            dm = [f for t, f in dmins.items() if t != d]
+            flagged = 0
+            if m is not None:
+                flagged = int(((sh(m, -1, d) > 0) | (m > 0)).sum())
+            # reads the state, chi, two dmin fields [, the mask, fo_from, the
+            # accumulators]; writes div and dvel (in place with acc)
+            cost = (_nbytes(U, chi, *dm, m, fo, acc if with_acc else None)
+                    + _nbytes(acc), OPS_K2_SWEEP * n + OPS_FO_FACE * flagged)
+
+            def kernel(acc_in, d=d, U=U, chi=chi, dmins=dmins, m=m, fo=fo, kw=kw):
+                return sweep.compute_axis_flux(U, d, opts, chi, dmins, acc=acc_in, fo_mask=m,
+                                               fo_from=fo, **kw)
+
+            def plain(Us, c, dmn, ms, fos, acs, d=d, kw=kw):
+                return sweep.axis_flux_plain(Us, d, opts, c, dmn, acc=acs, fo_mask=ms,
+                                             fo_from=fos, **kw)
+
+            copy = (lambda: tuple(a.clone() for a in acc)) if with_acc else (lambda: None)
+            yield Case("axis_flux_lean", f"K2c {v} axis {d}{tag}",
+                       lambda kernel=kernel, copy=copy: kernel(copy()),
+                       lambda plain=plain, U=U, chi=chi, dmins=dmins, m=m, fo=fo, copy=copy,
+                       other=other: _slabbed(plain, (U, chi, dmins, m, fo, copy()), other,
+                                             nslab),
+                       lambda cost=cost: cost,
+                       run_timed=lambda kernel=kernel, w=with_acc: kernel(
+                           timed_acc if w else None))
 
 
 def k8_ops_per_cell(order: int) -> int:

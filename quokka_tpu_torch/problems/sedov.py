@@ -24,6 +24,20 @@ from ..registry import (
 )
 
 
+# The JAX package's 512^3 hydro leg (bench.py:76-84, run_hydro(512, ...,
+# "single")): the 256^3 deck's problem at 512^3, f32. Above 272 cells an
+# axis its steps take the lean branch (hydro/advance.py:_branch).
+DECK_512 = """
+geometry.prob_lo = 0.0 0.0 0.0
+geometry.prob_hi = 1.2 1.2 1.2
+amr.n_cell = 512 512 512
+cfl = 0.3
+hydro.reconstruction_order = 3
+precision = single
+verbose = 0
+"""
+
+
 @register_problem
 class SedovProblem(Problem):
     name = "HydroBlast3D"

@@ -8,7 +8,8 @@ with the radiation subcycle after each accepted hydro sub-step, the
 conservation audit and the performance figure-of-merit (hydro
 zone-updates, as the reference counts them). The state lives on the
 `device` the caller names, a CUDA device unless the caller asks for the
-CPU; there every hydro stage runs through K1-K3 and every radiation
+CPU; there every hydro stage runs through K1-K3 (K1 and K2c, the lean
+step, above 272 cells an axis) and every radiation
 substep through K4 (or K5 and K6 stage by stage).
 
 Deck keys of subsystems the port does not have yet (gravity, cooling,

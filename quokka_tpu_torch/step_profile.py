@@ -1,4 +1,4 @@
-"""Where the time of a 256^3 step goes on the card, kernel by kernel.
+"""Where the time of a step goes on the card, kernel by kernel.
 
 For the Sedov deck (``decks/benchmark_unigrid_256.in``) and for
 RadhydroBench (``problems/radhydro_bench.py:DECK_256``) in both radiation
@@ -18,6 +18,12 @@ length of the main path's first window, and reported per step (the CFL dt
 on the device, the RK2 step, the masks; the window's dts read back once),
 and one right-hand side (three K8 launches and the constrained-transport
 glue: primitives, cell field, corner EMFs, curl).
+
+For Sedov 512^3 (``problems/sedov.py:DECK_512``, f32), whose steps take the
+lean branch (K1 + K2c), the same two parts, the hydro half's device time
+by RK stage (the lean step's profiler regions), and the wall time, device
+time and peak memory of one lean step and of one step of the fused form
+called directly on the same state (`profile_lean`).
 
 For the dense AMR radhydro shell (``problems/radhydro_shell.py:DECK_256``,
 256^3 + one level, f32), after two warm-up coarse steps, one coarse step
@@ -44,6 +50,7 @@ The last line of the output is one JSON object with every number printed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -62,7 +69,7 @@ KERNEL_OF = (
     ("mhd_axis_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
     ("rad_stage1_kernel", "K4 stage 1"), ("rad_stage2_kernel", "K4 stage 2"),
     ("rad_source_kernel", "K5"), ("rad_div_kernel", "K6"),
-    ("transverse_kernel", "K1"), ("face_kernel", "K2 faces"),
+    ("transverse_kernel", "K1"), ("lean_kernel", "K2c"), ("face_kernel", "K2 faces"),
     ("div_kernel", "K2 divergence"), ("apply_kernel", "K3"),
 )
 PLAIN = "plain torch"
@@ -81,6 +88,13 @@ def kernel_of(name: str) -> str:
 
 def _sync():
     torch.cuda.synchronize()
+
+
+def _release():
+    """Free what a profiled case left: reference cycles first (an AMR
+    hierarchy holds some), then the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -209,8 +223,30 @@ def profile_case(title: str, make_sim, reps: int, parts_of=_parts,
         print("  longest plain-torch kernels (ms): "
               + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top), flush=True)
     del sim
-    torch.cuda.empty_cache()
+    _release()
     return out
+
+
+def by_region_kernel(events, regions, reps: int) -> dict:
+    """{region: {kernel: mean device ms per repetition}} of a profiler
+    trace. A kernel belongs to the region during whose host time range it
+    started on the device: each region ends with a device sync, so what it
+    launched has run by then (the kernels launched through ctypes have no
+    ATen parent op to carry their time up to the region's event)."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == DeviceType.CPU and e.name in regions]
+    out = defaultdict(lambda: defaultdict(float))
+    for e in events:
+        # the regions' own device-side annotations are spans, not kernels
+        if e.device_type != DeviceType.CUDA or e.name in regions:
+            continue
+        for lo, hi, name in spans:
+            if lo <= e.time_range.start < hi:
+                out[name][kernel_of(e.name)] += e.time_range.elapsed_us() / 1e3 / reps
+                break
+    return {name: dict(kernels) for name, kernels in out.items()}
 
 
 AMR_REGIONS = ("regrid_L0", "hydro_L0", "rad_L0", "hydro_L1", "rad_L1", "reflux_L0",
@@ -245,7 +281,6 @@ def profile_amr(make_sim, reps: int) -> dict:
     that it starts with a regrid of level 1): its wall time, its device time
     by kernel and by the profiler regions `AMRSimulation` names (`AMR_REGIONS`,
     as the JAX package names them), and its idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from .utils.profiler import prof
@@ -274,27 +309,13 @@ def profile_amr(make_sim, reps: int) -> dict:
     # region wall times are the host clock with a device sync at each exit
     restore()
     prof.reset(enabled=True)
-    by_region = defaultdict(float)
     _sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
         for _ in range(reps):
             step()
         _sync()
-    # a kernel belongs to the region during whose host time range it started
-    # on the device: each region ends with a device sync, so what it launched
-    # has run by then (the kernels launched through ctypes have no ATen
-    # parent op to carry their time up to the region's event)
-    events = tp.events()
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.device_type == DeviceType.CPU and e.name in AMR_REGIONS]
-    for e in events:
-        # the regions' own device-side annotations are spans, not kernels
-        if e.device_type != DeviceType.CUDA or e.name in AMR_REGIONS:
-            continue
-        for lo, hi, name in spans:
-            if lo <= e.time_range.start < hi:
-                by_region[name] += e.time_range.elapsed_us() / 1e3 / reps
-                break
+    by_region = {name: sum(kernels.values())
+                 for name, kernels in by_region_kernel(tp.events(), AMR_REGIONS, reps).items()}
     region_wall = {name.split("/")[-1]: t * 1e3 / reps for name, t in prof._acc.items()}
     prof.reset(enabled=False)
     out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
@@ -310,7 +331,83 @@ def profile_amr(make_sim, reps: int) -> dict:
     print("  longest plain-torch kernels (ms): "
           + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in top), flush=True)
     del sim
-    torch.cuda.empty_cache()
+    _release()
+    return out
+
+
+def _timed_step(fn, reps: int) -> dict:
+    """Wall and device time, idle share and peak memory of `fn` (one hydro
+    step whose result is dropped): the peak is `max_memory_allocated`
+    over one call, the state it starts from included."""
+    _release()
+    _sync()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    _sync()
+    peak = torch.cuda.max_memory_allocated()
+    wall = wall_ms(fn, reps)
+    by_kernel, top = device_ms(fn, reps)
+    busy = sum(by_kernel.values())
+    return {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
+            "by_kernel": by_kernel, "top_plain": top, "peak_gib": peak / 2**30,
+            "held_gib": held / 2**30}
+
+
+def profile_lean(reps: int) -> dict:
+    """Sedov 512^3 f32 (`problems/sedov.py:DECK_512`, the JAX package's
+    bench.py:76-84) after one warm-up step, on the lean branch the dispatch
+    takes there: the step and its hydro half as `profile_case` times them,
+    the hydro half's device time by RK stage (the regions
+    `advance.LEAN_STAGES`) and kernel, and the peak memory of one
+    `advance_hydro_rk2` call. Then one step of `_advance_hydro_rk2_fused`
+    called directly on the same state, with its time and peak memory: a
+    measurement of what the lean form buys on this card, not a dispatch
+    option (above 272 the JAX package never runs the fused form)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import ParmParse, Simulation
+    from .hydro import advance
+    from .problems.sedov import DECK_512, SedovProblem
+    from .utils.profiler import prof
+
+    title = "Sedov 512^3 f32, lean step (K1 + K2c)"
+    out = profile_case(title, lambda: Simulation(
+        SedovProblem(), ParmParse.from_string(DECK_512, ["max_timesteps=1"]), device="cuda"),
+        reps)
+    sim = Simulation(SedovProblem(), ParmParse.from_string(DECK_512, ["max_timesteps=1"]),
+                     device="cuda")
+    sim.set_initial_conditions()
+    sim.evolve()  # the warm-up step
+    parts = _parts(sim)
+    prof.reset(enabled=True)
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        for _ in range(reps):
+            parts["hydro half"]()
+        _sync()
+    prof.reset(enabled=False)
+    out["hydro half by stage"] = by_region_kernel(tp.events(), advance.LEAN_STAGES, reps)
+    for stage, kernels in out["hydro half by stage"].items():
+        print(f"  {stage}: device {sum(kernels.values()):.3f} ms; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(kernels.items())))
+    gf = sim._ghost_free_config()
+    opts, U = sim.hydro_opts, sim.U
+    dt = torch.tensor(sim.dt_prev, dtype=U.dtype, device=U.device)
+    steps = {
+        "lean step": lambda: advance.advance_hydro_rk2(U, dt, opts, None, gf["ng"], sim.periodic,
+                                                       bc_kinds=gf["bc_kinds"]),
+        "fused step (called directly)": lambda: advance._advance_hydro_rk2_fused(
+            U, dt, opts, gf["ng"], sim.periodic, gf["bc_kinds"]),
+    }
+    for name, fn in steps.items():
+        out[name] = r = _timed_step(fn, reps)
+        kernels = ", ".join(f"{k} {v:.3f}" for k, v in sorted(r["by_kernel"].items()))
+        print(f"{name}: wall {r['wall_ms']:.3f} ms, device {r['device_ms']:.3f} ms, idle "
+              f"share {r['idle_share']:.3f}, peak {r['peak_gib']:.2f} GiB (state held "
+              f"{r['held_gib']:.2f}); by kernel (ms): {kernels}", flush=True)
+    del sim, U, steps
+    _release()
     return out
 
 
@@ -356,6 +453,7 @@ def main(argv=None) -> int:
         title, lambda: MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(
             mhd.DECK_256, ["max_timesteps=1"]), precision="single"),
         args.steps, _mhd_parts, _mhd_restorer, _MHD_STEPS)
+    result["Sedov 512^3 f32 lean"] = profile_lean(args.steps)
     from .amr import AMRSimulation
     from .problems import radhydro_shell
 

@@ -34,7 +34,7 @@ def test_kernels_match_plain(cuda_device, bc_name):
                                    0.2 / n):
         ok, max_abs, _ = kernel_check.compare(case.run_kernel(), case.run_plain())
         assert ok, (case.label, max_abs)
-    assert all(v > 0 for v in sweep.launch_counts.values())
+    assert all(sweep.launch_counts[k] > 0 for k in ("transverse", "axis_flux", "apply_update"))
     assert np.isfinite(max_abs)
 
 

@@ -125,7 +125,8 @@ def test_k3_apply(rough):
 def test_wrappers_reject_unported_options(case):
     with pytest.raises(NotImplementedError):
         sweep.compute_fluxes_pallas_div(case["U0"], case["opts"], case["bc"],
-                                        div_only=True)
+                                        div_only=True, accumulate=True,
+                                        corr_masks={d: torch.zeros(N, N, N) for d in range(3)})
     with pytest.raises(NotImplementedError):
         sweep.compute_axis_flux(case["U0"], 0, case["opts"], None, {},
                                 fo_mask=torch.zeros(N, N, N))
