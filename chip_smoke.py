@@ -13,11 +13,21 @@ the card:
   20 steps of the windowed loop through `MHDSimulation` (K8);
 - dense AMR: the radhydro shell at 256^3 + one level f32 (the JAX
   package's bench.py:192-207 deck, `run_amr_shell(sparse=False)`), one
-  warm-up coarse step and three timed ones through `AMRSimulation` (K1,
-  K2, K2d, K5, K7);
+  warm-up coarse step and one timed through `AMRSimulation` (K1, K2,
+  K2d, K5, K7);
 - lean hydro: 10 steps of Sedov 512^3 f32 (the JAX package's bench.py:76-84
   deck, `problems/sedov.py:DECK_512`) through `Simulation`, which the
-  dispatch sends to the lean step (K1, K2c).
+  dispatch sends to the lean step (K1, K2c);
+- packed AMR: the reference's AMR benchmark, the radhydro shell at 256^3 +
+  2 levels of packed 16^3-tile pools f32 (`problems/radhydro_shell.py:
+  DECK_256_PACKED`, the JAX package's bench.py:163-207 `run_amr_shell(
+  sparse=True)`, chunks of 512 tiles), one warm-up coarse step and one
+  timed: the root's seeded lean step (K1, K2e), the pool levels' batched
+  sweeps (K1, K2), K7, K5 and the row gathers (K9).
+
+Besides, phase 4 runs Sedov and Orszag-Tang 32^3 in float64 on the card
+(the classic formulation and K8's plain form, as the JAX package takes
+XLA) against the CPU, and the packed engine at 32^3 + 1 pool level.
 
 Run from the repository root:  python3 chip_smoke.py
 Phases print as they go; any failure exits non-zero. The last three lines
@@ -61,18 +71,29 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                       "quokka_tpu/radiation/pallas_sweep.py:53"),
     "axis_flux_lean": ("K2c compute_axis_flux div_only", "quokka_tpu_torch/csrc/sweep.cu",
                        "quokka_tpu/hydro/pallas_sweep.py:1148"),
+    "axis_flux_corr": ("K2e compute_axis_flux corr_mask", "quokka_tpu_torch/csrc/sweep.cu",
+                       "quokka_tpu/hydro/pallas_sweep.py:1148"),
+    "row_gather": ("K9 row_gather", "quokka_tpu_torch/csrc/row_gather.cu",
+                   "quokka_tpu/amr/packed.py:146"),
 }
 AMR_KEYS = ("transverse", "axis_flux", "axis_flux_avg", "rad_source", "rad_axis_flux")
 HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
 LEAN_KEYS = ("transverse", "axis_flux_lean")
+PACKED_KEYS = ("transverse", "axis_flux", "axis_flux_corr", "rad_source", "rad_axis_flux",
+               "row_gather")
 # the K2c launches of one clean lean stage: what its row's time sums
 LEAN_STAGE = ("K2c clean axis 0", "K2c acc axis 1", "K2c acc axis 2")
+# the K2e launches of one clean seeded stage at 256^3, likewise
+CORR_STAGE = ("K2e stage 1 axis 0", "K2e stage 1 acc axis 1", "K2e stage 1 acc axis 2")
 # bar of the MHD main path's max |div B| x dx, in float32 ulps of max |B_face|
 DIVB_ULPS = 32
 
 
+_T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n=== {name}", flush=True)
+    print(f"\n=== {name} (at {time.perf_counter() - _T_START:.1f} s)", flush=True)
 
 
 def rough_state(n, seed=7):
@@ -207,6 +228,58 @@ def gpu_vs_cpu(a, b, what, rtol, atol_frac, groups=None):
     return worst
 
 
+def _bump_problem():
+    """The hydro-only Gaussian bump of the JAX package's tests/test_packed_
+    engine.py, its root tagged on the middle half: at 32^3 + 1 packed level
+    its 2 x 2 x 2 tiles sit inside the domain and the root takes the seeded
+    lean step."""
+    import numpy as np
+    import torch
+
+    from quokka_tpu_torch.eos import IdealGasEOS
+    from quokka_tpu_torch.registry import BCSpec, EOSTraits, PhysicsTraits, Problem
+
+    class Bump(Problem):
+        name = "packed_bump_smoke"
+        physics = PhysicsTraits(hydro_enabled=True)
+        eos_traits = EOSTraits(gamma=1.4, mean_molecular_weight=1.0)
+        bcs = BCSpec()
+
+        def make_eos(self):
+            return IdealGasEOS(gamma=1.4)
+
+        def set_initial_conditions(self, grid, dtype=torch.float32, device="cuda"):
+            x, y, z = grid.cell_center_mesh(torch.float64, device)
+            r2 = (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2
+            U = torch.zeros((6, *grid.n_cell), dtype=torch.float64, device=device)
+            U[0] = 1.0 + 0.6 * torch.exp(-r2 / 0.01)
+            U[4] = U[5] = (1.0 + 0.4 * torch.exp(-r2 / 0.01)) / 0.4
+            return U.to(dtype)
+
+        def error_est(self, sim, level):
+            n = sim.level_grids[level].n_cell[0]
+            m = np.zeros(n, bool)
+            m[n // 4:3 * n // 4] = level == 0
+            return torch.as_tensor(m[:, None, None] & m[None, :, None] & m[None, None, :])
+
+    return Bump()
+
+
+BUMP_DECK = """
+geometry.prob_lo = 0. 0. 0.
+geometry.prob_hi = 1. 1. 1.
+amr.n_cell = 32 32 32
+amr.max_level = 1
+amr.sparse_min_level = 1
+amr.tile_size = 16 16 16
+amr.pool_packed = 1
+amr.pool_headroom = 1.02
+amr.n_error_buf = 0
+cfl = 0.3
+stop_time = 1.0e10
+"""
+
+
 def main() -> int:
     # the dense AMR path's transients at the fine level's 520^3 are GB-sized
     # and of many sizes: let the allocator grow segments instead of
@@ -238,6 +311,7 @@ def main() -> int:
     from quokka_tpu_torch import (MHDSimulation, ParmParse, PowerLawOpacity, Simulation,
                                   _cuda, kernel_check)
     from quokka_tpu_torch.amr import AMRSimulation
+    from quokka_tpu_torch.amr import packed as psweep
     from quokka_tpu_torch.benchmarks import (bench_amr_shell, bench_hydro, bench_mhd,
                                              bench_radhydro)
     from quokka_tpu_torch.boundaries import fill_ghosts
@@ -265,9 +339,11 @@ def main() -> int:
         sweep.reset_launch_counts()
         rsweep.reset_launch_counts()
         msweep.reset_launch_counts()
+        psweep.reset_launch_counts()
 
     def read_counts():
-        return {**sweep.launch_counts, **rsweep.launch_counts, **msweep.launch_counts}
+        return {**sweep.launch_counts, **rsweep.launch_counts, **msweep.launch_counts,
+                **psweep.launch_counts}
 
     # ---- 2. build
     phase("2. build")
@@ -280,7 +356,7 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "bytes": 0, "ops": 0} for k in KERNELS}
+                   "bytes": 0, "ops": 0, "library_ms": None} for k in KERNELS}
     failed = []
 
     # ---- 3. kernels against their plain versions, at the main paths' shapes
@@ -423,11 +499,11 @@ def main() -> int:
             failed.append(f"rough MHD state{tag}: an HLLD region or branch not taken")
     del rprim, rbxf
     # on the card mhd_rhs launches K8 or raises: `mhd.use_pallas = 0` still
-    # launches it, float64 and fewer than three active axes raise
+    # launches it, fewer than three active axes raise (float64 takes the
+    # plain form, as the JAX package takes XLA: phase 4 runs it)
     msweep.reset_launch_counts()
     for extra, cls, prec, want in (
             (["mhd.use_pallas=0"], mhd.OrszagTangProblem, "single", None),
-            ([], mhd.OrszagTangProblem, "double", TypeError),
             (["amr.n_cell=64 1 1"], mhd.BrioWuProblem, "single", NotImplementedError)):
         small = ParmParse.from_string(mhd.DECK_256, ["amr.n_cell=16 16 16", "max_timesteps=1"]
                                       + extra)
@@ -497,9 +573,9 @@ def main() -> int:
     del Ug0, Ug1, Rf, Ur
     release()
     # on the card compute_rad_fluxes launches K7 or raises: radiation.use_pallas
-    # = 0 still launches it (and K2d), a float64 AMR state raises TypeError
+    # = 0 still launches it (and K2d)
     for extra, prec, want in ((["radiation.use_pallas=0", "hydro.use_pallas=0"], "single",
-                               None), ([], "double", TypeError)):
+                               None),):
         reset_counts()
         small = ParmParse.from_string(radhydro_shell.DECK_256, [
             "amr.n_cell=16 16 16", "max_timesteps=1", "verbose=0", f"precision={prec}"]
@@ -521,9 +597,65 @@ def main() -> int:
             failed.append(f"AMR shell {extra}: K7 or K2d not launched")
     del sim
     release()
+    # packed AMR: K2e at the root's 256^3 with the boundary masks of the
+    # shell's level-1 coverage (both stages, the fo_from redo), K9 on a
+    # chunk's 64 x 26 neighbour rows of the level-1 hydro and radiation
+    # pools (the level-2 rows have the same shapes), and the batched K1/K2
+    # and K7 launches over that chunk's stage-1 blocks (36^3 hydro, 32^3
+    # radiation) against the per-block plain versions
+    pdeck = radhydro_shell.DECK_256_PACKED.replace("amr.max_level = 2", "amr.max_level = 1")
+    psim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
+                         ParmParse.from_string(pdeck, ["verbose=0"]))
+    psim.set_initial_conditions()
+    st1 = psim.level_pool[1]
+    bmasks = psim._root_seed_masks()
+    if bmasks is None:
+        raise SystemExit("the shell's level-1 coverage touches the domain edge at 256^3")
+    P0 = psim.level_U[0][:6].contiguous()
+    popts = psim.level_opts[0]
+    periodic3 = {0: None, 1: None, 2: None}
+    P1 = advance_hydro_rk2(P0, psim.compute_timestep(), dataclasses.replace(popts, rk_order=1),
+                           None, (0, 0, 0), (True,) * 3, bc_kinds=periodic3)[0]
+    run_cases(f"AMR root 256^3, the shell's level-1 boundary masks ({st1.meta.n_active} "
+              "tiles), K2e (timed: one clean seeded stage)",
+              kernel_check.corr_cases(P0, P1, popts, bmasks, seed=13),
+              lambda c: c.label in CORR_STAGE, summary, failed)
+    del P0, P1, bmasks
+    nbr_c = st1.meta.nbr_dev[:64]
+    rows = torch.clamp(nbr_c.reshape(-1), min=0)
+    gather_cases = list(kernel_check.gather_cases({"hydro rows": st1.Uh,
+                                                   "radiation rows": st1.Ur}, rows))
+
+    def bitwise(case, got, ref):
+        if case.kernel != "row_gather":
+            return ""
+        return " (bitwise)" if bool(torch.equal(got, ref)) else None
+
+    run_cases(f"K9, level-1 chunk of 64 x 26 neighbour rows (pools of {st1.meta.capacity} rows)",
+              gather_cases, lambda c: True, summary, failed, bitwise)
+    summary["row_gather"]["library_ms"] = sum(kernel_check.time_ms(c.run_plain)
+                                              for c in gather_cases)
+    w = psweep.donor_pad_width(psim._g)
+    th0 = torch.zeros((), dtype=torch.float32, device="cuda")
+    org_c = st1.meta.origin_dev[:64]
+    po_c = torch.zeros((64, 3), dtype=torch.int32, device="cuda")
+    blocks = []
+    for part, gf, pool in (("h", 10, st1.Uh), ("r", 8, st1.Ur)):
+        pad = psim._dense_pad_part(part, w)(psim.level_U[0])
+        bd = psweep.ParentContext("dense", (pad, pad)).backdrop(
+            None, org_c, po_c, th0, gf, psim._g, psim.tile_shape, (0, 1, 2)).contiguous()
+        blocks.append(psweep.assemble_chunk(pool, 0, 64, nbr_c, bd, gf, psim.tile_shape))
+        del pad, bd
+    run_cases("packed level-1 chunk 0: batched K1 + K2 faces and K7 vs per-block plain",
+              kernel_check.batched_cases(blocks[0], blocks[1], psim.level_opts[1],
+                                         psim._radiation.opts),
+              lambda c: False, summary, failed)
+    del psim, st1, blocks, gather_cases, rows, nbr_c
+    release()
     print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2, K2d, K6, K7 and K8 "
           "sum the three axes, K5 its two stages, K2c the three launches of a clean lean "
-          "stage at 512^3")
+          "stage at 512^3, K2e those of a clean seeded stage at 256^3, K9 its hydro and "
+          "radiation gathers")
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
@@ -624,12 +756,12 @@ def main() -> int:
                    f"{loop} loop GPU vs CPU", 3e-5, 3e-5,
                    groups=[[0], [1, 2, 3], [4], [5, 6, 7]])
 
-    print("-- AMR radhydro shell 32^3 + 1 level f32, 3 coarse steps (a regrid of "
-          "level 1 opens the third): GPU vs CPU, per level")
+    print("-- AMR radhydro shell 32^3 + 1 level f32, 2 coarse steps (regrid_interval 1: a "
+          "regrid of level 1 opens the second): GPU vs CPU, per level")
     amr_finals = {}
     for dev in ("cuda", "cpu"):
         small = ParmParse.from_string(radhydro_shell.DECK_256, [
-            "amr.n_cell=32 32 32", "max_timesteps=3", "verbose=0"])
+            "amr.n_cell=32 32 32", "max_timesteps=2", "regrid_interval=1", "verbose=0"])
         sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(), small, device=dev)
         sim.set_initial_conditions()
         sim.evolve()
@@ -644,6 +776,69 @@ def main() -> int:
     for lev, (a, b) in enumerate(zip(Ug_l, Uc_l)):
         gpu_vs_cpu(a, b, f"AMR level {lev} GPU vs CPU", 5e-6, 5e-6)
     del amr_finals, Ug_l, Uc_l
+
+    print("-- float64 on the card (the JAX package's XLA formulations): Sedov 32^3, 5 "
+          "steps, padded classic with reflecting walls; Orszag-Tang 32^3, 5 steps, K8's "
+          "plain form; GPU vs CPU within 1e-12 x each component's max")
+    f64 = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        small = ParmParse.from_file(str(DECK), overrides=[
+            "amr.n_cell=32 32 32", "max_timesteps=5", "verbose=0"])
+        sim = Simulation(SedovProblem(), small, device=dev, precision="double")
+        sim.set_initial_conditions()
+        sim.evolve()
+        mpp32 = ParmParse.from_string(mhd.DECK_256, ["amr.n_cell=32 32 32",
+                                                     "max_timesteps=5", "verbose=0"])
+        msim = MHDSimulation(mhd.OrszagTangProblem(), mpp32, precision="double", device=dev)
+        msim.set_initial_conditions()
+        msim.evolve()
+        f64[dev] = (sim.U.cpu(), torch.cat([msim.U, torch.stack(msim.Bf)]).cpu(),
+                    sum(read_counts().values()))
+        print(f"  {dev}: Sedov {sim.istep} steps t {sim.t:.9e}; Orszag-Tang {msim.istep} "
+              f"steps t {msim.t:.9e}; kernel launches {f64[dev][2]}")
+    gpu_vs_cpu(f64["cuda"][0], f64["cpu"][0], "Sedov f64 GPU vs CPU", 0.0, 1e-12)
+    gpu_vs_cpu(f64["cuda"][1], f64["cpu"][1], "Orszag-Tang f64 GPU vs CPU", 0.0, 1e-12,
+               groups=[[0], [1, 2, 3], [4], [5, 6, 7]])
+    if f64["cuda"][2] != 0:
+        raise SystemExit("a float64 run on the card launched a float32 kernel")
+    del f64, sim, msim
+
+    print("-- packed AMR, GPU vs CPU per level, equal tile sets and FOFC counts: the "
+          "hydro bump 32^3 + 1 packed level f32, 2 coarse steps (the seeded root, K2e); "
+          "the radhydro shell 32^3 + 1 packed level f32, 1 coarse step")
+    shell32 = radhydro_shell.DECK_256_PACKED.replace("256 256 256", "32 32 32").replace(
+        "amr.max_level = 2", "amr.max_level = 1")
+    for title, prob, deck, nsteps in (
+            ("bump", _bump_problem(), BUMP_DECK, 2),
+            ("shell", radhydro_shell.RadhydroShellProblem(), shell32, 1)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            sim = AMRSimulation(prob, ParmParse.from_string(deck, [
+                f"max_timesteps={nsteps}", "verbose=0", "amr.packed_chunk=8",
+                "amr.pool_chunk=8"]), device=dev, precision="single")
+            sim.set_initial_conditions()
+            sim.evolve()
+            st = sim.level_pool[1]
+            n = st.meta.n_active
+            runs[dev] = (sim.level_U[0].double().cpu(),
+                         torch.cat([st.Uh[:n], st.Ur[:n]], 1).double().cpu()
+                         if st.Ur is not None else st.Uh[:n].double().cpu(),
+                         st.meta.ijk[:n].copy(), sim.fofc_cells, sim.fofc_fallbacks)
+            counts = read_counts()
+            print(f"  {title} {dev}: {n} tiles, t {sim.t:.9e}, FOFC {sim.fofc_fallbacks} "
+                  f"fallbacks / {sim.fofc_cells} cells, launches K2e "
+                  f"{counts['axis_flux_corr']} K9 {counts['row_gather']} K2 "
+                  f"{counts['axis_flux']} K7 {counts['rad_axis_flux']}")
+        (Ug, Pg, ig, fg, bg), (Uc, Pc, ic, fc, bc_) = runs["cuda"], runs["cpu"]
+        if not (ig.shape == ic.shape and (ig == ic).all() and (fg, bg) == (fc, bc_)):
+            raise SystemExit(f"packed {title}: GPU and CPU tile sets or FOFC counts differ")
+        gpu_vs_cpu(Ug, Uc, f"packed {title} root GPU vs CPU", 5e-6, 5e-6)
+        gpu_vs_cpu(Pg.transpose(0, 1), Pc.transpose(0, 1), f"packed {title} level 1 GPU vs CPU",
+                   5e-6, 5e-6)
+        del runs, sim, st
+    release()
 
     # ---- 5. the hydro main path
     phase("5. main path 1: Sedov 256^3 f32, 10 steps, decks/benchmark_unigrid_256.in")
@@ -770,21 +965,21 @@ def main() -> int:
 
     # ---- 8. the dense AMR main path
     phase("8. main path 4: dense AMR radhydro shell 256^3 + 1 level f32, 1 warm-up and "
-          "3 timed coarse steps (bench.py:192-207 deck)")
+          "1 timed coarse step (bench.py:192-207 deck)")
     sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
                         ParmParse.from_string(radhydro_shell.DECK_256, ["verbose=1"]))
     print(f"held before the path: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     sim.set_initial_conditions()
-    mz_active, mz_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=3)
+    mz_active, mz_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=1)
     amr_launches = read_counts()
     rel = sim.conservation_rel_err
     finite = all(bool(torch.isfinite(sim.level_U[lev]).all())
                  for lev in range(sim.finest_level + 1))
     active = [sim._active_cells(lev) for lev in range(sim.finest_level + 1)]
     print(f"FOM: {mz_active:.3f} active Mzone-updates/s, raw {mz_raw:.3f} Mzone-updates/s "
-          f"(every cell of the dense levels), 3 coarse steps in {secs:.3f} s after 1, "
+          f"(every cell of the dense levels), 1 coarse step in {secs:.3f} s after 1, "
           f"t = {sim.t:.6e}, on {smi}")
     print(f"finest level {sim.finest_level}; active cells per level {active} of "
           f"{[g.num_cells for g in sim.level_grids[:sim.finest_level + 1]]}; "
@@ -795,7 +990,7 @@ def main() -> int:
     print(f"composite conservation: mass rel err {rel[0]:.3e}, gas energy rel err "
           f"{rel[4]:.3e}; finite states {finite}")
     print(f"launches in this path: " + ", ".join(f"{k} {amr_launches[k]}" for k in AMR_KEYS))
-    if sim.istep != 4 or sim.finest_level != 1 or not finite:
+    if sim.istep != 2 or sim.finest_level != 1 or not finite:
         raise SystemExit(f"AMR main path: {sim.istep} coarse steps, finest level "
                          f"{sim.finest_level}, finite states {finite}")
     if not abs(rel[0]) < 1e-5:
@@ -845,13 +1040,69 @@ def main() -> int:
     del bench
     release()
 
+    # ---- 10. the packed AMR main path
+    # chunks of CARD_PACKED_CHUNK (512) tiles where the deck, the JAX bench's,
+    # has 64: at 64 the host's launch rate bounds a coarse step, which this
+    # script's time cannot afford (radhydro_shell.CARD_PACKED_CHUNK)
+    phase("10. main path 6: the reference's AMR benchmark, radhydro shell 256^3 + 2 packed "
+          "16^3-tile pool levels f32, 1 warm-up and 1 timed coarse step (bench.py:163-207 "
+          "deck, DECK_256_PACKED, with amr.packed_chunk = 512)")
+    sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
+                        ParmParse.from_string(radhydro_shell.DECK_256_PACKED, [
+                            "verbose=1",
+                            f"amr.packed_chunk={radhydro_shell.CARD_PACKED_CHUNK}"]))
+    print(f"held before the path: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.set_initial_conditions()
+    torch.cuda.synchronize()
+    print(f"initial conditions and the two pool levels built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    reset_counts()
+    mz_packed, mz_packed_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=1)
+    packed_launches = read_counts()
+    rel = sim.conservation_rel_err
+    finite = bool(torch.isfinite(sim.level_U[0]).all()) and all(
+        bool(torch.isfinite(st.Uh[:st.meta.n_active]).all())
+        and bool(torch.isfinite(st.Ur[:st.meta.n_active]).all())
+        for st in sim.level_pool[1:sim.finest_level + 1])
+    print(f"FOM: {mz_packed:.3f} active Mzone-updates/s, raw {mz_packed_raw:.3f} "
+          f"Mzone-updates/s (the root's cells and the pools' tiles), 1 coarse step in "
+          f"{secs:.3f} s after 1, t = {sim.t:.6e}, on {smi} (the reference's 4 x V100 "
+          "figure: 4.95 Mzones/GPU/s)")
+    for lev in range(1, sim.finest_level + 1):
+        st = sim.level_pool[lev]
+        print(f"pool level {lev}: {st.meta.n_active} active tiles of capacity "
+              f"{st.meta.capacity}, {st.meta.active_cells} active cells, "
+              f"{st.nbytes() / 2**30:.2f} GiB of rows")
+    print(f"finest level {sim.finest_level}; FOFC stage fallbacks {sim.fofc_fallbacks}, "
+          f"invalid cells {sim.fofc_cells}")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved")
+    print(f"composite conservation: mass rel err {rel[0]:.3e}, gas energy rel err "
+          f"{rel[4]:.3e}; finite states {finite}")
+    print("launches in this path: " + ", ".join(f"{k} {packed_launches[k]}"
+                                                 for k in PACKED_KEYS))
+    if sim.istep != 2 or sim.finest_level != 2 or not finite:
+        raise SystemExit(f"packed AMR main path: {sim.istep} coarse steps, finest level "
+                         f"{sim.finest_level}, finite states {finite}")
+    if not abs(rel[0]) < 1e-5:
+        raise SystemExit(f"packed AMR composite mass conservation error {rel[0]:.3e} >= 1e-5")
+    missing = [k for k in PACKED_KEYS if packed_launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the packed AMR path: {missing}")
+    del sim
+    release()
+
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():
         s = summary[key]
         _, bound_by = kernel_check.bound_ms(s["bytes"], s["ops"])
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": (lean_launches[key] if key == "axis_flux_lean" else
+                     "launches": (packed_launches[key] if key in ("axis_flux_corr",
+                                                                  "row_gather") else
+                                  lean_launches[key] if key == "axis_flux_lean" else
                                   amr_launches[key] if key in ("axis_flux_avg",
                                                                "rad_axis_flux") else
                                   sedov_launches[key] if key in HYDRO_KEYS else
@@ -859,7 +1110,7 @@ def main() -> int:
                                   rad_launches[key]),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by, "library_ms": s["library_ms"]})
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -35,12 +35,12 @@ build_info: dict = {}
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "qk_transverse": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
+    "qk_transverse": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                       _F, _F, _F, _F, _I, _P],
-    "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
+    "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _F, _F, _F, _F, _I, _P],
-    "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I,
-                     _F, _F, _I, _F, _F, _F, _F, _I, _P],
+    "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
+                     _I, _I, _F, _F, _I, _I, _F, _F, _F, _F, _I, _P],
     "qk_axis_div": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                     _I, _I, _F, _P],
     "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
@@ -48,11 +48,12 @@ _SIGNATURES = {
     # radiation kernels: the last pointer before the stream is a host
     # `RadParams` (radiation/sweep.py), copied into the launch by value
     "qk_rad_div": [_P, _P, _L, _L, _L, _I, _P, _P],
-    "qk_rad_axis_flux": [_P, _P, _L, _L, _L, _I, _P, _P],
+    "qk_rad_axis_flux": [_P, _P, _L, _L, _L, _L, _I, _P, _P],
     "qk_rad_source": [_P, _P, _P, _L, _F, _I, _P, _P],
     "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_rad_stage2": [_P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_mhd_axis": [_P, _P, _P, _L, _L, _L, _I, _I, _F, _F, _F, _F, _F, _P],
+    "qk_row_gather": [_P, _P, _P, _L, _L, _L, _P, _P],
 }
 
 

@@ -30,10 +30,21 @@ levels advance. The JAX package's `evolve` adds the root's cells a second
 time each coarse step (its base loop and the level step both count them);
 the port counts each level step once.
 
-Not ported (NotImplementedError naming the key): tile-pool levels
-(`amr.sparse_min_level`), `amr.pool_packed`, `do_subcycle = 0`, gravity,
-particles, Strang-split sources (cooling, chemistry), domain decomposition,
-restart, plotfiles and checkpoints; periodic boundaries only.
+Levels from `amr.sparse_min_level` up are packed tile pools
+(`amr.pool_packed = 1`, `packed_driver`): fixed-shape tiles in row pools,
+advanced chunk by chunk with the fused single-pass RK2 and the streamed
+radiation subcycle, their ghosts gathered by K9. With a packed child the
+root takes the lean hydro step seeded in the kernels (K2e): its sweeps emit
+the flux-register correction of the coarse-fine boundary faces beside the
+update, so no root face array exists (`_root_seed_masks`; fine coverage
+that touches the domain edge falls back to the padded root step).
+
+Not ported (NotImplementedError naming the key): unpacked tile pools
+(`amr.sparse_min_level` with `amr.pool_packed = 0`), `do_subcycle = 0`,
+gravity, particles, Strang-split sources (cooling, chemistry), domain
+decomposition, restart, plotfiles and checkpoints; periodic boundaries
+only. `amr.sync_dispatch`, the JAX package's dispatch throttle, is read
+and has no effect.
 """
 
 from __future__ import annotations
@@ -74,14 +85,13 @@ class AMRSimulation(Simulation):
         self.regrid_interval = pp.get_int("regrid_interval", 2)
         self.do_reflux = bool(pp.get_int("do_reflux", 1))
         self.do_subcycle = bool(pp.get_int("do_subcycle", 1))
-        sparse_min = pp.get_int("amr.sparse_min_level", 10**9)
-        if sparse_min <= self.max_level:
-            raise NotImplementedError(
-                f"deck key 'amr.sparse_min_level' = {sparse_min}: tile-pool levels "
-                "are not ported yet (dense levels only)")
-        if pp.get_int("amr.pool_packed", 0):
-            raise NotImplementedError("deck key 'amr.pool_packed' = 1: the packed pool "
-                                      "engine is not ported yet")
+        self.sparse_min_level = pp.get_int("amr.sparse_min_level", 10**9)
+        self.tile_shape = tuple(int(x) for x in pp.get_list("amr.tile_size", [32, 32, 32]))
+        self.pool_chunk = pp.get_int("amr.pool_chunk", 0)
+        self.pool_packed = bool(pp.get_int("amr.pool_packed", 0))
+        self.sync_dispatch = bool(pp.get_int("amr.sync_dispatch", int(self.pool_packed)))
+        self.packed_chunk = pp.get_int("amr.packed_chunk", max(self.pool_chunk, 32))
+        self.pool_headroom = pp.get_float("amr.pool_headroom", 1.5)
         if not self.do_subcycle and self.max_level > 0:
             raise NotImplementedError("deck key 'do_subcycle' = 0: global stepping "
                                       "of the levels is not ported yet")
@@ -96,13 +106,39 @@ class AMRSimulation(Simulation):
             g = self.level_grids[-1].refine(2)
             self.level_grids.append(g)
             self.level_opts.append(dataclasses.replace(self.hydro_opts, dx=g.dx))
+        if self.sparse_min_level <= self.max_level:
+            self._check_pool_config()
         self.level_U: List[Optional[torch.Tensor]] = [None] * (self.max_level + 1)
         self.level_mask: List[Optional[torch.Tensor]] = [None] * (self.max_level + 1)
         self.level_steps = [0] * (self.max_level + 1)
+        self.level_pool = [None] * (self.max_level + 1)
         self.finest_level = 0
         self._level_rad = {}
+        self._pool_rad = {}
         self._active_cell_cache = {}
         self._fofc_cells_dev = None
+        self._root_bmasks = None
+
+    def _check_pool_config(self):
+        """The pool keys' rules (`quokka_tpu/amr/hierarchy.py:111-149`)."""
+        smin = self.sparse_min_level
+        if smin < 1:
+            raise ValueError("amr.sparse_min_level must be >= 1 (level 0 is always dense)")
+        if not self.pool_packed:
+            raise NotImplementedError(
+                f"deck key 'amr.sparse_min_level' = {smin} with 'amr.pool_packed' = 0: "
+                "unpacked tile pools are not ported (set amr.pool_packed = 1)")
+        for d in range(3):
+            ns = self.level_grids[smin].n_cell[d]
+            if self.tile_shape[d] % 2 or ns % self.tile_shape[d]:
+                raise ValueError(f"amr.tile_size {self.tile_shape} must be even and divide "
+                                 f"the level-{smin} extent {self.level_grids[smin].n_cell}")
+        if min(self.tile_shape) < 2 * self.ng[0] + 2:
+            raise ValueError(f"amr.pool_packed needs tile_size >= 2*nghost+2 = "
+                             f"{2 * self.ng[0] + 2} (fused stage-1 halos)")
+        if smin != 1 or self.max_level - smin > 1:
+            raise NotImplementedError("amr.pool_packed supports amr.sparse_min_level = 1 "
+                                      "and at most two packed levels (dense grandparent)")
 
     # ------------------------------------------------------------------ setup
     def set_initial_conditions(self):
@@ -130,6 +166,100 @@ class AMRSimulation(Simulation):
         b = Uc_new if comps is None else Uc_new[:comps]
         return (1.0 - theta) * a + theta * b
 
+    def _count_fofc(self, n_dev, fallbacks: int):
+        """Add a level step's FOFC cells (a device count, read once at the
+        end of evolve) and fallbacks."""
+        self.fofc_fallbacks += fallbacks
+        self._fofc_cells_dev = (n_dev if self._fofc_cells_dev is None
+                                else self._fofc_cells_dev + n_dev)
+
+    # ------------------------------------------------------- pool levels
+    def _is_pool(self, l: int) -> bool:
+        return 0 < self.sparse_min_level <= l
+
+    @property
+    def _g(self) -> int:
+        return self.ng[0]
+
+    def _dense_pad_part(self, part: str, width: int):
+        """The ghost fill of one component part of a dense level, "h" the
+        hydro block or "r" the radiation block: the packed engine reads the
+        parent pads split (`quokka_tpu/amr/hierarchy.py:1413-1458`)."""
+        nh = self.layout.nvar_hydro
+        sl = slice(0, nh) if part == "h" else slice(nh, self.layout.nvar)
+        return lambda U: fill_ghosts(U[sl], (width,) * 3, self.problem.bcs)
+
+    def _get_pool_rad(self, l: int):
+        if l not in self._pool_rad:
+            from ..radiation.pool import PoolLevelRadiation
+
+            self._pool_rad[l] = PoolLevelRadiation(self, l, self.level_grids[l])
+        return self._pool_rad[l]
+
+    def _rad_fixup_pool(self, U):
+        """`_rad_fixup` on a pool [T, nvar, ...]."""
+        if not self.layout.radiation_enabled or self._radiation is None:
+            return U
+        rs, G = self.layout.rad_start, self.layout.n_groups
+        floor = self._radiation.opts.erad_floor
+        out = U.clone()
+        for g in range(G):
+            out[:, rs + 4 * g] = torch.clamp(U[:, rs + 4 * g], min=floor)
+        return out
+
+    def _pool_child_reflux_dense(self, l: int, corr_crse, F_fine_pool_sum: dict,
+                                 dt_c: float):
+        """Dense level l refluxed against its packed child: the child's
+        restricted tile faces assembled into dense face arrays, turned into
+        the fine side of the correction and applied against the seeded
+        coarse side."""
+        from .sparse import fine_faces_to_dense
+
+        st = self.level_pool[l + 1]
+        F_dense = fine_faces_to_dense(F_fine_pool_sum, st.meta, tuple(self.ng))
+        mask_fine = st.coverage_dense()
+        corr_f = self._reflux_corr(l, F_dense, mask_fine, dt_c)
+        del F_dense
+        self._reflux_apply(l, corr_crse, corr_f, mask_fine)
+
+    # ------------------------------------------- seeded root step (packed)
+    def _root_seeded_eligible(self) -> bool:
+        """The root takes the lean step with in-kernel register seeding
+        (K2e) when its child is packed: f32, refluxed, all periodic
+        (`quokka_tpu/amr/hierarchy.py:366-380`)."""
+        return (self.pool_packed and self.do_reflux and self.dtype == torch.float32
+                and all(self.periodic))
+
+    def _root_seed_masks(self):
+        """Per-axis coarse-fine boundary-face masks of level 1's coverage on
+        the root (slot f the lo face of cell f), rebuilt once per regrid
+        epoch; None when the coverage touches the domain edge (the padded
+        root step runs there). One host read a rebuild."""
+        st = self.level_pool[1] if self._is_pool(1) else None
+        epoch = st.meta.epoch if st is not None else int(self.level_steps[0])
+        if self._root_bmasks is not None and self._root_bmasks[0] == epoch:
+            return self._root_bmasks[1]
+        mask_fine = st.coverage_dense() if st is not None else self.level_mask[1]
+        cmask = ops.restrict_mask_any(mask_fine, self.grid.active_axes)
+        bms = {d: (cmask != sh(cmask, -1, d)).to(self.dtype).contiguous() for d in range(3)}
+        edge = torch.stack([cmask.select(d, 0).any() | cmask.select(d, cmask.shape[d] - 1).any()
+                            for d in range(3)]).any()
+        masks = None if bool(edge) else bms
+        self._root_bmasks = (epoch, masks)
+        return masks
+
+    def _hydro_step_seeded(self, U, dt: float, bms: dict):
+        """The root's hydro substep in the lean formulation with the flux
+        register seeded in the kernels (`_get_root_seeded_step`). Returns
+        (U_new, the coarse-side register correction dt * reflux_corr)."""
+        nh = self.layout.nvar_hydro
+        Uh_new, stats = advance_hydro_rk2(U[:nh], dt, self.level_opts[0], None, (0, 0, 0),
+                                          (True,) * 3, bc_kinds={0: None, 1: None, 2: None},
+                                          reflux_corr_masks=bms)
+        U_new = torch.cat([Uh_new, U[nh:]]) if nh < U.shape[0] else Uh_new
+        self._count_fofc(stats["n_fofc"], stats["fofc_fallbacks"])
+        return U_new, dt * stats["reflux_corr"]
+
     def _hydro_step(self, l: int, U, dt: float, theta=None):
         """One hydro substep of level l (the JAX `_get_level_step`): the
         padded RK2 advance of the gas block returning its time-averaged face
@@ -155,9 +285,7 @@ class AMRSimulation(Simulation):
                                           return_fluxes=True)
         U_new = torch.cat([Uh_new, U[nh:]]) if nh < U.shape[0] else Uh_new
         del Uh_new
-        self.fofc_fallbacks += stats["fofc_fallbacks"]
-        n = stats["n_fofc"]
-        self._fofc_cells_dev = n if self._fofc_cells_dev is None else self._fofc_cells_dev + n
+        self._count_fofc(stats["n_fofc"], stats["fofc_fallbacks"])
         if l > 0:
             U_new = torch.where(mask[None], U_new, ops.prolong(
                 self._lerp(Uc_old, Uc_new, th2), self.grid.active_axes))
@@ -250,10 +378,72 @@ class AMRSimulation(Simulation):
             U, opts.eos, opts.density_floor, opts.temperature_floor, opts.n_scalars)
 
     # ---------------------------------------------------------------- regrid
+    def _regrid_pool_level(self, l: int) -> bool:
+        """(Re)build packed level l+1 from the tags of level l (dense or
+        packed), keeping the nesting of an existing grandchild
+        (`quokka_tpu/amr/hierarchy.py:780-870`). Host reads: the tags."""
+        from . import packed_driver as pd
+        from . import tilepool as tp
+
+        ts = self.tile_shape
+        active = self.grid.active_axes
+        child_shape = self.level_grids[l + 1].n_cell
+        if self._is_pool(l):
+            octs = pd.octant_tags_packed(self, l)
+            meta_l = self.level_pool[l].meta
+            tiles = [(2 * int(meta_l.ijk[s, 0]) + a, 2 * int(meta_l.ijk[s, 1]) + b,
+                      2 * int(meta_l.ijk[s, 2]) + c)
+                     for s in range(meta_l.n_active)
+                     for a in range(2) for b in range(2) for c in range(2) if octs[s, a, b, c]]
+        else:
+            tags = self.problem.error_est(self, l)
+            if tags is None:
+                return self.finest_level > l
+            tags = ops.dilate(torch.as_tensor(tags, dtype=torch.bool, device=self.device),
+                              self.n_error_buf, active, self.periodic)
+            TX, TY, TZ = (child_shape[d] // ts[d] for d in range(3))
+            blocks = tags.reshape(TX, ts[0] // 2, TY, ts[1] // 2, TZ, ts[2] // 2)
+            blocks = blocks.any(dim=5).any(dim=3).any(dim=1)
+            tiles = [tuple(int(v) for v in t) for t in np.argwhere(blocks.cpu().numpy())]
+        # the nesting: existing grandchild tiles pin their parent tiles until
+        # the grandchild's own regrid
+        if l + 2 <= self.max_level and self.level_pool[l + 2] is not None:
+            gc_meta = self.level_pool[l + 2].meta
+            pins = {tuple(int(v) // 2 for v in gc_meta.ijk[s]) for s in range(gc_meta.n_active)}
+            tiles = sorted(set(tiles) | pins)
+        self._active_cell_cache.pop(l + 1, None)
+        if not tiles:
+            self.finest_level = min(self.finest_level, l)
+            self.level_pool[l + 1] = None
+            if self._is_pool(l):
+                self.level_pool[l].child_slots = None
+            return False
+        old = self.level_pool[l + 1]
+        hr = self.pool_headroom
+        cap = (old.meta.grow_capacity(len(tiles), headroom=hr) if old is not None
+               else max(8, int(np.ceil(len(tiles) * hr))))
+        c = max(self.pool_chunk, self.packed_chunk)
+        cap = ((cap + c - 1) // c) * c
+        meta = tp.TileMeta.build(child_shape, ts, tiles, self.periodic, capacity=cap,
+                                 device=self.device)
+        self.level_pool[l + 1] = pd.build_packed_level(self, l, meta, old)
+        del old
+        if l + 2 <= self.max_level and self.level_pool[l + 2] is not None:
+            gc = self.level_pool[l + 2]
+            gc.parent_slot, gc.parent_off = tp.parent_linkage(gc.meta, meta, self.device)
+            self.level_pool[l + 1].child_slots = tp.child_linkage(meta, gc.meta, self.device)
+        if self._is_pool(l):
+            self.level_pool[l].child_slots = tp.child_linkage(self.level_pool[l].meta, meta,
+                                                              self.device)
+        self.finest_level = max(self.finest_level, l + 1)
+        return True
+
     def _regrid_level(self, l: int) -> bool:
         """(Re)build level l+1 from the error tags of level l. Returns True if
         level l+1 exists afterwards. One host sync: the new level's active
         cell count."""
+        if self._is_pool(l + 1):
+            return self._regrid_pool_level(l)
         tags = self.problem.error_est(self, l)
         if tags is None:
             return self.finest_level > l
@@ -300,11 +490,16 @@ class AMRSimulation(Simulation):
             if self.layout.radiation_enabled and self._radiation is not None:
                 ropts = self._radiation.opts
                 dt0 = min(dt0, fac * (ropts.max_substeps * ropts.cfl * dx_min / ropts.chat))
-            sig = euler.max_signal_speed(self.level_U[l][:nh], self.level_opts[l].eos)
-            if l > 0:
-                sig = torch.where(self.level_mask[l], sig, 0.0)
-            smax = sig.max()
-            del sig
+            if self._is_pool(l):
+                from .packed_driver import packed_max_signal
+
+                smax = packed_max_signal(self, l)
+            else:
+                sig = euler.max_signal_speed(self.level_U[l][:nh], self.level_opts[l].eos)
+                if l > 0:
+                    sig = torch.where(self.level_mask[l], sig, 0.0)
+                smax = sig.max()
+                del sig
             num = torch.tensor(fac * self.cfl * dx_min, dtype=smax.dtype,
                                device=smax.device)
             parts.append(torch.where(smax > 0, num / smax, torch.inf))
@@ -325,7 +520,9 @@ class AMRSimulation(Simulation):
         finite, restore the pre-step hierarchy and redo the coarse step as
         2^k substeps of dt / 2^k. The stash holds references only: no level
         tensor is ever written in place."""
-        max_retries = 6
+        # packed levels keep no pre-step copy (the JAX package's packed mode
+        # aborts instead of retrying, `hierarchy.py:1049-1055`)
+        max_retries = 0 if self.pool_packed else 6
         saved = (list(self.level_U), list(self.level_mask), list(self.level_steps),
                  self.finest_level, dict(self._active_cell_cache))
         for retry in range(max_retries + 1):
@@ -363,8 +560,18 @@ class AMRSimulation(Simulation):
         if l > 0:
             theta1 = (t_level - self._parent_t) / self._parent_dt
             theta = (theta1, theta1 + dt_l / self._parent_dt)
+        # with a packed child the root steps lean and its kernels seed the
+        # flux register (K2e): no face array at all
+        bms = None
+        if l == 0 and l < self.finest_level and self._root_seeded_eligible():
+            bms = self._root_seed_masks()
+        seeded = None
         with prof.region(f"hydro_L{l}"):
-            U_new, fluxes = self._hydro_step(l, U_old, dt_l, theta)
+            if bms is not None:
+                U_new, seeded = self._hydro_step_seeded(U_old, dt_l, bms)
+                fluxes = None
+            else:
+                U_new, fluxes = self._hydro_step(l, U_old, dt_l, theta)
             prof.sync(U_new)
 
         # the coarse side of the flux register, at once (the root's
@@ -373,11 +580,14 @@ class AMRSimulation(Simulation):
         # fluxes after it: masking, restriction and seeding act on each
         # component alone, so the parts joined give what the whole would
         want_seed = l < self.finest_level and self.do_reflux
+        child_pool = l < self.finest_level and self._is_pool(l + 1)
         seed_corr = seed_mask = restricted_for_parent = None
         if want_seed:
-            seed_mask = self.level_mask[l + 1]
+            seed_mask = (self.level_pool[l + 1].coverage_dense() if child_pool
+                         else self.level_mask[l + 1])
         if want_seed and l == 0:
-            seed_corr = self._reflux_corr(l, fluxes, seed_mask, dt_l)
+            seed_corr = (seeded if seeded is not None
+                         else self._reflux_corr(l, fluxes, seed_mask, dt_l))
         elif l > 0:
             restricted_for_parent, seed_corr = self._publish(l, fluxes, seed_mask, dt_l)
         del fluxes
@@ -432,14 +642,31 @@ class AMRSimulation(Simulation):
 
         if l < self.finest_level:
             saved = tuple(getattr(self, a, None) for a in (
-                "_parent_U_old", "_parent_U_new", "_parent_t", "_parent_dt"))
+                "_parent_U_old", "_parent_U_new", "_parent_t", "_parent_dt",
+                "_parent_ctx"))
             self._parent_U_old, self._parent_U_new = U_old, U_new
             self._parent_t, self._parent_dt = t_level, dt_l
+            if child_pool:
+                # the packed child reads the parent's hydro and radiation
+                # pads split, at the (2g+2)-deep backdrops' donor width
+                from .packed import donor_pad_width
+
+                w = donor_pad_width(self._g)
+                ph = self._dense_pad_part("h", w)
+                pr = self._dense_pad_part("r", w) if self.layout.radiation_enabled else None
+                self._parent_ctx = ("dense", (ph(U_old), ph(U_new),
+                                              pr(U_old) if pr else None,
+                                              pr(U_new) if pr else None))
             del U_old, U_new
             w = 0.5
             fine_flux_sum = None
             for i in range(2):
-                self._timestep_with_subcycling(l + 1, t_level + i * dt_l * w, dt_l * w)
+                if child_pool:
+                    from .packed_driver import timestep_pool_packed
+
+                    timestep_pool_packed(self, l + 1, t_level + i * dt_l * w, dt_l * w)
+                else:
+                    self._timestep_with_subcycling(l + 1, t_level + i * dt_l * w, dt_l * w)
                 ff = self._last_restricted_fluxes
                 self._last_restricted_fluxes = None
                 if fine_flux_sum is None:
@@ -448,15 +675,24 @@ class AMRSimulation(Simulation):
                     fine_flux_sum = {d: fine_flux_sum[d] + w * ff[d] for d in ff}
                 del ff
             (self._parent_U_old, self._parent_U_new,
-             self._parent_t, self._parent_dt) = saved
+             self._parent_t, self._parent_dt, self._parent_ctx) = saved
             if self.do_reflux:
                 with prof.region(f"reflux_L{l}"):
-                    corr_f = self._reflux_corr(l, fine_flux_sum, seed_mask, dt_l)
-                    self._reflux_apply(l, seed_corr, corr_f, seed_mask)
-                    del corr_f, seed_corr
+                    if child_pool:
+                        self._pool_child_reflux_dense(l, seed_corr, fine_flux_sum, dt_l)
+                    else:
+                        corr_f = self._reflux_corr(l, fine_flux_sum, seed_mask, dt_l)
+                        self._reflux_apply(l, seed_corr, corr_f, seed_mask)
+                        del corr_f
+                    del seed_corr
                     prof.sync(self.level_U[l])
             with prof.region(f"avgdown_L{l}"):
-                self._average_down(l)
+                if child_pool:
+                    from .packed_driver import avgdown_packed_into_dense
+
+                    avgdown_packed_into_dense(self, l)
+                else:
+                    self._average_down(l)
                 prof.sync(self.level_U[l])
         if l > 0:
             self._last_restricted_fluxes = restricted_for_parent
@@ -466,6 +702,8 @@ class AMRSimulation(Simulation):
         """Active (mask = True) cells of level l, counted once per regrid."""
         if l == 0:
             return self.level_grids[0].num_cells
+        if self._is_pool(l):
+            return self.level_pool[l].meta.active_cells
         c = self._active_cell_cache.get(l)
         if c is None:
             c = int(self.level_mask[l].sum())
@@ -478,13 +716,19 @@ class AMRSimulation(Simulation):
         total = None
         active = self.grid.active_axes
         for l in range(self.finest_level + 1):
-            w = self.level_mask[l]
-            if l < self.finest_level:
-                w = w & torch.logical_not(ops.restrict_mask_any(self.level_mask[l + 1],
-                                                                active))
-            part = (torch.where(w[None], self.level_U[l], 0.0)
-                    .sum(dim=(1, 2, 3), dtype=torch.float64)
-                    * self.level_grids[l].cell_volume())
+            if self._is_pool(l):
+                from .packed_driver import packed_level_sums
+
+                part = packed_level_sums(self, l)
+            else:
+                w = self.level_mask[l]
+                if l < self.finest_level:
+                    covered = (self.level_pool[l + 1].coverage_dense() if self._is_pool(l + 1)
+                               else self.level_mask[l + 1])
+                    w = w & torch.logical_not(ops.restrict_mask_any(covered, active))
+                part = (torch.where(w[None], self.level_U[l], 0.0)
+                        .sum(dim=(1, 2, 3), dtype=torch.float64)
+                        * self.level_grids[l].cell_volume())
             total = part if total is None else total + part
         return total.cpu().numpy()
 

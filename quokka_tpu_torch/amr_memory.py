@@ -1,10 +1,14 @@
-"""Peak device memory of the dense AMR main path, with the caching
-allocator's default segments and with expandable segments.
+"""Peak device memory of an AMR main path, with the caching allocator's
+default segments and with expandable segments.
 
-The main path is `chip_smoke.py`'s: the radhydro shell
+The main paths are `chip_smoke.py`'s: the dense one, the radhydro shell
 (``problems/radhydro_shell.py:DECK_256``, 256^3 + one dense level, f32)
 through `AMRSimulation` and `benchmarks.bench_amr_shell` (one warm-up and
-three timed coarse steps). PyTorch reads ``PYTORCH_CUDA_ALLOC_CONF`` when
+three timed coarse steps); and, with ``--packed``, the reference's AMR
+benchmark (``DECK_256_PACKED``, 256^3 + 2 packed pool levels, chunks of
+``CARD_PACKED_CHUNK`` tiles, one warm-up and one timed coarse step).
+
+PyTorch reads ``PYTORCH_CUDA_ALLOC_CONF`` when
 CUDA starts, so each setting runs in a process of its own: first with the
 variable unset (the allocator's default), then with
 ``expandable_segments:True``. Each run reports its peak allocated and peak
@@ -13,7 +17,7 @@ reserved bytes (``torch.cuda.max_memory_allocated`` /
 
 Run from the repository root on a CUDA machine:
 
-    python3 -m quokka_tpu_torch.amr_memory
+    python3 -m quokka_tpu_torch.amr_memory [--packed]
 
 The last line of the output is one JSON object with both runs.
 """
@@ -29,7 +33,7 @@ SETTINGS = (None, "expandable_segments:True")
 GIB = 2**30
 
 
-def run_one() -> dict:
+def run_one(packed: bool = False) -> dict:
     """The main path in this process, under whatever allocator setting it
     started with."""
     import torch
@@ -39,13 +43,18 @@ def run_one() -> dict:
     from .benchmarks import bench_amr_shell
     from .problems import radhydro_shell
 
-    out = {"alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    out = {"alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+           "path": "packed" if packed else "dense"}
     torch.cuda.reset_peak_memory_stats()
+    deck, extra = radhydro_shell.DECK_256, ["verbose=0"]
+    if packed:
+        deck = radhydro_shell.DECK_256_PACKED
+        extra.append(f"amr.packed_chunk={radhydro_shell.CARD_PACKED_CHUNK}")
     try:
         sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
-                            ParmParse.from_string(radhydro_shell.DECK_256, ["verbose=0"]))
+                            ParmParse.from_string(deck, extra))
         sim.set_initial_conditions()
-        active, raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=3)
+        active, raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=1 if packed else 3)
         out.update(ok=True, coarse_steps=sim.istep, finest_level=sim.finest_level,
                    mzones_active=active, mzones_raw=raw, seconds=secs)
     except torch.cuda.OutOfMemoryError as e:
@@ -58,8 +67,9 @@ def run_one() -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv == ["--one"]:
-        print(json.dumps(run_one()), flush=True)
+    packed = "--packed" in argv
+    if "--one" in argv:
+        print(json.dumps(run_one(packed)), flush=True)
         return 0
     import torch
 
@@ -75,8 +85,9 @@ def main(argv=None) -> int:
         env.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         if conf is not None:
             env["PYTORCH_CUDA_ALLOC_CONF"] = conf
-        proc = subprocess.run([sys.executable, "-m", "quokka_tpu_torch.amr_memory", "--one"],
-                              env=env, capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, "-m", "quokka_tpu_torch.amr_memory", "--one"]
+                              + (["--packed"] if packed else []),
+                              env=env, capture_output=True, text=True, timeout=1800)
         lines = proc.stdout.strip().splitlines()
         if proc.returncode != 0 or not lines:
             raise SystemExit(f"the run with PYTORCH_CUDA_ALLOC_CONF={conf} failed "

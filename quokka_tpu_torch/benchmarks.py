@@ -32,7 +32,7 @@ def build_step_runner(sim):
     def step(U, dt_prev):
         smax = euler.max_signal_speed(U, opts.eos).max()
         dt = torch.minimum(cfl * dx_min / smax, 1.1 * dt_prev)
-        U_new, _stats = advance_hydro_rk2(U, dt, opts, None, gf["ng"],
+        U_new, _stats = advance_hydro_rk2(U, dt, opts, gf["fill"], gf["ng"],
                                           sim.periodic, bc_kinds=gf["bc_kinds"])
         return U_new, dt
 
@@ -128,13 +128,26 @@ def bench_mhd(sim, n_warmup: int = 2, n_steps: int = 10):
     return (sim.cell_updates - n0) / elapsed / 1e6, elapsed
 
 
-def bench_amr_shell(sim, n_warmup: int = 1, n_steps: int = 3):
+def bench_amr_shell(sim=None, n_warmup: int = 1, n_steps: int = 3, *,
+                    sparse: bool = False):
     """Time `n_steps` coarse steps of an `AMRSimulation` after `n_warmup`,
     counted as the JAX package's bench counts them (`bench.py:228-258`):
     `evolve()` for the warm-up steps, then `evolve()` for the timed ones,
     the figure being the active zone-updates of the timed steps over their
     wall time. Returns (active Mzone-updates/s, raw Mzone-updates/s, s):
-    the raw figure counts every cell the dense levels advance."""
+    the raw figure counts every cell the levels advance (a dense level's
+    whole extent, a pool level's tiles). Without `sim`, the radhydro shell
+    of the JAX package's `run_amr_shell(sparse=...)` on the card: 256^3 + 1
+    dense level (`DECK_256`), or with `sparse` 256^3 + 2 packed pool
+    levels (`DECK_256_PACKED`, the reference's AMR benchmark)."""
+    if sim is None:
+        from .amr import AMRSimulation
+        from .config import ParmParse
+        from .problems import radhydro_shell
+
+        deck = radhydro_shell.DECK_256_PACKED if sparse else radhydro_shell.DECK_256
+        sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
+                            ParmParse.from_string(deck, ["verbose=0"]))
     if sim.level_U[0] is None:
         sim.set_initial_conditions()
     sim.max_timesteps = sim.istep + n_warmup

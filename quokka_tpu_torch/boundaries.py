@@ -2,17 +2,18 @@
 
 Counterpart of `quokka_tpu.boundaries.fill_ghosts` (reference
 `fillBoundaryConditions`, ``src/simulation.hpp:1706-1789``) for what the
-dense-level AMR path pads: periodic axes. The padded tensor is allocated
-once and the ghost slabs are copied axis by axis (x, then y over the
-x-padded extent, then z), which gives the edge and corner ghosts the values
-the JAX package's per-axis concatenation gives them.
+port pads: periodic axes (the dense AMR levels) and reflecting walls (the
+classic float64 hydro step, as the JAX package pads it). The padded tensor
+is allocated once and the ghost slabs are copied axis by axis (x, then y
+over the x-padded extent, then z), which gives the edge and corner ghosts
+the values the JAX package's per-axis concatenation gives them.
 
-Periodic padding needs no state layout (the JAX package's layout argument
-names the components a wall reflection flips), so the radiation fills pass
-the 4G radiation components alone. Reflecting, outflow, user and NSCBC
-boundaries raise NotImplementedError: the unigrid port assembles its walls
-inside the kernels (ghost-free stepping), and no padded path of the port
-meets a wall yet.
+Periodic padding needs no state layout, so the radiation fills pass the 4G
+radiation components alone. A reflecting wall mirrors the interior and
+flips the sign of the normal momentum: it pads a hydro block (the JAX
+package's `_odd_components` of the hydro layout; the port's radiation
+refuses walls). Outflow, user and NSCBC boundaries raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,17 +22,19 @@ from typing import Sequence
 
 import torch
 
-from .registry import BC_PERIODIC, BCSpec
+from .indices import MX1
+from .registry import BC_PERIODIC, BC_REFLECT, BCSpec
 
 
 def fill_ghosts(U: torch.Tensor, ng: Sequence[int], bcs: BCSpec) -> torch.Tensor:
     """Pad U[nvar, nx, ny, nz] with `ng` ghosts per axis, filled according
-    to `bcs`. Returns a new contiguous tensor."""
+    to `bcs` (a reflecting wall flips the normal momentum MX1 + axis).
+    Returns a new contiguous tensor."""
     for d in range(3):
-        if ng[d] > 0 and bcs.axis(d) != (BC_PERIODIC, BC_PERIODIC):
+        if ng[d] > 0 and any(k not in (BC_PERIODIC, BC_REFLECT) for k in bcs.axis(d)):
             raise NotImplementedError(
-                f"fill_ghosts: axis {d} boundary {bcs.axis(d)}: only periodic "
-                "padding is ported (walls are assembled in the kernels)")
+                f"fill_ghosts: axis {d} boundary {bcs.axis(d)}: only periodic and "
+                "reflecting walls are ported")
     nv, *n = U.shape
     g = list(ng)
     if any(g[d] > n[d] for d in range(3)):
@@ -51,6 +54,16 @@ def fill_ghosts(U: torch.Tensor, ng: Sequence[int], bcs: BCSpec) -> torch.Tensor
             s[1 + d] = slice(lo, hi)
             return tuple(s)
 
-        out[at(0, g[d])] = out[at(n[d], n[d] + g[d])]
-        out[at(n[d] + g[d], n[d] + 2 * g[d])] = out[at(g[d], 2 * g[d])]
+        lo_kind, hi_kind = bcs.axis(d)
+        lo_src = (at(g[d], 2 * g[d]) if lo_kind == BC_REFLECT
+                  else at(n[d], n[d] + g[d]))
+        hi_src = (at(n[d], n[d] + g[d]) if hi_kind == BC_REFLECT
+                  else at(g[d], 2 * g[d]))
+        out[at(0, g[d])] = out[lo_src]
+        out[at(n[d] + g[d], n[d] + 2 * g[d])] = out[hi_src]
+        for side, kind in ((at(0, g[d]), lo_kind), (at(n[d] + g[d], n[d] + 2 * g[d]), hi_kind)):
+            if kind == BC_REFLECT:
+                slab = out[side].flip(1 + d)
+                slab[MX1 + d] = -slab[MX1 + d]
+                out[side] = slab
     return out

@@ -16,6 +16,9 @@
 // arithmetic is K6's (rad_common.cuh), with the face flux written out
 // instead of differenced.
 //
+// Batched: blockIdx.y picks a block of a [B, 4, X, Y, Z] chunk (the packed
+// AMR engine's ghost-padded radiation tiles, one launch a chunk and axis).
+//
 // Layout: the input is the radiation block of a ghost-padded level. The
 // padded array wraps periodically in index space, exactly as the JAX
 // kernel's in-block rolls do; the wrap reaches ghost faces only, which the
@@ -52,6 +55,11 @@ __global__ void rad_axis_flux_kernel(const float* __restrict__ R,
                                      float* __restrict__ flux, int64_t X,
                                      int64_t Y, int64_t Z, RadParams p) {
   const int64_t ncell = X * Y * Z;
+  {  // batch index: block b of a [B, 4, X, Y, Z] chunk (B = 1 unbatched)
+    const int64_t b = blockIdx.y;
+    R += b * 4 * ncell;
+    flux += b * 4 * ncell;
+  }
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= ncell) return;
   const int64_t dims[3] = {X, Y, Z};
@@ -89,10 +97,12 @@ __global__ void rad_axis_flux_kernel(const float* __restrict__ R,
 }  // namespace qk
 
 extern "C" int qk_rad_axis_flux(const float* R, float* flux, long long X,
-                                long long Y, long long Z, int axis,
-                                const qk::RadParams* p, void* stream) {
+                                long long Y, long long Z, long long nbatch,
+                                int axis, const qk::RadParams* p,
+                                void* stream) {
   const int64_t ncell = (int64_t)X * Y * Z;
-  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
+  const dim3 blocks((unsigned)((ncell + qk::THREADS - 1) / qk::THREADS),
+                    (unsigned)nbatch);
   auto kernel = axis == 0 ? qk::rad_axis_flux_kernel<0>
                 : (axis == 1 ? qk::rad_axis_flux_kernel<1>
                              : qk::rad_axis_flux_kernel<2>);

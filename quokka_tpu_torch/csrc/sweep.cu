@@ -44,6 +44,25 @@
 // arithmetic of the K2 face kernel, ~1200 FP32 operations a cell, which at
 // 67 TFLOP/s is 2.4 ms at 512^3: still below the byte bound.
 //
+// K2e (corr_mask / corr_acc, the AMR root's in-kernel flux-register seed,
+// pallas_sweep.py:811-880, corr formula :623-633 and :1085-1090, output
+// alias :1146-1147): the lean kernel also writes
+//   corr[c] (+)= (m_lo F_lo - m_hi F_hi) / dx,
+// m the per-axis coarse-fine boundary-face mask (slot f = the lo face of
+// cell f, as the JAX kernel's bnd_blk), from the very blended faces that
+// feed div, so the register stays consistent with the update in every FOFC
+// branch; with corr_accumulate the thread adds onto its own cell of the
+// accumulator in place (the aliased output). Ghost-free periodic axes only,
+// as the JAX kernel refuses walls (:811-814). Its bound is bytes: one more
+// [X, Y, Z] mask row read and six corr rows written (and read with the
+// accumulator), on top of K2c's traffic; the arithmetic adds 12 selects
+// and 6 divisions a cell.
+//
+// Batched face kernel: the packed AMR engine sweeps a chunk of ghost-padded
+// tile blocks [B, 6, X, Y, Z] at once (the JAX package vmaps its flux
+// function over them); blockIdx.y picks the block, so a chunk is one launch
+// an axis, not one a tile. Periodic (padded, roll semantics) blocks only.
+//
 // Why two kernels and not one thread computing faces i and i+1: that would
 // solve every Riemann problem twice, and HLLC is most of the FP32 work; the
 // face-array round trip costs (6+1) x 4 B written and read per cell, which
@@ -303,6 +322,15 @@ __global__ void face_kernel(const float* __restrict__ Q,
                             float* __restrict__ vel_hi, int64_t X, int64_t Y,
                             int64_t Z, int lo, int hi, int is_cons,
                             int first_order, float K_visc, Eos e) {
+  {  // batch index: block b of a [B, 6, X, Y, Z] chunk (B = 1 unbatched)
+    const int64_t b = blockIdx.y, nc = X * Y * Z;
+    Q += b * NV * nc;
+    F += b * NV * nc;
+    vel += b * nc;
+    if (chi != nullptr) chi += b * nc;
+    if (dminv != nullptr) dminv += b * nc;
+    if (dminw != nullptr) dminw += b * nc;
+  }
   const int64_t dims[3] = {X, Y, Z};
   const int64_t n = dims[axis];
   const bool wall = lo != BC_PERIODIC;
@@ -429,9 +457,11 @@ __global__ void lean_kernel(const float* __restrict__ Q,
                             const float* __restrict__ dminw,
                             const float* __restrict__ mask,
                             const float* __restrict__ fo, float* div,
-                            float* dvel, int64_t X, int64_t Y, int64_t Z,
+                            float* dvel, const float* __restrict__ cmask,
+                            float* corr, int64_t X, int64_t Y, int64_t Z,
                             int lo, int hi, int is_cons, int first_order,
-                            float K_visc, float dx, int accumulate, Eos e) {
+                            float K_visc, float dx, int accumulate,
+                            int corr_accumulate, Eos e) {
   const int64_t ncell = X * Y * Z;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= ncell) return;
@@ -468,6 +498,18 @@ __global__ void lean_kernel(const float* __restrict__ Q,
   float dv = (v[1] - v[0]) / dx;
   if (accumulate) dv = dvel[idx] + dv;
   dvel[idx] = dv;
+  if (corr != nullptr) {  // K2e: the boundary-masked divergence
+    const bool m_lo = load_field(cmask, base, stride, c, n, lo, hi) > 0.5f;
+    const bool m_hi = load_field(cmask, base, stride, c + 1, n, lo, hi) > 0.5f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const float a = m_lo ? F[0][k] : 0.0f;
+      const float b = m_hi ? F[1][k] : 0.0f;
+      float d = (a - b) / dx;
+      if (corr_accumulate) d = corr[k * ncell + idx] + d;
+      corr[k * ncell + idx] = d;
+    }
+  }
 }
 
 }  // namespace qk
@@ -475,27 +517,29 @@ __global__ void lean_kernel(const float* __restrict__ Q,
 extern "C" int qk_axis_lean(const float* Q, const float* chi,
                             const float* dminv, const float* dminw,
                             const float* mask, const float* fo, float* div,
-                            float* dvel, long long X, long long Y, long long Z,
+                            float* dvel, const float* cmask, float* corr,
+                            long long X, long long Y, long long Z,
                             int axis, int lo, int hi, int is_cons,
                             int first_order, float K_visc, float dx,
-                            int accumulate, float gamma, float gm1,
-                            float inv_gm1, float s_n, int reconstruct_eint,
-                            void* stream) {
+                            int accumulate, int corr_accumulate, float gamma,
+                            float gm1, float inv_gm1, float s_n,
+                            int reconstruct_eint, void* stream) {
   const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
   const int64_t ncell = (int64_t)X * Y * Z;
   const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
   auto kernel = axis == 0 ? qk::lean_kernel<0>
                 : (axis == 1 ? qk::lean_kernel<1> : qk::lean_kernel<2>);
   kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      Q, chi, dminv, dminw, mask, fo, div, dvel, X, Y, Z, lo, hi, is_cons,
-      first_order, K_visc, dx, accumulate, e);
+      Q, chi, dminv, dminw, mask, fo, div, dvel, cmask, corr, X, Y, Z, lo, hi,
+      is_cons, first_order, K_visc, dx, accumulate, corr_accumulate, e);
   return (int)cudaGetLastError();
 }
 
 extern "C" int qk_axis_flux(const float* Q, const float* chi,
                             const float* dminv, const float* dminw, float* F,
                             float* vel, float* F_hi, float* vel_hi, long long X,
-                            long long Y, long long Z, int axis, int lo, int hi,
+                            long long Y, long long Z, long long nbatch,
+                            int axis, int lo, int hi,
                             int is_cons, int first_order, float K_visc,
                             float gamma, float gm1, float inv_gm1, float s_n,
                             int reconstruct_eint, void* stream) {
@@ -503,7 +547,8 @@ extern "C" int qk_axis_flux(const float* Q, const float* chi,
   int64_t ext[3] = {X, Y, Z};
   if (lo != qk::BC_PERIODIC) ext[axis] += 1;
   const int64_t total = ext[0] * ext[1] * ext[2];
-  const unsigned blocks = (unsigned)((total + qk::THREADS - 1) / qk::THREADS);
+  const dim3 blocks((unsigned)((total + qk::THREADS - 1) / qk::THREADS),
+                    (unsigned)nbatch);
   auto kernel = axis == 0 ? qk::face_kernel<0>
                 : (axis == 1 ? qk::face_kernel<1> : qk::face_kernel<2>);
   kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(

@@ -9,6 +9,9 @@
 // The caller folds chi_cell = min over axes of m3_t in PyTorch, as the JAX
 // package does in XLA.
 //
+// Batched: blockIdx.y picks a block of a [B, 6, X, Y, Z] chunk (the packed
+// AMR engine's ghost-padded tiles, one launch a chunk and axis).
+//
 // Design: one thread per cell, z fastest, so a warp reads 32 consecutive
 // z cells whatever the sweep axis, and every load of the +-3 stencil is
 // coalesced. Wall ghosts are never stored: each stencil read goes through
@@ -58,6 +61,13 @@ __global__ void transverse_kernel(const float* __restrict__ U,
                                   int64_t Y, int64_t Z, int lo, int hi,
                                   int is_cons, int do_chi, Eos e) {
   const int64_t ncell = X * Y * Z;
+  {  // batch index: block b of a [B, 6, X, Y, Z] chunk (B = 1 unbatched)
+    const int64_t b = blockIdx.y;
+    U += b * NV * ncell;
+    dmin += b * ncell;
+    if (m3 != nullptr) m3 += b * ncell;
+    if (chi != nullptr) chi += b * ncell;
+  }
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= ncell) return;
   int64_t co[3];
@@ -91,12 +101,14 @@ __global__ void transverse_kernel(const float* __restrict__ U,
 
 extern "C" int qk_transverse(const float* U, float* dmin, float* m3,
                              float* chi, long long X, long long Y, long long Z,
-                             int axis, int lo, int hi, int is_cons, int do_chi,
+                             long long nbatch, int axis, int lo, int hi,
+                             int is_cons, int do_chi,
                              float gamma, float gm1, float inv_gm1, float s_n,
                              int reconstruct_eint, void* stream) {
   const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
   const int64_t ncell = (int64_t)X * Y * Z;
-  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
+  const dim3 blocks((unsigned)((ncell + qk::THREADS - 1) / qk::THREADS),
+                    (unsigned)nbatch);
   auto kernel = axis == 0 ? qk::transverse_kernel<0>
                 : (axis == 1 ? qk::transverse_kernel<1> : qk::transverse_kernel<2>);
   kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(

@@ -1,23 +1,33 @@
 """Hydro level advance: RK2-SSP with the first-order flux correction (FOFC).
 
-Counterpart of `quokka_tpu.hydro.advance` for the kernel-fused divergence
-path (`_advance_hydro_rk2_fused`, reference ``src/QuokkaSimulation.hpp:
-1033-1325``): per stage, K1 (transverse fields) and K2 (one sweep per axis,
-emitting flux divergences; stage 2 averages with stage 1's faces) feed K3,
-which applies the update pointwise, counts invalid cells and applies the
-floors and the dual-energy sync. A ghost-padded level (the AMR path) runs
-the same sweeps on its padded state, K2d in stage 2 when the flux
-registers need the time-averaged face fluxes, and applies the update in
-plain torch as the JAX package does there. Above 272 cells an axis a
-ghost-free step takes the lean formulation (`_advance_hydro_rk2_lean`,
-K1 + K2c), as the JAX dispatch does: the sweeps emit only divergence
-totals, the FOFC blend happens in the kernel, and the update is applied in
-plain torch.
+Counterpart of `quokka_tpu.hydro.advance`, with the JAX package's three
+formulations and its dispatch (`_branch`):
 
-The FOFC fallback is a Python `if` on K3's invalid count, where the JAX
+- the kernel-fused divergence path (`_advance_hydro_rk2_fused`, reference
+  ``src/QuokkaSimulation.hpp:1033-1325``): per stage, K1 (transverse
+  fields) and K2 (one sweep per axis, emitting flux divergences; stage 2
+  averages with stage 1's faces) feed K3, which applies the update
+  pointwise, counts invalid cells and applies the floors and the
+  dual-energy sync. A ghost-padded level (the AMR path) runs the same
+  sweeps on its padded state, K2d in stage 2 when the flux registers need
+  the time-averaged face fluxes, and applies the update in plain torch as
+  the JAX package does there;
+- the lean formulation (`_advance_hydro_rk2_lean`, K1 + K2c) above 272
+  cells an axis, and at any extent when the AMR root seeds its flux
+  register in the kernels (K2e): the sweeps emit only divergence totals,
+  the FOFC blend happens in the kernel, and the update is applied in
+  plain torch;
+- the classic flux formulation (`_advance_hydro_rk2_classic`, `rk2_stage`)
+  where the JAX package runs XLA: any float64 state, f32 above 1088 cells
+  an axis, with ``QUOKKA_PALLAS_LEAN=0`` above 272, and `rk_order` 1 above
+  272. Its face fluxes come from `compute_fluxes`: K1 + K2's face mode for
+  an f32 state, the plain sweep for any other dtype (on the card too), as
+  the JAX package sends f64 to XLA.
+
+The FOFC fallback is a Python `if` on the invalid count, where the JAX
 package has a `lax.cond`: one host sync per stage. The fallback rebuilds
 the classic flux formulation with the first-order (donor-cell + LLF)
-fluxes of K2 on every face adjacent to an invalid cell (reference
+fluxes on every face adjacent to an invalid cell (reference
 `replaceFluxes`, ``src/QuokkaSimulation.hpp:1325-1369``).
 """
 
@@ -69,14 +79,24 @@ class HydroOptions:
 
 def compute_fluxes(Ug, opts: HydroOptions, first_order: bool = False,
                    bc_kinds: dict | None = None):
-    """All-axis face fluxes through the K1/K2 sweep (`first_order=True`: the
-    donor-cell + LLF backup fluxes of FOFC). With `bc_kinds` the state is
-    unpadded and the return is (fluxes, facevels, flux_hi, vel_hi); without,
-    the state is ghost-padded (roll semantics; the wrap reaches ghost faces
-    only) and the return is (fluxes, facevels)."""
+    """All-axis face fluxes (`first_order=True`: the donor-cell + LLF backup
+    fluxes of FOFC). With `bc_kinds` the state is unpadded and the return is
+    (fluxes, facevels, flux_hi, vel_hi); without, the state is ghost-padded
+    (roll semantics; the wrap reaches ghost faces only) and the return is
+    (fluxes, facevels).
+
+    An f32 state takes the K1/K2 sweep (on the card the kernels or an
+    error); any other dtype takes the plain sweep on its own device, as the
+    JAX package's `compute_fluxes` sends non-f32 states to XLA
+    (`quokka_tpu/hydro/advance.py:280-313`), and refuses ghost-free
+    stepping as it does."""
     if len(opts.active_axes) != 3:
         raise NotImplementedError("compute_fluxes: only 3D stepping is ported")
-    return compute_fluxes_pallas(Ug, opts, first_order, bc_kinds)
+    plain = Ug.dtype != torch.float32
+    if plain and bc_kinds is not None:
+        raise ValueError("ghost-free stepping (bc_kinds) requires the kernel sweep "
+                         f"(float32, 3D); got {Ug.dtype}")
+    return compute_fluxes_pallas(Ug, opts, first_order, bc_kinds, plain=plain)
 
 
 def _last_idx(n: int, ax: int, device) -> torch.Tensor:
@@ -180,6 +200,41 @@ def _blend_fofc(fluxes, facevels, fo_fluxes, fo_facevels, mask_p, opts,
             new_fh[d] = torch.where(flag_hi[None], fo_flux_hi[d], flux_hi[d])
             new_vh[d] = torch.where(flag_hi, fo_vel_hi[d], vel_hi[d])
     return new_f, new_v, new_fh, new_vh
+
+
+def rk2_stage(U0_int, Ug_old, fluxes: dict, facevels: dict, fo_fluxes_fn, dt, ng,
+              periodic, opts: HydroOptions, bc_kinds: dict | None = None,
+              flux_hi: dict | None = None, vel_hi: dict | None = None):
+    """One flux-application stage with masked FOFC (`quokka_tpu/hydro/
+    advance.py:464-567`): U_new = U0 + dt rhs(fluxes); where that leaves an
+    invalid cell, the fluxes of every adjacent face are replaced by the
+    first-order ones (`fo_fluxes_fn()`, computed only then) and the update
+    is applied again. The JAX `lax.cond` is a Python `if` on one host read.
+
+    Returns (U_new interior, final fluxes, final facevels, n_fofc), plus
+    the final hi-wall planes (flux_hi, vel_hi) when ghost-free (`bc_kinds`)."""
+    ghost_free = bc_kinds is not None
+
+    def apply(fl, fv, redo_mask, fl_hi=None, fv_hi=None):
+        rhs = rhs_from_fluxes(fl, opts, fl_hi)
+        rhs = add_internal_energy_pdv(rhs, Ug_old, fv, opts, redo_mask, vel_hi=fv_hi,
+                                      bc_kinds=bc_kinds)
+        return U0_int + dt * interior(rhs, ng)
+
+    U1 = apply(fluxes, facevels, None, flux_hi, vel_hi)
+    redo = torch.logical_not(euler.is_state_valid(U1, opts.eos))
+    n_redo = redo.sum()
+    if not bool(n_redo > 0):  # host sync
+        return ((U1, fluxes, facevels, n_redo)
+                + ((flux_hi or {}, vel_hi or {}) if ghost_free else ()))
+    fo = fo_fluxes_fn()
+    mask_p = _pad_mask(redo, ng, periodic)
+    if ghost_free:
+        fl2, fv2, flh2, fvh2 = _blend_fofc(fluxes, facevels, fo[0], fo[1], mask_p, opts,
+                                           bc_kinds, (flux_hi, vel_hi, fo[2], fo[3]))
+        return apply(fl2, fv2, mask_p, flh2, fvh2), fl2, fv2, n_redo, flh2, fvh2
+    fl2, fv2, _, _ = _blend_fofc(fluxes, facevels, fo[0], fo[1], mask_p, opts, {}, ())
+    return apply(fl2, fv2, mask_p), fl2, fv2, n_redo
 
 
 def _apply_from_divs(U0_int, Ug_old, div, dvel, dt, ng, opts: HydroOptions,
@@ -287,7 +342,8 @@ LEAN_MAX_EXTENT = 1088
 LEAN_STAGES = ("lean_stage1", "lean_stage2")
 
 
-def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: dict):
+def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: dict,
+                            corr_masks: dict | None = None):
     """RK2-SSP step in the lean divergence formulation (`quokka_tpu/hydro/
     advance.py:925-1078`), the JAX package's path for unigrid steps above
     272 cells an axis. K2c emits only accumulated divergence totals, so no
@@ -304,6 +360,15 @@ def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: d
       first-order fluxes of G2 come from U1 itself, at or below from U0
       (`fo_from`), as the JAX step does.
 
+    With `corr_masks` ({axis: [X, Y, Z] 0/1 coarse-fine boundary-face
+    mask}, the AMR root's flux-register seeding, `quokka_tpu/hydro/
+    advance.py:936-1077`) every sweep is K2e: it also emits the divergence
+    of the boundary-masked blended fluxes, chained over the axes and, in
+    stage 2, onto stage 1's (`corr_init`); ``stats["reflux_corr"]`` is the
+    time-averaged seed 0.5 (corr1 + corr2) (stage 1's alone with
+    `rk_order` 1), so the register uses the very fluxes of the update in
+    every FOFC branch.
+
     The FOFC checks are a Python `if` on one host read a stage, where the
     JAX package has a `lax.cond`. Returns (U_new, stats) with ``n_fofc``
     (invalid cells of the two try states, a 0-d tensor) and
@@ -312,10 +377,11 @@ def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: d
     dtype = U.dtype
     Ug0 = U
 
-    def sweeps(Ug, fo_mask=None, fo_from=None, acc_init=None):
+    def sweeps(Ug, fo_mask=None, fo_from=None, acc_init=None, corr_init=None):
         return compute_fluxes_pallas_div(Ug, opts, bc_kinds, accumulate=True,
                                          div_only=True, fo_mask=fo_mask,
-                                         fo_from=fo_from, acc_init=acc_init)
+                                         fo_from=fo_from, acc_init=acc_init,
+                                         corr_masks=corr_masks, corr_init=corr_init)
 
     with prof.region(LEAN_STAGES[0]):
         r1 = sweeps(Ug0)
@@ -327,48 +393,61 @@ def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: d
         if fired1:
             del U1_try, r1
             rb = sweeps(Ug0, fo_mask=m1b.to(dtype))
-            div1, dvel1 = rb["div"], rb["dvel"]
+            div1, dvel1, corr1 = rb["div"], rb["dvel"], rb.get("corr")
             U1 = finalize(_apply_from_divs(U, Ug0, div1, dvel1, dt, ng, opts,
                                            redo_mask=m1b, bc_kinds=bc_kinds), opts)
             del rb
         else:
             U1 = finalize(U1_try, opts)
-            div1, dvel1 = r1["div"], r1["dvel"]
+            div1, dvel1, corr1 = r1["div"], r1["dvel"], r1.get("corr")
             del U1_try, r1
     if opts.rk_order == 1:
-        return U1, {"n_fofc": n1, "fofc_fallbacks": int(fired1)}
+        stats1 = {"n_fofc": n1, "fofc_fallbacks": int(fired1)}
+        if corr_masks is not None:
+            stats1["reflux_corr"] = corr1
+        return U1, stats1
 
     # ---- stage 2: the averaged divergences, added onto stage 1's totals
     with prof.region(LEAN_STAGES[1]):
         Ug1 = U1
-        r2 = sweeps(Ug1, acc_init=(div1, dvel1))
-        del div1, dvel1
+        r2 = sweeps(Ug1, acc_init=(div1, dvel1), corr_init=corr1)
+        del div1, dvel1, corr1
         U2_try = _apply_from_divs(U, Ug0, r2["div"], r2["dvel"], 0.5 * dt, ng, opts,
                                   consume=True)
+        corr2t = r2.get("corr")
         del r2
         redo2 = torch.logical_not(euler.is_state_valid(U2_try, eos))
         n2 = redo2.sum()
         stats = {"n_fofc": n1 + n2, "fofc_fallbacks": int(fired1)}
         if not bool(n2 > 0):  # host sync
-            return finalize(U2_try, opts), stats
-
-        # fallback: G1 = blend(F(U0), fo(U0), m1 | m2), then G2 = blend(F(U1),
-        # fo, m2) chained onto it; 0.5 (G1 + G2) is the blended average
-        del U2_try
-        stats["fofc_fallbacks"] += 1
-        m2b = _pad_mask(redo2, ng, periodic)
-        g1 = sweeps(Ug0, fo_mask=(m1b | m2b).to(dtype))
-        acc = (g1["div"], g1["dvel"])
-        del g1
-        if max(U.shape[1:]) > LEAN_MIN_EXTENT:
-            # quokka_tpu/hydro/advance.py:1041-1057: first order from U1
-            g2 = sweeps(Ug1, fo_mask=m2b.to(dtype), acc_init=acc)
+            U2 = finalize(U2_try, opts)
         else:
-            g2 = sweeps(Ug1, fo_mask=m2b.to(dtype), fo_from=Ug0, acc_init=acc)
-        del acc
-        U2 = _apply_from_divs(U, Ug0, g2["div"], g2["dvel"], 0.5 * dt, ng, opts,
-                              consume=True, redo_mask=m2b, bc_kinds=bc_kinds)
-        return finalize(U2, opts), stats
+            # fallback: G1 = blend(F(U0), fo(U0), m1 | m2), then G2 =
+            # blend(F(U1), fo, m2) chained onto it; 0.5 (G1 + G2) is the
+            # blended average
+            del U2_try, corr2t
+            stats["fofc_fallbacks"] += 1
+            m2b = _pad_mask(redo2, ng, periodic)
+            g1 = sweeps(Ug0, fo_mask=(m1b | m2b).to(dtype))
+            acc, corr_g1 = (g1["div"], g1["dvel"]), g1.get("corr")
+            del g1
+            if max(U.shape[1:]) > LEAN_MIN_EXTENT:
+                # quokka_tpu/hydro/advance.py:1041-1057: first order from U1
+                g2 = sweeps(Ug1, fo_mask=m2b.to(dtype), acc_init=acc, corr_init=corr_g1)
+            else:
+                g2 = sweeps(Ug1, fo_mask=m2b.to(dtype), fo_from=Ug0, acc_init=acc,
+                            corr_init=corr_g1)
+            del acc, corr_g1
+            corr2t = g2.get("corr")
+            U2 = finalize(_apply_from_divs(U, Ug0, g2["div"], g2["dvel"], 0.5 * dt, ng,
+                                           opts, consume=True, redo_mask=m2b,
+                                           bc_kinds=bc_kinds), opts)
+            del g2
+        if corr_masks is not None:
+            # corr2t = corr1 + corr2 (chained); the register takes the
+            # time-averaged seed
+            stats["reflux_corr"] = 0.5 * corr2t
+        return U2, stats
 
 
 def _padded_sweeps(Ug, opts: HydroOptions, r1: dict | None = None,
@@ -516,6 +595,72 @@ def _advance_hydro_rk2_padded(U, dt, opts: HydroOptions, fill_fn, ng, periodic,
     return finalize(U2a, opts), stats
 
 
+def _advance_hydro_rk2_classic(U, dt, opts: HydroOptions, fill_fn, ng, periodic,
+                               fill_fn2=None, return_fluxes: bool = False,
+                               bc_kinds: dict | None = None):
+    """RK2-SSP step in the classic flux formulation (`quokka_tpu/hydro/
+    advance.py:1182-1243`): the face fluxes of each stage, `rk2_stage` for
+    the update and its FOFC, stage 2 on the time-averaged fluxes. Padded
+    (`fill_fn` pads, `bc_kinds` None) or ghost-free (`bc_kinds`, the state
+    unpadded, the hi-wall planes carried beside the face arrays). Returns
+    (U_new, stats) with ``n_fofc``, ``fofc_fallbacks`` and, with
+    `return_fluxes`, ``fluxes`` (stage 1's with `rk_order` 1, else the
+    final averaged ones)."""
+    eos = opts.eos
+    ghost_free = bc_kinds is not None
+    if fill_fn2 is None:
+        fill_fn2 = fill_fn
+
+    def lim(Ux):
+        return finalize(Ux, opts)
+
+    Ug0 = fill_fn(U)
+
+    def fo_fluxes_fn():
+        return compute_fluxes(Ug0, opts, first_order=True, bc_kinds=bc_kinds)
+
+    fallbacks = 0
+    if ghost_free:
+        fl, fv, flh, fvh = compute_fluxes(Ug0, opts, bc_kinds=bc_kinds)
+        U1, fl1, fv1, n1, flh1, fvh1 = rk2_stage(U, Ug0, fl, fv, fo_fluxes_fn, dt, ng,
+                                                 periodic, opts, bc_kinds, flh, fvh)
+    else:
+        fl, fv = compute_fluxes(Ug0, opts)
+        U1, fl1, fv1, n1 = rk2_stage(U, Ug0, fl, fv, fo_fluxes_fn, dt, ng, periodic, opts)
+    del fl, fv
+    fallbacks += int(bool(n1 > 0))
+    U1 = lim(U1)
+    if opts.rk_order == 1:
+        stats = {"n_fofc": n1, "fofc_fallbacks": fallbacks}
+        if return_fluxes:
+            stats["fluxes"] = fl1
+        return U1, stats
+
+    # ---- stage 2: the time-averaged flux (Heun / RK2-SSP)
+    Ug1 = fill_fn2(U1)
+    if ghost_free:
+        fl2r, fv2r, flh2r, fvh2r = compute_fluxes(Ug1, opts, bc_kinds=bc_kinds)
+        flux_avg = {d: 0.5 * (fl1[d] + fl2r[d]) for d in fl1}
+        vel_avg = {d: 0.5 * (fv1[d] + fv2r[d]) for d in fv1}
+        flh_avg = {d: 0.5 * (flh1[d] + flh2r[d]) for d in flh1}
+        fvh_avg = {d: 0.5 * (fvh1[d] + fvh2r[d]) for d in fvh1}
+        del fl2r, fv2r, flh2r, fvh2r
+        U2, fl2, _, n2, _, _ = rk2_stage(U, Ug0, flux_avg, vel_avg, fo_fluxes_fn, dt, ng,
+                                         periodic, opts, bc_kinds, flh_avg, fvh_avg)
+    else:
+        fl2r, fv2r = compute_fluxes(Ug1, opts)
+        flux_avg = {d: 0.5 * (fl1[d] + fl2r[d]) for d in fl1}
+        vel_avg = {d: 0.5 * (fv1[d] + fv2r[d]) for d in fv1}
+        del fl2r, fv2r
+        U2, fl2, _, n2 = rk2_stage(U, Ug0, flux_avg, vel_avg, fo_fluxes_fn, dt, ng,
+                                   periodic, opts)
+    fallbacks += int(bool(n2 > 0))
+    stats = {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
+    if return_fluxes:
+        stats["fluxes"] = fl2
+    return lim(U2), stats
+
+
 def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
                       ng: Sequence[int] = (0, 0, 0),
                       periodic: Sequence[bool] = (True, True, True),
@@ -531,23 +676,22 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
     - ghost-padded (`bc_kinds` None): `fill_fn(U)` pads the ghosts (and
       `fill_fn2` the stage-2 state; AMR fills interpolate the parent in
       time there), `ng` the ghost widths; `return_fluxes` adds the
-      time-averaged face fluxes for the flux registers (K2d).
+      time-averaged face fluxes for the flux registers.
 
-    A ghost-free step takes the branch the JAX package's dispatch takes
-    (`_branch`): the lean step (K1 + K2c) above 272 cells an axis, the
-    kernel-fused one (K1-K3) at or below.
-
-    Any other configuration raises NotImplementedError. `dt` is a float or
-    a one-element tensor on the state's device. Returns (U_new, stats)."""
+    The formulation is the one the JAX package's dispatch takes
+    (`_branch`): lean (K1 + K2c, K2e with `reflux_corr_masks`), fused
+    (K1-K3, or K1 + K2 + K2d on a padded level), or classic (the flux
+    dicts of `compute_fluxes`). `reflux_corr_masks` ({axis: boundary-face
+    mask}, the AMR root's in-kernel register seed) forces the lean step and
+    adds ``reflux_corr`` to the stats. Any other configuration raises
+    NotImplementedError. `dt` is a float or a one-element tensor on the
+    state's device. Returns (U_new, stats)."""
     padded = bc_kinds is None
     unsupported = {
         "redo_any_fn": redo_any_fn is not None,
-        "reflux_corr_masks": reflux_corr_masks is not None,
         "mask_fill_fn": mask_fill_fn is not None,
-        "fuse_update=False": not opts.fuse_update,
         "fewer than 3 active axes": len(opts.active_axes) != 3,
         "rk_order not in (1, 2)": opts.rk_order not in (1, 2),
-        "return_fluxes with rk_order 1": return_fluxes and opts.rk_order == 1,
         "passive scalars": opts.n_scalars > 0,
         "riemann != hllc": opts.riemann != "hllc",
     }
@@ -563,43 +707,57 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"advance_hydro_rk2: not ported yet: {bad}")
-    branch = _branch(U, opts, padded, return_fluxes, ng)
+    branch = _branch(U, opts, padded, return_fluxes, ng,
+                     corr=reflux_corr_masks is not None)
     if U.device.type == "cuda":
         dt = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(())
+    if branch == "classic":
+        return _advance_hydro_rk2_classic(U, dt, opts, fill_fn or (lambda X: X), ng,
+                                          periodic, fill_fn2, return_fluxes, bc_kinds)
+    if branch == "lean":
+        return _advance_hydro_rk2_lean(U, dt, opts, ng, periodic, bc_kinds,
+                                       corr_masks=reflux_corr_masks)
     if padded:
         return _advance_hydro_rk2_padded(U, dt, opts, fill_fn, ng, periodic,
                                          fill_fn2, return_fluxes)
-    if branch == "lean":
-        return _advance_hydro_rk2_lean(U, dt, opts, ng, periodic, bc_kinds)
     return _advance_hydro_rk2_fused(U, dt, opts, ng, periodic, bc_kinds)
 
 
-def _branch(U, opts: HydroOptions, padded: bool, return_fluxes: bool, ng) -> str:
-    """"lean" or "fused": the JAX package's dispatch
-    (`quokka_tpu/hydro/advance.py:1139-1162`) for a float32 step with three
-    active axes and the fused update. It takes the lean step for RK2 without
-    face outputs when ``QUOKKA_PALLAS_LEAN`` is "1", or when it is "auto"
-    (the default) and the extent (the padded one on a padded level) lies in
-    (272, 1088]. Above 272 every other f32 step runs the JAX package's
-    classic XLA formulation, which the port does not have: it raises there,
-    except for the padded AMR levels with flux outputs, which run the fused
-    kernels (a deviation that ROADMAP.md lists). The padded lean form is
-    not ported either. Other dtypes (float64 on the CPU) take the fused
-    formulation at every size."""
-    if U.dtype != torch.float32:
-        return "fused"
+def _branch(U, opts: HydroOptions, padded: bool, return_fluxes: bool, ng,
+            corr: bool = False) -> str:
+    """"lean", "fused" or "classic": the JAX package's dispatch
+    (`quokka_tpu/hydro/advance.py:1139-1181`) for a step with three active
+    axes. The lean step takes a float32 RK2 step with the fused update and
+    no face outputs when the register seed (`corr`) asks for it, when
+    ``QUOKKA_PALLAS_LEAN`` is "1", or when it is "auto" (the default) and
+    the extent (the padded one on a padded level) lies in (272, 1088]. The
+    fused step takes float32 at or below 272 without face outputs. Every
+    other step is classic: any float64 state, f32 above 1088, above 272
+    with ``QUOKKA_PALLAS_LEAN=0``, `rk_order` 1 above 272, `fuse_update =
+    False`. Two deviations: a padded f32 RK2 level with flux outputs (the
+    AMR levels) runs the fused kernels at every extent, where the JAX
+    package leaves the fused form above 176 padded cells (a TPU VMEM
+    limit, `fits_vmem`); and the padded lean form is not ported (the port
+    steps its unigrid ghost-free), so it raises."""
+    f32 = U.dtype == torch.float32
     ext = max(U.shape[1:]) + (2 * max(ng) if padded else 0)
     pref = os.environ.get("QUOKKA_PALLAS_LEAN", "auto")
-    lean = (opts.rk_order == 2 and not return_fluxes
-            and (pref == "1" or (pref == "auto" and LEAN_MIN_EXTENT < ext <= LEAN_MAX_EXTENT)))
-    if lean and padded:
-        raise NotImplementedError(
-            "advance_hydro_rk2: the padded (ghost-padded) lean step is not ported; "
-            "the port steps a unigrid ghost-free")
-    if lean:
+    pallas_ok = ext <= LEAN_MIN_EXTENT
+    lean_form = opts.fuse_update and f32 and not return_fluxes and opts.rk_order == 2
+    if lean_form and (corr or pref == "1"
+                      or (pref == "auto" and not pallas_ok and ext <= LEAN_MAX_EXTENT)):
+        if padded:
+            raise NotImplementedError(
+                "advance_hydro_rk2: the padded (ghost-padded) lean step is not ported; "
+                "the port steps a unigrid ghost-free")
         return "lean"
-    if ext > LEAN_MIN_EXTENT and not (padded and return_fluxes):
+    if corr:
         raise NotImplementedError(
-            f"advance_hydro_rk2: at extent {ext} with QUOKKA_PALLAS_LEAN={pref!r} the JAX "
-            "package runs its classic unfused XLA path, which is not ported")
-    return "fused"
+            "reflux_corr_masks requires the lean path (float32, 3D, fuse_update, "
+            "rk_order 2, no flux outputs)")
+    if opts.fuse_update and f32:
+        if padded and return_fluxes and opts.rk_order == 2:
+            return "fused"
+        if pallas_ok and not return_fluxes:
+            return "fused"
+    return "classic"

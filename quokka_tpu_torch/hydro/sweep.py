@@ -19,7 +19,12 @@ also emits the time-averaged face flux for the flux registers) and
 ``axis_flux_lean`` its K2c variant (`div_only`, the lean large-domain
 sweep: only the divergences leave the kernel, optionally added onto running
 totals in place (`acc`) and with the FOFC first-order blend done in the
-kernel (`fo_mask`, `fo_from`)).
+kernel (`fo_mask`, `fo_from`)) and ``axis_flux_corr`` its K2e form (K2c
+with `corr_mask`: the AMR root's flux-register seed, the divergence of the
+boundary-masked blended faces, optionally added onto `corr_acc` in place).
+K1 and K2's face mode also take a chunk of ghost-padded blocks [B, 6, X, Y,
+Z] in one launch an axis (`compute_fluxes_batched`, the packed AMR
+engine).
 
 Layout: ``[nvar, X, Y, Z]``, contiguous, z fastest. Face arrays keep the
 JAX convention: slot i is the face between cells i-1 and i (slot 0 is the
@@ -42,7 +47,7 @@ from . import euler, reconstruct
 from .riemann import FaceState, hllc, llf
 
 launch_counts = {"transverse": 0, "axis_flux": 0, "axis_flux_avg": 0,
-                 "axis_flux_lean": 0, "apply_update": 0}
+                 "axis_flux_lean": 0, "axis_flux_corr": 0, "apply_update": 0}
 
 
 def reset_launch_counts() -> None:
@@ -228,7 +233,8 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
                     first_order: bool = False, bc_axis=None, dx_axis=None,
                     avg_with: tuple | None = None, state_is_cons: bool = False,
                     emit_avg_flux: bool = False, *, div_only: bool = False,
-                    acc: tuple | None = None, fo_mask=None, fo_from=None):
+                    acc: tuple | None = None, fo_mask=None, fo_from=None,
+                    corr_mask=None, corr_acc=None):
     """Plain version of K2: one sweep along `axis`. Returns what
     `pallas_sweep.compute_axis_flux_pallas` returns for these arguments:
     (F, v[, F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or
@@ -243,10 +249,16 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     `state_is_cons`), as `pallas_sweep._window_flux` (`:543-561`) blends;
     on a wall axis the ghost cells count as unflagged. With `acc` =
     (div_acc, dvel_acc) the contributions are added onto the running totals
-    in place, and the totals are returned."""
+    in place, and the totals are returned.
+
+    K2e (`corr_mask`, `pallas_sweep.py:623-633`): also the divergence of
+    the boundary-masked flux, corr = (m_lo F_lo - m_hi F_hi) / dx from the
+    blended faces, added onto `corr_acc` in place when given; the return
+    is then (div, dvel, corr)."""
     _check_bc(bc_axis)
     _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
     _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with)
+    _check_corr(corr_mask, corr_acc, div_only, bc_axis)
     vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
     dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
     dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
@@ -311,9 +323,12 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     if emit_avg_flux:
         return div, dvel, Fd
     if div_only:
-        if acc is None:
-            return div, dvel
-        return acc[0].add_(div), acc[1].add_(dvel)
+        out = (div, dvel) if acc is None else (acc[0].add_(div), acc[1].add_(dvel))
+        if corr_mask is None:
+            return out
+        dFm = torch.where((corr_mask > 0.5)[None], Fd, 0.0)
+        corr = (dFm - sh(dFm, 1, 1 + axis)) / dx_axis
+        return out + (corr if corr_acc is None else corr_acc.add_(corr),)
     if avg_with is not None:
         return div, dvel
     return ((F, v, Fh, vh) if wall else (F, v)) + (div, dvel)
@@ -350,6 +365,15 @@ def _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with):
     if not div_only and (acc is not None or fo_mask is not None):
         raise NotImplementedError(
             "acc and fo_mask are ported for the div_only sweep (K2c) only")
+
+
+def _check_corr(corr_mask, corr_acc, div_only, bc_axis):
+    """The K2e arguments' contract (`pallas_sweep.py:811-814`)."""
+    if corr_acc is not None and corr_mask is None:
+        raise ValueError("corr_acc requires corr_mask")
+    if corr_mask is not None and (not div_only or bc_axis is not None):
+        raise ValueError("corr_mask (flux-register seeding) requires the div_only "
+                         "ghost-free periodic path")
 
 
 def _sum_divs(divs: dict) -> torch.Tensor:
@@ -430,7 +454,7 @@ def _transverse_axis_cuda(U, t: int, opts, bc_axis, state_is_cons: bool):
     m3 = torch.empty_like(dmin) if do_chi else None
     chi = torch.empty_like(dmin) if do_chi else None
     err = lib.qk_transverse(U.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
-                            X, Y, Z, t, lo, hi, int(state_is_cons), int(do_chi),
+                            X, Y, Z, 1, t, lo, hi, int(state_is_cons), int(do_chi),
                             *_eos_args(opts), _stream(U))
     check(err, "transverse")
     launch_counts["transverse"] += 1
@@ -468,19 +492,22 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
                       div_only=False, fo_mask=None, fo_from=None,
                       emit_avg_flux=False, corr_mask=None, corr_acc=None):
     """K2: one sweep along `axis` (`pallas_sweep.compute_axis_flux_pallas`
-    for the variants of the unigrid and dense-AMR paths). Returns (F, v[,
-    F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or (div,
-    dvel, F_avg) with `emit_avg_flux` (K2d), or (div, dvel) with
-    `div_only` (K2c; with `acc` the accumulator tensors, updated in
-    place): `axis_flux_plain` says what each holds."""
-    _unsupported(corr_mask=corr_mask, corr_acc=corr_acc, chi_ghost_axis=chi_ghost_axis)
+    for the variants of the unigrid and AMR paths). Returns (F, v[, F_hi,
+    v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or (div, dvel,
+    F_avg) with `emit_avg_flux` (K2d), or (div, dvel) with `div_only` (K2c;
+    with `acc` the accumulator tensors, updated in place), or (div, dvel,
+    corr) with `corr_mask` (K2e): `axis_flux_plain` says what each
+    holds."""
+    _unsupported(chi_ghost_axis=chi_ghost_axis)
     _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
     _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with)
+    _check_corr(corr_mask, corr_acc, div_only, bc_axis)
     if not _on_cuda(U):
         return axis_flux_plain(U, axis, opts, chi_cell, dmins, first_order,
                                bc_axis, dx_axis, avg_with, state_is_cons,
                                emit_avg_flux, div_only=div_only, acc=acc,
-                               fo_mask=fo_mask, fo_from=fo_from)
+                               fo_mask=fo_mask, fo_from=fo_from,
+                               corr_mask=corr_mask, corr_acc=corr_acc)
     from .._cuda import check, library
 
     lib = library()
@@ -493,7 +520,7 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     if div_only:
         return _axis_flux_lean_cuda(lib, U, axis, opts, chi, dminv, dminw, first_order,
                                     bc_axis, dx_axis, state_is_cons, acc, fo_mask,
-                                    fo_from)
+                                    fo_from, corr_mask, corr_acc)
     avg = tuple(avg_with) if avg_with is not None else ()
     _check_kernel_inputs(opts, U, chi, dminv, dminw, *avg)
     lo, hi = _bc_codes(bc_axis)
@@ -514,7 +541,7 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     stream = _stream(U)
     err = lib.qk_axis_flux(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
                            F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
-                           X, Y, Z, axis, lo, hi, int(state_is_cons),
+                           X, Y, Z, 1, axis, lo, hi, int(state_is_cons),
                            int(first_order), float(opts.K_visc),
                            *_eos_args(opts), stream)
     check(err, "axis_flux")
@@ -542,18 +569,22 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
 
 
 def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order,
-                         bc_axis, dx_axis, state_is_cons, acc, fo_mask, fo_from):
+                         bc_axis, dx_axis, state_is_cons, acc, fo_mask, fo_from,
+                         corr_mask=None, corr_acc=None):
     """Launch K2c (csrc/sweep.cu `lean_kernel`): one thread a cell solves
     both of its faces in registers and writes only (div, dvel), or adds
-    them onto `acc` in place."""
+    them onto `acc` in place; with `corr_mask` (K2e) also the register
+    seed corr, or adds it onto `corr_acc` in place."""
     from .._cuda import check
 
     accs = tuple(acc) if acc is not None else ()
-    _check_kernel_inputs(opts, U, chi, dminv, dminw, fo_mask, fo_from, *accs)
+    _check_kernel_inputs(opts, U, chi, dminv, dminw, fo_mask, fo_from, corr_mask,
+                         corr_acc, *accs)
     X, Y, Z = U.shape[1:]
     cell = (X, Y, Z)
     _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin"),
-                   (fo_mask, cell, "fo_mask"), (fo_from, U.shape, "fo_from")]
+                   (fo_mask, cell, "fo_mask"), (fo_from, U.shape, "fo_from"),
+                   (corr_mask, cell, "corr_mask"), (corr_acc, U.shape, "corr_acc")]
                   + list(zip(accs, (U.shape, cell), ("acc div", "acc dvel"))))
     lo, hi = _bc_codes(bc_axis)
     if acc is None:
@@ -561,14 +592,21 @@ def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order
         dvel = torch.empty(cell, dtype=U.dtype, device=U.device)
     else:
         div, dvel = acc
+    corr = None
+    if corr_mask is not None:
+        corr = torch.empty_like(U) if corr_acc is None else corr_acc
     err = lib.qk_axis_lean(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
                            _ptr(fo_mask), _ptr(fo_from), div.data_ptr(), dvel.data_ptr(),
-                           X, Y, Z, axis, lo, hi, int(state_is_cons), int(first_order),
+                           _ptr(corr_mask), _ptr(corr), X, Y, Z, axis, lo, hi,
+                           int(state_is_cons), int(first_order),
                            float(opts.K_visc), float(dx_axis), int(acc is not None),
-                           *_eos_args(opts), _stream(U))
+                           int(corr_acc is not None), *_eos_args(opts), _stream(U))
     check(err, "axis_flux_lean")
-    launch_counts["axis_flux_lean"] += 1
-    return div, dvel
+    if corr is None:
+        launch_counts["axis_flux_lean"] += 1
+        return div, dvel
+    launch_counts["axis_flux_corr"] += 1
+    return div, dvel, corr
 
 
 def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):
@@ -627,8 +665,14 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
     kernels' accumulators in axis order, starting from ``acc_init`` (whose
     tensors are updated in place) when given, and the dict carries the
     totals ``div`` and ``dvel`` instead of ``divs``/``dvels``. ``fo_mask``
-    and ``fo_from`` reach every axis's sweep (the in-kernel FOFC blend)."""
-    _unsupported(corr_masks=corr_masks, corr_init=corr_init)
+    and ``fo_from`` reach every axis's sweep (the in-kernel FOFC blend).
+    ``corr_masks`` ({axis: boundary-face mask}, K2e, with `accumulate`)
+    chains the register seed over the axes from ``corr_init`` (updated in
+    place when given) into ``corr``."""
+    if corr_masks is not None and not (div_only and accumulate):
+        raise ValueError("corr_masks requires div_only + accumulate")
+    if corr_init is not None and corr_masks is None:
+        raise ValueError("corr_init requires corr_masks")
     lean_args = (accumulate, acc_init is not None, fo_mask is not None, fo_from is not None)
     if any(lean_args) and not div_only:
         raise NotImplementedError("accumulate, acc_init, fo_mask and fo_from are ported "
@@ -642,19 +686,25 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
     out = {"fluxes": {}, "facevels": {}, "flux_hi": {}, "vel_hi": {},
            "divs": {}, "dvels": {}}
     if div_only:
-        acc = acc_init
+        acc, corr = acc_init, corr_init
         for d in opts.active_axes:
             bc_axis = None if bc_kinds is None else bc_kinds.get(d)
             res = compute_axis_flux(Ug, d, opts, chi_cell, dmins, bc_axis=bc_axis,
                                     dx_axis=opts.dx[d], state_is_cons=True,
                                     acc=acc if accumulate else None, div_only=True,
-                                    fo_mask=fo_mask, fo_from=fo_from)
-            if accumulate:
+                                    fo_mask=fo_mask, fo_from=fo_from,
+                                    corr_mask=None if corr_masks is None else corr_masks[d],
+                                    corr_acc=corr)
+            if corr_masks is not None:
+                acc, corr = res[:2], res[2]
+            elif accumulate:
                 acc = res
             else:
                 out["divs"][d], out["dvels"][d] = res
         if accumulate:
             out["div"], out["dvel"] = acc
+        if corr_masks is not None:
+            out["corr"] = corr
         return out
     for d in opts.active_axes:
         bc_axis = None if bc_kinds is None else bc_kinds.get(d)
@@ -683,23 +733,89 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
 
 
 def compute_fluxes_pallas(Ug, opts, first_order: bool = False,
-                          bc_kinds: dict | None = None):
+                          bc_kinds: dict | None = None, *, plain: bool = False):
     """All-axis face fluxes of the conserved state with cons->prim outside
     the kernels (`pallas_sweep.compute_fluxes_pallas`). With `bc_kinds`
-    returns (fluxes, facevels, flux_hi, vel_hi), else (fluxes, facevels)."""
+    returns (fluxes, facevels, flux_hi, vel_hi), else (fluxes, facevels).
+    `plain`: the plain versions on the state's own device (the JAX
+    package's XLA fluxes of a non-f32 state)."""
     prim = euler.cons_to_prim(Ug, opts.eos, opts.reconstruct_eint)
+    transverse = precompute_transverse_plain if plain else precompute_transverse
+    axis_flux = axis_flux_plain if plain else compute_axis_flux
     if first_order:
         dmins, chi_cell = {}, None
     else:
-        dmins, chi_cell, _ = precompute_transverse(prim, opts, bc_kinds)
+        dmins, chi_cell, _ = transverse(prim, opts, bc_kinds)
     fluxes, facevels, flux_hi, vel_hi = {}, {}, {}, {}
     for d in opts.active_axes:
         bc_axis = None if bc_kinds is None else bc_kinds.get(d)
-        res = compute_axis_flux(prim, d, opts, chi_cell, dmins, first_order,
-                                bc_axis=bc_axis)
+        res = axis_flux(prim, d, opts, chi_cell, dmins, first_order,
+                        bc_axis=bc_axis)
         fluxes[d], facevels[d] = res[0], res[1]
         if bc_axis is not None:
             flux_hi[d], vel_hi[d] = res[2], res[3]
     if bc_kinds is None:
         return fluxes, facevels
     return fluxes, facevels, flux_hi, vel_hi
+
+
+def compute_fluxes_batched(Ug5, opts, first_order: bool = False):
+    """All-axis face fluxes of a chunk of ghost-padded conserved blocks
+    [B, 6, X, Y, Z] (roll semantics per block): ({axis: F [B, 6, X, Y, Z]},
+    {axis: v [B, X, Y, Z]}), what `compute_fluxes_pallas` gives block by
+    block (the JAX packed engine vmaps `compute_fluxes` over the chunk).
+
+    On a CUDA f32 tensor K1 and K2's face mode run over the whole chunk,
+    one launch an axis, with the conserved-to-primitive step in registers
+    (`state_is_cons`); on the CPU, or for another dtype (the JAX package's
+    XLA fluxes), the plain versions run block by block."""
+    if not _on_cuda(Ug5) or Ug5.dtype != torch.float32:
+        fl, fv = {}, {}
+        for blk in Ug5:
+            f1, v1 = compute_fluxes_pallas(blk, opts, first_order, plain=True)
+            for d in f1:
+                fl.setdefault(d, []).append(f1[d])
+                fv.setdefault(d, []).append(v1[d])
+        return ({d: torch.stack(x) for d, x in fl.items()},
+                {d: torch.stack(x) for d, x in fv.items()})
+    from .._cuda import check, library
+
+    lib = library()
+    if Ug5.dim() != 5:
+        raise ValueError(f"expected [B, 6, X, Y, Z] blocks, got {tuple(Ug5.shape)}")
+    if not first_order and opts.reconstruction_order != 3:
+        raise NotImplementedError("the CUDA sweep reconstructs with PPM only")
+    _check_kernel_inputs(opts, Ug5[0])
+    if not Ug5.is_contiguous():
+        raise ValueError("the CUDA hydro kernels take contiguous tensors")
+    B, _, X, Y, Z = Ug5.shape
+    stream = _stream(Ug5)
+    ea = _eos_args(opts)
+    dmins, chi_cell = {}, None
+    do_chi = opts.use_flattening and opts.reconstruction_order == 3
+    if not first_order:
+        for t in opts.active_axes:
+            dmin = torch.empty((B, X, Y, Z), dtype=Ug5.dtype, device=Ug5.device)
+            m3 = torch.empty_like(dmin) if do_chi else None
+            chi = torch.empty_like(dmin) if do_chi else None
+            err = lib.qk_transverse(Ug5.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
+                                    X, Y, Z, B, t, 0, 0, 1, int(do_chi), *ea, stream)
+            check(err, "transverse")
+            launch_counts["transverse"] += 1
+            dmins[t] = dmin
+            if m3 is not None:
+                chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
+    fl, fv = {}, {}
+    for d in opts.active_axes:
+        vax, wax = _transverse_axes(d, max(opts.ndim, 1))
+        dminv = dmins.get(vax) if vax in opts.active_axes else None
+        dminw = dmins.get(wax) if wax in opts.active_axes else None
+        F = torch.empty_like(Ug5)
+        v = torch.empty((B, X, Y, Z), dtype=Ug5.dtype, device=Ug5.device)
+        err = lib.qk_axis_flux(Ug5.data_ptr(), _ptr(chi_cell), _ptr(dminv), _ptr(dminw),
+                               F.data_ptr(), v.data_ptr(), None, None, X, Y, Z, B, d,
+                               0, 0, 1, int(first_order), float(opts.K_visc), *ea, stream)
+        check(err, "axis_flux")
+        launch_counts["axis_flux"] += 1
+        fl[d], fv[d] = F, v
+    return fl, fv

@@ -574,3 +574,115 @@ def rough_mhd_state(n: int, seed: int = 11):
             v[k][sl] = 0.0
             B[k][sl] = bxf[k][sl] = 1.0 if k == d else 0.0
     return np.concatenate([rho[None], v, P[None], B]), bxf
+
+
+CORR_VARIANTS = ("stage 1", "stage 1 acc", "stage 2 fo_from")
+
+
+def corr_cases(U0: torch.Tensor, U1: torch.Tensor, opts, corr_masks: dict, seed: int = 0,
+               variants=CORR_VARIANTS, tag: str = "") -> Iterator[Case]:
+    """K2e (the lean sweep with the flux-register seed, `corr_mask`) per
+    axis on a ghost-free periodic state, with the per-axis boundary-face
+    masks `corr_masks` of a level's coverage:
+
+    - ``stage 1``: the clean sweep of U0, div, dvel and corr fresh (stage
+      1's first axis);
+    - ``stage 1 acc``: the same added onto running totals and a running
+      seed in place (the chained axes);
+    - ``stage 2 fo_from``: the sweep of U1 blended on a seeded FOFC mask
+      with U0's first-order fluxes (the redo at or below 272 cells an
+      axis), added onto the totals and the seed.
+
+    Every input comes from a plain version (K1's fields by
+    `plain_transverse`, the totals from the plain sweep of axis 0); the
+    accumulators are copied for each compared call, and `run_timed` adds
+    onto one copy in place, as the step does."""
+    n = U0[0].numel()
+    shape = tuple(U0.shape[1:])
+    periodic = {0: None, 1: None, 2: None}
+    k1 = {"0": plain_transverse(U0, opts, periodic), "1": plain_transverse(U1, opts, periodic)}
+    mask = lean_mask(shape, seed, device=U0.device)
+    dmins0, chi0 = k1["0"]
+    first = sweep.axis_flux_plain(U0, 0, opts, chi0, dmins0, dx_axis=opts.dx[0],
+                                  state_is_cons=True, div_only=True, corr_mask=corr_masks[0])
+    acc, corr = first[:2], first[2]
+    timed = (tuple(a.clone() for a in acc), corr.clone())
+    for d in range(3):
+        for v in variants:
+            stage2 = "stage 2" in v
+            U = U1 if stage2 else U0
+            dmins, chi = k1["1" if stage2 else "0"]
+            m = mask if stage2 else None
+            fo = U0 if stage2 else None
+            with_acc = "acc" in v or stage2
+            kw = dict(dx_axis=opts.dx[d], state_is_cons=True, div_only=True,
+                      corr_mask=corr_masks[d], fo_mask=m, fo_from=fo)
+            dm = [f for t, f in dmins.items() if t != d]
+            flagged = 0 if m is None else int(((sh(m, -1, d) > 0) | (m > 0)).sum())
+            # reads the state, chi, two dmin fields, the boundary mask [, the
+            # FOFC mask, fo_from, the accumulators and the seed]; writes div,
+            # dvel and corr (in place with the accumulators)
+            cost = (_nbytes(U, chi, *dm, corr_masks[d], m, fo,
+                            (acc, corr) if with_acc else None)
+                    + _nbytes(acc, corr), OPS_K2_SWEEP * n + OPS_FO_FACE * flagged)
+
+            def copy(w=with_acc):
+                return (tuple(a.clone() for a in acc), corr.clone()) if w else (None, None)
+
+            def kernel(accs, d=d, U=U, chi=chi, dmins=dmins, kw=kw):
+                return sweep.compute_axis_flux(U, d, opts, chi, dmins, acc=accs[0],
+                                               corr_acc=accs[1], **kw)
+
+            def plain(accs, d=d, U=U, chi=chi, dmins=dmins, kw=kw):
+                return sweep.axis_flux_plain(U, d, opts, chi, dmins, acc=accs[0],
+                                             corr_acc=accs[1], **kw)
+
+            yield Case("axis_flux_corr", f"K2e {v} axis {d}{tag}",
+                       lambda kernel=kernel, copy=copy: kernel(copy()),
+                       lambda plain=plain, copy=copy: plain(copy()),
+                       lambda cost=cost: cost,
+                       run_timed=lambda kernel=kernel, w=with_acc: kernel(
+                           timed if w else (None, None)))
+
+
+def gather_cases(pools: dict, rows: torch.Tensor) -> Iterator[Case]:
+    """K9 on each pool of `pools` ({label: [cap, ...] tensor}) for the int32
+    row index `rows` against `torch.index_select` (its plain version, which
+    is also the one PyTorch call that computes the function). Bytes: each
+    gathered row read once and written once."""
+    from .amr import packed
+
+    for label, pool in pools.items():
+        row_bytes = pool[0].numel() * pool.element_size()
+        cost = (2 * rows.numel() * row_bytes, 0)
+        yield Case("row_gather", f"K9 {label}",
+                   lambda pool=pool: packed.row_gather(pool, rows),
+                   lambda pool=pool: packed.row_gather_plain(pool, rows),
+                   lambda cost=cost: cost)
+
+
+def batched_cases(Ug5: torch.Tensor, R5: torch.Tensor, opts, ropts,
+                  tag: str = "") -> Iterator[Case]:
+    """The packed engine's batched launches against the per-block plain
+    versions: K1 + K2's face mode over a chunk of conserved hydro blocks
+    `Ug5` [B, 6, X, Y, Z] (PPM and first order), and K7 per axis over a
+    chunk of radiation blocks `R5` [B, 4, X, Y, Z]."""
+    def per_block_fluxes(first_order):
+        fl, fv = {}, {}
+        for blk in Ug5:
+            f1, v1 = sweep.compute_fluxes_pallas(blk, opts, first_order, plain=True)
+            for d in f1:
+                fl.setdefault(d, []).append(f1[d])
+                fv.setdefault(d, []).append(v1[d])
+        return ({d: torch.stack(x) for d, x in fl.items()},
+                {d: torch.stack(x) for d, x in fv.items()})
+
+    for fo, what in ((False, "PPM"), (True, "first order")):
+        yield Case("axis_flux", f"K1+K2 faces batched {what}{tag}",
+                   lambda fo=fo: sweep.compute_fluxes_batched(Ug5, opts, fo),
+                   lambda fo=fo: per_block_fluxes(fo))
+    for d in range(3):
+        yield Case("rad_axis_flux", f"K7 batched axis {d}{tag}",
+                   lambda d=d: rsweep.compute_rad_axis_flux_batched(R5, d, ropts),
+                   lambda d=d: torch.stack([rsweep.rad_axis_flux_plain(r, d, ropts)
+                                            for r in R5]))

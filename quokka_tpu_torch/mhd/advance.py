@@ -18,9 +18,10 @@ the periodic boundary. Bf[d][..., i, ...] = B_d at face i-1/2 (the lo face
 of cell i); edge arrays are corner-registered the same way.
 
 Each active axis's reconstruction + HLLD + divergence is one call of
-`mhd.sweep.compute_mhd_axis`: kernel K8 on a CUDA state, which takes
-float32 and three active axes and raises for anything else, and K8's plain
-version on a CPU state at any dtype and any number of active axes. The
+`mhd.sweep.compute_mhd_axis` for a float32 state: kernel K8 on a CUDA
+state, which takes three active axes and raises for anything else, and
+K8's plain version on a CPU state. Any other dtype takes the plain version
+(`mhd_axis_plain`) on its own device, as the JAX package takes XLA there. The
 corner-EMF assembly, the curl and the RK combine stay plain PyTorch, as
 they stayed XLA outside Pallas.
 """
@@ -34,7 +35,7 @@ import torch
 
 from .._numerics import div, sqrt
 from ..stencil import sh
-from .sweep import _FRAMES, compute_mhd_axis
+from .sweep import _FRAMES, compute_mhd_axis, mhd_axis_plain
 
 
 @dataclass(frozen=True)
@@ -183,10 +184,13 @@ def mhd_rhs(U: torch.Tensor, Bf: Sequence[torch.Tensor], opts: MHDOptions):
     dU = None
 
     # K8 per axis: only the divergence rows and the three face rows the CT
-    # corner assembly needs reach device memory
+    # corner assembly needs reach device memory. A non-f32 state takes the
+    # plain form on its own device, as the JAX package's `use_kernel` test
+    # sends it to XLA (`quokka_tpu/mhd/advance.py:184-188`)
+    axis_fn = compute_mhd_axis if prim.dtype == torch.float32 else mhd_axis_plain
     for d in opts.active_axes:
         vax, wax = _FRAMES[d]
-        out = compute_mhd_axis(prim, Bf[d], d, opts)
+        out = axis_fn(prim, Bf[d], d, opts)
         dU = out[:5] if dU is None else dU + out[:5]
         face_rho[d] = out[5]
         # row 6 = flux of B_vax -> -E_wax; row 7 = flux of B_wax -> +E_vax

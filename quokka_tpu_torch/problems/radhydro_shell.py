@@ -17,7 +17,11 @@ numpy. The constant opacity is stated as the power law kappa0 = 20 (code
 units), exponents 0, that the CUDA coupling evaluates.
 
 `DECK_256` is the JAX package's dense AMR benchmark deck (``bench.py:192-207``,
-`run_amr_shell(n=256, max_level=1, sparse=False)`).
+`run_amr_shell(n=256, max_level=1, sparse=False)`); `DECK_256_PACKED` the
+reference's own AMR benchmark configuration (256^3 + 2 refinement levels,
+``paper/strong_scaling.csv:2``) as the JAX package's bench runs it
+(``bench.py:163-207``, `run_amr_shell(sparse=True)`): packed 16^3-tile
+pools from level 1 up.
 """
 
 from __future__ import annotations
@@ -88,6 +92,25 @@ density_floor = 1.0e-8
 stop_time = 1.0e10
 precision = single
 """
+
+
+# the reference's AMR benchmark (bench.py:163-207, run_amr_shell(n=256,
+# max_level=2, sparse=True)): levels 1-2 are packed tile pools of 16^3
+# tiles, 64 tiles a chunk, capacity headroom 1.02
+DECK_256_PACKED = DECK_256.replace("amr.max_level = 1", "amr.max_level = 2") + """
+amr.sparse_min_level = 1
+amr.tile_size = 16 16 16
+amr.pool_chunk = 64
+amr.pool_packed = 1
+amr.packed_chunk = 64
+amr.pool_headroom = 1.02
+"""
+
+# the chunk the card runs DECK_256_PACKED with (chip_smoke.py, step_profile,
+# amr_memory): at the deck's 64 tiles a chunk the host's launch rate bounds
+# a coarse step (251 s against 136 s at 512 on an H100 80GB HBM3, PERF.md);
+# the chunk is an execution setting, the results do not depend on it
+CARD_PACKED_CHUNK = 512
 
 
 def _erf(x):
@@ -186,6 +209,19 @@ class RadhydroShellProblem(Problem):
         for d in sim.level_grids[level].active_axes:
             g = torch.maximum((sh(rho, 1, d) - rho).abs(),
                               (rho - sh(rho, -1, d)).abs()) / rho
+            tags = tags | (g > 0.1)
+        return tags & (rho >= 1.0e-2 * RHO_0)
+
+    def error_est_local(self, U_padded, grid, level, origin):
+        """The same tagging on ghost-padded tiles [c, nvar, X, Y, Z] of a
+        pool level (`quokka_tpu/problems/radhydro_shell.py:198-210`): the
+        +-1 stencil is exact wherever the driver's n_error_buf dilation
+        reaches the interior. Returns [c, X, Y, Z]."""
+        rho = U_padded[:, RHO]
+        tags = torch.zeros(rho.shape, dtype=torch.bool, device=rho.device)
+        for d in range(3):
+            g = torch.maximum((sh(rho, 1, d + 1) - rho).abs(),
+                              (rho - sh(rho, -1, d + 1)).abs()) / rho
             tags = tags | (g > 0.1)
         return tags & (rho >= 1.0e-2 * RHO_0)
 

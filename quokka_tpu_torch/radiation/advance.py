@@ -28,6 +28,7 @@ user boundaries for radiation, `radiation.wavespeed_correction`,
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -38,7 +39,22 @@ from .substep import fused_substep
 from .system import RadOptions, add_fluxes_rk2, predict_step, rad_transport_div
 
 
-class RadiationAdvance:
+class _SimRef:
+    """`self.sim` through a weak reference: the simulation holds its
+    radiation subsystems, so a strong back-reference would make a cycle
+    that keeps a dropped simulation's device memory until the next
+    `gc.collect()`."""
+
+    @property
+    def sim(self):
+        return self._sim_ref()
+
+    @sim.setter
+    def sim(self, sim):
+        self._sim_ref = weakref.ref(sim)
+
+
+class RadiationAdvance(_SimRef):
     """Per-simulation radiation subsystem (built when the problem has
     `PhysicsTraits.radiation_enabled`)."""
 
@@ -140,7 +156,7 @@ def _scalar(x: float, dtype: torch.dtype) -> float:
     return float(np.float32(x)) if dtype == torch.float32 else float(x)
 
 
-class LevelRadiation:
+class LevelRadiation(_SimRef):
     """Radiation subcycling of one dense AMR level.
 
     Counterpart of `quokka_tpu.radiation.advance.LevelRadiation` (reference

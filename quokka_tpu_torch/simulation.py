@@ -25,11 +25,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .boundaries import fill_ghosts
 from .config import ParmParse
 from .grid import Grid
 from .hydro import euler
 from .hydro.advance import HydroOptions, advance_hydro_rk2
-from .indices import EGAS, RHO
+from .indices import EGAS, EINT, RHO
 from .registry import BC_PERIODIC, BC_REFLECT, Problem
 from .stencil import ghost_widths
 
@@ -109,6 +110,9 @@ class Simulation:
         self.max_dt = self.pp.get_float("max_dt", 1.0e30)
         self.constant_dt = self.pp.get_float("constant_dt", -1.0)
         self.verbose = self.pp.get_int("verbose", 1)
+        # debug.check_states: validate the state after every step and fail
+        # with the first invalid cell (`quokka_tpu/simulation.py:89-93`)
+        self.check_states = bool(self.pp.get_int("debug.check_states", 0))
 
         hpp = self.pp
         self.layout = phys.layout()
@@ -159,9 +163,29 @@ class Simulation:
                     "quokka_tpu_torch does not port yet")
 
     def _ghost_free_config(self):
-        """Stepping mode for the hydro advance: every axis unpadded, walls
-        read through the kernels' index map. Returns {"ng", "bc_kinds"}
-        with bc_kinds[axis] = (lo, hi) for a wall axis, None if periodic."""
+        """Stepping mode for the hydro advance, as the JAX package's
+        `_ghost_free_config` chooses it (`quokka_tpu/simulation.py:222-294`).
+        A float32 state up to the kernels' extent (1088 cells an axis when
+        the lean step may run, else 272) steps ghost-free: every axis
+        unpadded, walls read through the kernels' index map; {"ng": (0, 0,
+        0), "bc_kinds", "fill": None} with bc_kinds[axis] = (lo, hi) for a
+        wall axis, None if periodic. Any other state steps padded (the
+        classic formulation): "fill" pads the walls (nothing on a periodic
+        domain, whose rolls wrap) and "bc_kinds" is None."""
+        import os
+
+        from .hydro.advance import LEAN_MAX_EXTENT, LEAN_MIN_EXTENT
+
+        opts = self.hydro_opts
+        lean_ok = (opts.fuse_update and opts.rk_order == 2
+                   and os.environ.get("QUOKKA_PALLAS_LEAN", "auto") != "0")
+        max_ext = LEAN_MAX_EXTENT if lean_ok else LEAN_MIN_EXTENT
+        if self.dtype != torch.float32 or max(self.grid.n_cell) > max_ext:
+            if all(self.periodic):
+                return {"ng": (0, 0, 0), "bc_kinds": None, "fill": lambda X: X}
+            ng, bcs = self.ng, self.problem.bcs
+            return {"ng": ng, "bc_kinds": None,
+                    "fill": lambda X: fill_ghosts(X, ng, bcs)}
         kinds = {}
         for d in self.hydro_opts.active_axes:
             lo, hi = self.problem.bcs.axis(d)
@@ -173,7 +197,7 @@ class Simulation:
                 raise NotImplementedError(
                     f"axis {d} boundary ({lo}, {hi}): the port supports "
                     f"{BC_PERIODIC} and {BC_REFLECT} walls")
-        return {"ng": (0, 0, 0), "bc_kinds": kinds}
+        return {"ng": (0, 0, 0), "bc_kinds": kinds, "fill": None}
 
     # ------------------------------------------------------------------ step
     def _step(self, U, dt):
@@ -181,9 +205,10 @@ class Simulation:
         as device tensors. Radiation components belong to the radiation
         subsystem (reference: hydro fluxes cover ncompHydro_ components)."""
         nh = self.layout.nvar_hydro
+        gf = self._gf
         Uh_new, stats = advance_hydro_rk2(
-            U[:nh], dt, self.hydro_opts, None, self._gf["ng"], self.periodic,
-            bc_kinds=self._gf["bc_kinds"])
+            U[:nh], dt, self.hydro_opts, gf["fill"], gf["ng"], self.periodic,
+            bc_kinds=gf["bc_kinds"])
         U_new = torch.cat([Uh_new, U[nh:]]) if nh < U.shape[0] else Uh_new
         smax = euler.max_signal_speed(U_new, self.eos).max()
         valid = euler.is_state_valid(U_new, self.eos).all()
@@ -300,6 +325,8 @@ class Simulation:
             if not ok:
                 raise RuntimeError(
                     f"Hydro update exceeded max_retries at step {self.istep}; cannot continue.")
+            if self.check_states:
+                self._check_states_valid()
             self.t += dt
             self.dt_prev = dt
             self.istep += 1
@@ -326,6 +353,23 @@ class Simulation:
                   f"{self.fofc_cells} invalid cells")
         self._conservation_audit()
         self.problem.compute_after_evolve(self)
+
+    def _check_states_valid(self):
+        """Fail with the first invalid cell: NaN or Inf anywhere, or a
+        non-positive density or internal energy in the hydro block
+        (`quokka_tpu/simulation.py:869-887`). One host read of the state."""
+        U = self.U.cpu().numpy()
+        bad = ~np.isfinite(U)
+        if self.layout.hydro_enabled:
+            bad[RHO] |= U[RHO] <= 0.0
+            bad[EINT] |= U[EINT] <= 0.0
+        if bad.any():
+            comp, i, j, k = (int(ix[0]) for ix in np.where(bad))
+            x = self.grid.prob_lo[0] + (i + 0.5) * self.grid.dx[0]
+            raise FloatingPointError(
+                f"invalid state at step {self.istep}: component {comp} at "
+                f"cell ({i},{j},{k}) (x = {x:.6g}) has value "
+                f"{U[comp, i, j, k]!r} (debug.check_states = 1)")
 
     def _step_cell_updates(self) -> int:
         """Zone-updates a coarse step adds to the figure of merit."""

@@ -32,6 +32,16 @@ kernel and by the profiler regions `AMRSimulation` names as the JAX package
 names them (``regrid_L0``, ``hydro_L0``, ``rad_L0``, ``hydro_L1``,
 ``rad_L1``, ``reflux_L0``, ``avgdown_L0``), and its idle share.
 
+For the packed shell (``DECK_256_PACKED``, 256^3 + 2 packed pool levels,
+f32, chunks of ``CARD_PACKED_CHUNK`` tiles; ``--packed``), after one
+warm-up coarse step, one coarse step (it
+opens with the regrid of level 1) runs once under the profiler: its wall
+time by region (a device sync at each region's exit) and its device time
+by kernel and by region, the regions of the dense shell and ``hydro_L2``,
+``rad_L2``, ``regrid_L1``, ``reflux_L1``, ``avgdown_L1``. A coarse step of
+this path runs about a million kernels, so it is profiled once, not
+repeated.
+
 Each part is timed twice from the same state, so both timings do the same
 work: on the host clock between two device
 synchronizations, and under ``torch.profiler``, whose device events give
@@ -64,13 +74,15 @@ ROOT = Path(__file__).resolve().parent.parent
 SEDOV_DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 
 # substring of a CUDA kernel's name -> the port's kernel (radiation names
-# first: "rad_div_kernel" also contains "div_kernel")
+# first: "rad_div_kernel" also contains "div_kernel"; K2e is the lean
+# kernel with the register seed, counted under K2c)
 KERNEL_OF = (
     ("mhd_axis_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
     ("rad_stage1_kernel", "K4 stage 1"), ("rad_stage2_kernel", "K4 stage 2"),
     ("rad_source_kernel", "K5"), ("rad_div_kernel", "K6"),
     ("transverse_kernel", "K1"), ("lean_kernel", "K2c"), ("face_kernel", "K2 faces"),
     ("div_kernel", "K2 divergence"), ("apply_kernel", "K3"),
+    ("row_gather_kernel", "K9"),
 )
 PLAIN = "plain torch"
 MHD_WINDOW = 16  # steps of a window of MHDSimulation's main path
@@ -251,6 +263,8 @@ def by_region_kernel(events, regions, reps: int) -> dict:
 
 AMR_REGIONS = ("regrid_L0", "hydro_L0", "rad_L0", "hydro_L1", "rad_L1", "reflux_L0",
                "avgdown_L0")
+PACKED_REGIONS = AMR_REGIONS + ("regrid_L1", "hydro_L2", "rad_L2", "reflux_L1",
+                                "avgdown_L1")
 
 
 def _amr_restorer(sim):
@@ -335,6 +349,61 @@ def profile_amr(make_sim, reps: int) -> dict:
     return out
 
 
+def profile_packed() -> dict:
+    """One coarse step of the packed shell (256^3 + 2 packed pool levels)
+    after one warm-up step, run once under the profiler: its wall time, its
+    device time by kernel and by region (`PACKED_REGIONS`), the regions'
+    synchronized wall times, and its idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import ParmParse
+    from .amr import AMRSimulation
+    from .problems import radhydro_shell
+    from .utils.profiler import prof
+
+    sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(), ParmParse.from_string(
+        radhydro_shell.DECK_256_PACKED, [
+            "max_timesteps=1", "verbose=0",
+            f"amr.packed_chunk={radhydro_shell.CARD_PACKED_CHUNK}"]))
+    sim.set_initial_conditions()
+    sim.evolve()  # one warm-up step
+    print(f"\n== packed AMR shell: finest level {sim.finest_level}, active cells "
+          f"{[sim._active_cells(l) for l in range(sim.finest_level + 1)]}", flush=True)
+    prof.reset(enabled=True)
+    _sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+        dt = sim.compute_timestep()
+        if not sim.advance_single_step(dt):
+            raise RuntimeError("the coarse step failed")
+        _sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    region_wall = {name.split("/")[-1]: t * 1e3 for name, t in prof._acc.items()}
+    prof.reset(enabled=False)
+    events = tp.events()
+    by_kernel = defaultdict(float)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in PACKED_REGIONS:
+            by_kernel[kernel_of(e.name)] += e.time_range.elapsed_us() / 1e3
+    by_kernel = dict(by_kernel)
+    busy = sum(by_kernel.values())
+    by_region = {name: sum(kernels.values())
+                 for name, kernels in by_region_kernel(events, PACKED_REGIONS, 1).items()}
+    out = {"wall_ms": wall, "device_ms": busy, "idle_share": 1.0 - busy / wall,
+           "by_kernel": by_kernel, "device_ms_by_region": by_region,
+           "wall_ms_by_region": region_wall}
+    print(f"coarse step (profiled): wall {wall:.3f} ms, device {busy:.3f} ms, idle share "
+          f"{1.0 - busy / wall:.3f}; by kernel (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items())))
+    print("  by region, device ms: " + ", ".join(
+        f"{k} {by_region.get(k, 0.0):.3f}" for k in PACKED_REGIONS))
+    print("  by region, synchronized wall ms: " + ", ".join(
+        f"{k} {region_wall.get(k, 0.0):.3f}" for k in PACKED_REGIONS), flush=True)
+    del sim
+    _release()
+    return out
+
+
 def _timed_step(fn, reps: int) -> dict:
     """Wall and device time, idle share and peak memory of `fn` (one hydro
     step whose result is dropped): the peak is `max_memory_allocated`
@@ -414,6 +483,8 @@ def profile_lean(reps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3, help="repetitions of each part")
+    ap.add_argument("--packed", action="store_true",
+                    help="profile only the packed AMR shell (256^3 + 2 pool levels)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile needs a CUDA device")
@@ -430,6 +501,10 @@ def main(argv=None) -> int:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}")
     _cuda.library()
+    if args.packed:
+        print(json.dumps({"card": smi, "packed AMR radhydro shell 256^3 + 2 pool levels f32":
+                          profile_packed()}))
+        return 0
 
     def sedov():
         pp = ParmParse.from_file(str(SEDOV_DECK), overrides=["max_timesteps=1", "verbose=0"])

@@ -38,11 +38,14 @@ def main(out, precision, use_pallas, steps, n):
     Us0 = [np.asarray(u) for u in sim.level_U[:sim.finest_level + 1]]
     sim.evolve()
     levels = range(sim.finest_level + 1)
-    np.savez(out, finest=sim.finest_level, t=sim.t, cell_updates=sim.cell_updates,
+    # written whole, then renamed: a reader never sees a partial file
+    part = f"{out}.part.npz"
+    np.savez(part, finest=sim.finest_level, t=sim.t, cell_updates=sim.cell_updates,
              rel_err=np.asarray(sim.conservation_rel_err),
              **{f"U{l}": np.asarray(sim.level_U[l]) for l in levels},
              **{f"mask{l}": np.asarray(sim.level_mask[l]) for l in levels},
              **{f"init_U{l}": u for l, u in enumerate(Us0)})
+    os.replace(part, out)
 
 
 def shell_deck(n, steps):

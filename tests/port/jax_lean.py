@@ -16,6 +16,11 @@ CASE is one of
   sedov    one lean step of Sedov 16^3 through `Simulation`;
   rough    one lean step of a rough 16^3 state whose two RK stages both
            fall back;
+  corr     K2e: `compute_fluxes_pallas_div` with `corr_masks` (the AMR
+           root's flux-register seed) on a periodic CORR_N^3 box, stage 1
+           (fresh and with a FOFC mask) and stage 2 (onto stage 1's totals
+           and seed, with a FOFC mask, with and without fo_from), with
+           its inputs;
   box      one step of the rough BOX_SHAPE state, one axis above 272, which
            the JAX dispatch sends to the lean path by itself. Its sweeps run
            whole-axis (QUOKKA_PALLAS_SWEEP_CHUNK): the chunked ones give the
@@ -100,6 +105,62 @@ def kernel_inputs():
     return {"U0": rough_state(shape, 5), "U1": smooth_state(shape, 6), "mask": mask,
             "acc_div": rng.standard_normal((6,) + shape).astype(np.float32),
             "acc_dvel": rng.standard_normal(shape).astype(np.float32)}
+
+
+CORR_N = 32
+# (name, stage, fo_mask, fo_from = U0); stage 2 chains onto stage 1's
+# ("s1") totals and seed
+CORR_VARIANTS = (("s1", 1, False, False), ("s1_fo", 1, True, False),
+                 ("s2", 2, False, False), ("s2_fo", 2, True, False),
+                 ("s2_fo_from", 2, True, True))
+
+
+def corr_inputs():
+    """The seeded K2e inputs on a periodic CORR_N^3 box: U0 (rough), U1
+    (smooth), a FOFC mask flagging ~3% of the cells, and the per-axis
+    boundary-face masks of a covered block [n/4, 3n/4)^3 with a notch (a
+    level's coverage on its parent, slot f the lo face of cell f)."""
+    rng = np.random.default_rng(23)
+    n = CORR_N
+    shape = (n, n, n)
+    cov = np.zeros(shape, bool)
+    cov[n // 4:3 * n // 4, n // 4:3 * n // 4, n // 4:3 * n // 4] = True
+    cov[n // 4:n // 2, n // 4:n // 2, n // 2:3 * n // 4] = False
+    out = {"U0": rough_state(shape, 7), "U1": smooth_state(shape, 8),
+           "mask": (rng.random(shape) < 0.03).astype(np.float32)}
+    for d in range(3):
+        out[f"bm{d}"] = (cov != np.roll(cov, 1, axis=d)).astype(np.float32)
+    return out
+
+
+def run_corr():
+    import jax.numpy as jnp
+
+    from quokka_tpu.hydro import pallas_sweep as jps
+
+    inp = corr_inputs()
+    shape = (CORR_N,) * 3
+    jo = jax_opts(shape)
+    j = {k: jnp.asarray(v) for k, v in inp.items()}
+    bc = {0: None, 1: None, 2: None}
+    bms = {d: j[f"bm{d}"] for d in range(3)}
+    out = dict(inp)
+    s1 = None
+    for name, stage, masked, fo in CORR_VARIANTS:
+        kw = {}
+        if stage == 2:
+            kw = dict(acc_init=(jnp.asarray(s1["div"]), jnp.asarray(s1["dvel"])),
+                      corr_init=jnp.asarray(s1["corr"]))
+        r = jps.compute_fluxes_pallas_div(
+            j["U1" if stage == 2 else "U0"], jo, bc, accumulate=True, div_only=True,
+            fo_mask=j["mask"] if masked else None, fo_from=j["U0"] if fo else None,
+            corr_masks=bms, **kw)
+        res = {k: np.asarray(r[k]) for k in ("div", "dvel", "corr")}
+        if name == "s1":
+            s1 = res
+        for k, v in res.items():
+            out[f"{name}/{k}"] = v
+    return out
 
 
 # the box: x (above 272) and z reflecting walls, y periodic
@@ -191,7 +252,7 @@ def main(out, case):
     jax.config.update("jax_platforms", "cpu")
     os.environ["QUOKKA_PALLAS_LEAN"] = "1" if case != "box" else "auto"
     res = {"kernels": run_kernels, "sedov": run_sedov, "rough": run_rough,
-           "box": run_box}[case]()
+           "box": run_box, "corr": run_corr}[case]()
     # written whole, then renamed: a reader never sees a partial file
     part = f"{out}.part.npz"
     np.savez(part, **res)

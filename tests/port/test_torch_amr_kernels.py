@@ -283,8 +283,14 @@ def test_fill_ghosts_periodic_bitwise():
     ref = jbnd.fill_ghosts(jnp.asarray(U), NG, JBCSpec(), layout)
     got = boundaries.fill_ghosts(torch.tensor(U), NG, BCSpec())
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # reflecting walls on a hydro block (the classic float64 step's fill)
+    walls = dict(x=("reflect", "reflect"), z=("reflect", "reflect"))
+    hydro = JLayout(hydro_enabled=True, radiation_enabled=False)
+    ref = jbnd.fill_ghosts(jnp.asarray(U[:6]), NG, JBCSpec(**walls), hydro)
+    got = boundaries.fill_ghosts(torch.tensor(U[:6]), NG, BCSpec(**walls))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     with pytest.raises(NotImplementedError):
-        boundaries.fill_ghosts(torch.tensor(U), NG, BCSpec(x=("reflect", "reflect")))
+        boundaries.fill_ghosts(torch.tensor(U), NG, BCSpec(x=("outflow", "outflow")))
 
 
 # ------------------------------------------------------------------ card

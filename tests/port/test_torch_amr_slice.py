@@ -226,7 +226,8 @@ def test_reflux_required_for_conservation(reflux, request):
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("line,key", [
     ("amr.sparse_min_level = 1", "amr.sparse_min_level"),
-    ("amr.pool_packed = 1", "amr.pool_packed"),
+    pytest.param("amr.sparse_min_level = 1\namr.pool_packed = 0", "amr.pool_packed",
+                 id="unpacked pools-amr.pool_packed"),
     ("do_subcycle = 0", "do_subcycle"),
     ("cooling.enabled = 1", "cooling.enabled"),
     ("particles.enabled = 1", "particles.enabled"),

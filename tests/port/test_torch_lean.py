@@ -30,12 +30,6 @@ bounded set of threshold flips).
 - (f) the state, the function's only input, carried across from numpy.
 """
 
-import os
-import subprocess
-import sys
-import time
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -47,57 +41,21 @@ from quokka_tpu_torch.indices import EINT
 from quokka_tpu_torch.interop import state_from_numpy
 from quokka_tpu_torch.problems.sedov import DECK_512, SedovProblem
 
+from jax_ref import SharedJaxRun, run_root
 from jax_lean import (BOX_BC, BOX_SHAPE, KERNEL_BC, N, SEDOV_DECK, VARIANTS, kernel_inputs,
                       rough_state, smooth_state)
 from torch_port_common import BC_KINDS, ulp_close
 
-HERE = Path(__file__).resolve().parent
-ROOT = HERE.parent.parent
 CASES = ("box", "rough", "kernels", "sedov")  # the longest first
-
-
-class _JaxRef:
-    """One JAX reference run, shared by the xdist workers of a test run:
-    the worker that creates the lock file starts it, every worker waits for
-    its output file."""
-
-    def __init__(self, root: Path, case: str):
-        self.out = root / f"jax_lean_{case}.npz"
-        self.log = root / f"jax_lean_{case}.log"
-        self.failed = root / f"jax_lean_{case}.failed"
-        self.proc = None
-        try:
-            os.close(os.open(root / f"jax_lean_{case}.lock", os.O_CREAT | os.O_EXCL))
-        except FileExistsError:
-            return
-        env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX")
-        env.pop("QUOKKA_PALLAS_LEAN", None)
-        with open(self.log, "w") as log:
-            self.proc = subprocess.Popen(
-                [sys.executable, str(HERE / "jax_lean.py"), str(self.out), case],
-                env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
-
-    def result(self) -> dict:
-        if self.proc is not None:
-            self.proc.wait(timeout=1200)
-            if self.proc.returncode != 0:
-                self.failed.write_text(self.log.read_text()[-3000:])
-                raise AssertionError(self.failed.read_text())
-        deadline = time.monotonic() + 1200
-        while not self.out.exists():
-            assert not self.failed.exists(), self.failed.read_text()
-            assert time.monotonic() < deadline, f"no {self.out.name}"
-            time.sleep(0.2)
-        return dict(np.load(self.out))
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_refs(tmp_path_factory):
-    """{case: _JaxRef}, started at once when the module's first test runs."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent  # one directory for the whole run
-    return {case: _JaxRef(root, case) for case in CASES}
+    """{case: SharedJaxRun}, started at once when the module's first test
+    runs."""
+    root = run_root(tmp_path_factory)
+    return {case: SharedJaxRun(root, f"jax_lean_{case}", "jax_lean.py", [case])
+            for case in CASES}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -165,33 +123,35 @@ def close_outliers(b, a, rtol=3e-5, ulp_of_max=256, frac=0.005, big_frac=0.02):
     ("auto", 1088, "lean"), ("auto", 1089, "classic"), ("1", 16, "lean"),
     ("1", 256, "lean"), ("0", 256, "fused"), ("0", 512, "classic")])
 def test_dispatch_branch(pref, n, want, monkeypatch):
-    """The JAX package's rule (`quokka_tpu/hydro/advance.py:1139-1162`) on
-    a ghost-free f32 state of extent n; "classic" is its unfused XLA path,
-    which the port refuses."""
+    """The JAX package's rule (`quokka_tpu/hydro/advance.py:1139-1181`) on
+    a ghost-free f32 state of extent n; "classic" is its unfused flux
+    formulation (`_advance_hydro_rk2_classic`)."""
     monkeypatch.setenv("QUOKKA_PALLAS_LEAN", pref)
     U = torch.empty((6, n, 8, 8), device="meta")
-    if want == "classic":
-        with pytest.raises(NotImplementedError, match="classic"):
-            advance._branch(U, opts((n, 8, 8)), False, False, (0, 0, 0))
-    else:
-        assert advance._branch(U, opts((n, 8, 8)), False, False, (0, 0, 0)) == want
+    assert advance._branch(U, opts((n, 8, 8)), False, False, (0, 0, 0)) == want
 
 
 def test_dispatch_other_forms(monkeypatch):
-    """float64 and rk_order 1 never go lean; the padded AMR level with flux
-    outputs keeps the fused kernels at 520; the padded lean form and rk1
-    above 272 raise."""
+    """float64 and rk_order 1 above 272 take the classic form; the padded
+    AMR level with flux outputs keeps the fused kernels at 520; the padded
+    lean form raises; the register seed forces lean at any extent."""
     monkeypatch.setenv("QUOKKA_PALLAS_LEAN", "auto")
     o = opts((512, 8, 8))
     big = torch.empty((6, 512, 8, 8), device="meta")
-    assert advance._branch(big.double(), o, False, False, (0, 0, 0)) == "fused"
+    assert advance._branch(big.double(), o, False, False, (0, 0, 0)) == "classic"
     assert advance._branch(big, o, True, True, (4, 4, 4)) == "fused"
     with pytest.raises(NotImplementedError, match="padded"):
         advance._branch(big, o, True, False, (4, 4, 4))
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="classic"):
-        advance._branch(big, dataclasses.replace(o, rk_order=1), False, False, (0, 0, 0))
+    assert advance._branch(big, dataclasses.replace(o, rk_order=1), False, False,
+                           (0, 0, 0)) == "classic"
+    small = torch.empty((6, 16, 8, 8), device="meta")
+    assert advance._branch(small, opts((16, 8, 8)), False, False, (0, 0, 0),
+                           corr=True) == "lean"
+    with pytest.raises(NotImplementedError, match="reflux_corr_masks"):
+        advance._branch(small.double(), opts((16, 8, 8)), False, False, (0, 0, 0),
+                        corr=True)
     monkeypatch.setenv("QUOKKA_PALLAS_LEAN", "1")
     with pytest.raises(NotImplementedError, match="padded"):
         advance.advance_hydro_rk2(torch.zeros((6, 8, 8, 8)), 0.1, opts((8, 8, 8)),
@@ -212,31 +172,27 @@ def test_sedov_512_goes_lean_256_stays_fused(monkeypatch):
 
 
 def test_advance_runs_the_branch(monkeypatch):
-    """`advance_hydro_rk2` calls the branch `_branch` names, and raises
-    before any work where JAX would run its classic path."""
+    """`advance_hydro_rk2` calls the branch `_branch` names, the classic
+    form where JAX runs its XLA path."""
     calls = []
-    monkeypatch.setattr(advance, "_advance_hydro_rk2_lean",
-                        lambda *a: calls.append("lean") or (a[0], {}))
-    monkeypatch.setattr(advance, "_advance_hydro_rk2_fused",
-                        lambda *a: calls.append("fused") or (a[0], {}))
+    for name, tag in (("_advance_hydro_rk2_lean", "lean"), ("_advance_hydro_rk2_fused", "fused"),
+                      ("_advance_hydro_rk2_classic", "classic")):
+        monkeypatch.setattr(advance, name,
+                            lambda *a, tag=tag, **k: calls.append(tag) or (a[0], {}))
     bc = BC_KINDS["reflect_all"]
     for pref, n, want in (("auto", 280, "lean"), ("auto", 16, "fused"), ("1", 16, "lean"),
-                          ("0", 16, "fused")):
+                          ("0", 16, "fused"), ("0", 280, "classic")):
         monkeypatch.setenv("QUOKKA_PALLAS_LEAN", pref)
         advance.advance_hydro_rk2(torch.zeros((6, n, 4, 4)), 0.1, opts((n, 4, 4)), None,
                                   (0, 0, 0), periodic(bc), bc_kinds=bc)
         assert calls.pop() == want, (pref, n)
-    monkeypatch.setenv("QUOKKA_PALLAS_LEAN", "0")
-    with pytest.raises(NotImplementedError, match="classic unfused"):
-        advance.advance_hydro_rk2(torch.zeros((6, 280, 4, 4)), 0.1, opts((280, 4, 4)), None,
-                                  (0, 0, 0), periodic(bc), bc_kinds=bc)
     assert not calls
 
 
 def test_lean_options_contract():
     """K2c's argument rules: the accumulators and the blend belong to the
-    div-only sweep, fo_from needs fo_mask, the packed engine's `corr_*`
-    (K2e) stays unported."""
+    div-only sweep, fo_from needs fo_mask, the register seed (`corr_*`,
+    K2e) needs the accumulated div-only sweep and its mask."""
     U = torch.tensor(smooth_state((8, 8, 8), 1))
     o = opts((8, 8, 8))
     m = torch.zeros((8, 8, 8))
@@ -248,9 +204,12 @@ def test_lean_options_contract():
         sweep.compute_axis_flux(U, 0, o, None, {}, dx_axis=0.1, div_only=True, fo_from=U)
     with pytest.raises(ValueError):
         sweep.compute_fluxes_pallas_div(U, o, None, avg_with={}, div_only=True)
-    with pytest.raises(NotImplementedError):
-        sweep.compute_fluxes_pallas_div(U, o, None, div_only=True, accumulate=True,
+    with pytest.raises(ValueError, match="corr_masks"):
+        sweep.compute_fluxes_pallas_div(U, o, None, div_only=True,
                                         corr_masks={0: m, 1: m, 2: m})
+    with pytest.raises(ValueError, match="corr_init"):
+        sweep.compute_fluxes_pallas_div(U, o, None, div_only=True, accumulate=True,
+                                        corr_init=U.clone())
 
 
 # ------------------------------------------------------- (d) lean vs fused

@@ -158,7 +158,10 @@ def test_import_keeps_jax_out():
             "quokka_tpu_torch.mhd.simulation, quokka_tpu_torch.problems.mhd, "
             "quokka_tpu_torch.amr, quokka_tpu_torch.amr.hierarchy, "
             "quokka_tpu_torch.amr.operators, quokka_tpu_torch.boundaries, "
-            "quokka_tpu_torch.problems.radhydro_shell; "
+            "quokka_tpu_torch.problems.radhydro_shell, quokka_tpu_torch.amr.tilepool, "
+            "quokka_tpu_torch.amr.sparse, quokka_tpu_torch.amr.pool_advance, "
+            "quokka_tpu_torch.amr.packed, quokka_tpu_torch.amr.packed_driver, "
+            "quokka_tpu_torch.radiation.pool; "
             "bad = [m for m in sys.modules if m in ('jax', 'quokka_tpu') or m.startswith(('jax.', 'quokka_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)

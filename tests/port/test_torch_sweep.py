@@ -124,7 +124,13 @@ def test_k3_apply(rough):
 
 def test_wrappers_reject_unported_options(case):
     with pytest.raises(NotImplementedError):
-        sweep.compute_fluxes_pallas_div(case["U0"], case["opts"], case["bc"],
+        sweep.compute_axis_flux(case["U0"], 0, case["opts"], None, {},
+                                chi_ghost_axis=(None, None))
+    # the register seed (K2e) is ported on ghost-free periodic axes only
+    walls = {d: b for d, b in case["bc"].items()}
+    walls[0] = ("reflect", "reflect")
+    with pytest.raises(ValueError, match="corr_mask"):
+        sweep.compute_fluxes_pallas_div(case["U0"], case["opts"], walls,
                                         div_only=True, accumulate=True,
                                         corr_masks={d: torch.zeros(N, N, N) for d in range(3)})
     with pytest.raises(NotImplementedError):
