@@ -232,7 +232,7 @@ def _bump_problem():
     """The hydro-only Gaussian bump of the JAX package's tests/test_packed_
     engine.py, its root tagged on the middle half: at 32^3 + 1 packed level
     its 2 x 2 x 2 tiles sit inside the domain and the root takes the seeded
-    lean step."""
+    lean step; a second packed level tags the middle quarter of the first."""
     import numpy as np
     import torch
 
@@ -261,6 +261,18 @@ def _bump_problem():
             m = np.zeros(n, bool)
             m[n // 4:3 * n // 4] = level == 0
             return torch.as_tensor(m[:, None, None] & m[None, :, None] & m[None, None, :])
+
+        def error_est_local(self, U_padded, grid, level, origin):
+            """A packed level's tags: its cells in [3n/8, 5n/8)^3 by global
+            index, for padded tiles [c, nvar, X, Y, Z] at `origin` [c, 3]
+            (at max_level 2, level 2 is 2 x 2 x 2 tiles inside level 1)."""
+            ts = 16
+            g = (U_padded.shape[2] - ts) // 2
+            lo, hi = grid.n_cell[0] * 3 // 8, grid.n_cell[0] * 5 // 8
+            idx = torch.arange(-g, ts + g, device=U_padded.device)
+            m = [(origin[:, d, None] + idx >= lo) & (origin[:, d, None] + idx < hi)
+                 for d in range(3)]
+            return m[0][:, :, None, None] & m[1][:, None, :, None] & m[2][:, None, None, :]
 
     return Bump()
 
@@ -633,7 +645,7 @@ def main() -> int:
 
     run_cases(f"K9, level-1 chunk of 64 x 26 neighbour rows (pools of {st1.meta.capacity} rows)",
               gather_cases, lambda c: True, summary, failed, bitwise)
-    summary["row_gather"]["library_ms"] = sum(kernel_check.time_ms(c.run_plain)
+    summary["row_gather"]["library_ms"] = sum(kernel_check.time_ms(c.run_library)
                                               for c in gather_cases)
     w = psweep.donor_pad_width(psim._g)
     th0 = torch.zeros((), dtype=torch.float32, device="cuda")
@@ -806,11 +818,16 @@ def main() -> int:
 
     print("-- packed AMR, GPU vs CPU per level, equal tile sets and FOFC counts: the "
           "hydro bump 32^3 + 1 packed level f32, 2 coarse steps (the seeded root, K2e); "
-          "the radhydro shell 32^3 + 1 packed level f32, 1 coarse step")
+          "the bump 32^3 + 2 packed levels f32, 2 coarse steps with regrid_interval 1 "
+          "(average-down and reflux into a packed parent, pool backdrops, the packed "
+          "regrid of level 2, the root's regrid with the grandchild pins); the radhydro "
+          "shell 32^3 + 1 packed level f32, 1 coarse step")
     shell32 = radhydro_shell.DECK_256_PACKED.replace("256 256 256", "32 32 32").replace(
         "amr.max_level = 2", "amr.max_level = 1")
+    bump2 = BUMP_DECK.replace("amr.max_level = 1", "amr.max_level = 2") + "regrid_interval = 1\n"
     for title, prob, deck, nsteps in (
             ("bump", _bump_problem(), BUMP_DECK, 2),
+            ("bump 2 levels", _bump_problem(), bump2, 2),
             ("shell", radhydro_shell.RadhydroShellProblem(), shell32, 1)):
         runs = {}
         for dev in ("cuda", "cpu"):
@@ -820,23 +837,30 @@ def main() -> int:
                 "amr.pool_chunk=8"]), device=dev, precision="single")
             sim.set_initial_conditions()
             sim.evolve()
-            st = sim.level_pool[1]
-            n = st.meta.n_active
-            runs[dev] = (sim.level_U[0].double().cpu(),
-                         torch.cat([st.Uh[:n], st.Ur[:n]], 1).double().cpu()
-                         if st.Ur is not None else st.Uh[:n].double().cpu(),
-                         st.meta.ijk[:n].copy(), sim.fofc_cells, sim.fofc_fallbacks)
+            rows, tiles = [], []
+            for st in sim.level_pool[1:sim.finest_level + 1]:
+                n = st.meta.n_active
+                rows.append(torch.cat([st.Uh[:n], st.Ur[:n]], 1).double().cpu()
+                            if st.Ur is not None else st.Uh[:n].double().cpu())
+                tiles.append(st.meta.ijk[:n].copy())
+            runs[dev] = (sim.level_U[0].double().cpu(), rows, tiles, sim.fofc_cells,
+                         sim.fofc_fallbacks)
             counts = read_counts()
-            print(f"  {title} {dev}: {n} tiles, t {sim.t:.9e}, FOFC {sim.fofc_fallbacks} "
-                  f"fallbacks / {sim.fofc_cells} cells, launches K2e "
+            print(f"  {title} {dev}: tiles {[len(t) for t in tiles]}, t {sim.t:.9e}, FOFC "
+                  f"{sim.fofc_fallbacks} fallbacks / {sim.fofc_cells} cells, launches K2e "
                   f"{counts['axis_flux_corr']} K9 {counts['row_gather']} K2 "
                   f"{counts['axis_flux']} K7 {counts['rad_axis_flux']}")
         (Ug, Pg, ig, fg, bg), (Uc, Pc, ic, fc, bc_) = runs["cuda"], runs["cpu"]
-        if not (ig.shape == ic.shape and (ig == ic).all() and (fg, bg) == (fc, bc_)):
+        if not (len(ig) == len(ic) and all(a.shape == b.shape and (a == b).all()
+                                           for a, b in zip(ig, ic))
+                and (fg, bg) == (fc, bc_)):
             raise SystemExit(f"packed {title}: GPU and CPU tile sets or FOFC counts differ")
+        if title == "bump 2 levels" and len(ig) != 2:
+            raise SystemExit(f"packed {title}: {len(ig)} pool levels, expected 2")
         gpu_vs_cpu(Ug, Uc, f"packed {title} root GPU vs CPU", 5e-6, 5e-6)
-        gpu_vs_cpu(Pg.transpose(0, 1), Pc.transpose(0, 1), f"packed {title} level 1 GPU vs CPU",
-                   5e-6, 5e-6)
+        for lev, (a, b) in enumerate(zip(Pg, Pc), start=1):
+            gpu_vs_cpu(a.transpose(0, 1), b.transpose(0, 1),
+                       f"packed {title} level {lev} GPU vs CPU", 5e-6, 5e-6)
         del runs, sim, st
     release()
 

@@ -35,7 +35,8 @@ old pool (two pools live during a level substep, not one plus a window).
 A chunk's FOFC checks are Python `if`s on one host read each, where the
 JAX package has a `lax.cond`. The register scatter of a pool child into
 its pool parent takes the active child rows only (the JAX program's
-dynamic slice clamps a spare row's parent slot -1 to slot 0).
+`dynamic_slice` wraps a spare row's parent slot -1 to the parent pool's
+last row, `allow_negative_indices`, and adds the spare row there).
 """
 
 from __future__ import annotations
@@ -65,34 +66,32 @@ def reset_launch_counts() -> None:
 def row_gather_plain(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Plain version of K9: `torch.index_select` of rows; an index outside
     [0, cap) raises IndexError."""
-    r = rows.to(torch.int64)
-    if r.numel() and (int(r.min()) < 0 or int(r.max()) >= pool.shape[0]):
-        raise IndexError(f"row index outside [0, {pool.shape[0]})")
-    return torch.index_select(pool, 0, r)
+    return torch.index_select(pool, 0, rows.to(torch.int64))
 
 
 _err_flags: Dict[torch.device, torch.Tensor] = {}
 
 
 def check_gathers(device) -> None:
-    """Raise IndexError if an unchecked K9 launch on `device` (check=False)
-    met an index outside its pool since the last check; one host read."""
+    """Raise IndexError if a K9 launch on `device` met an index outside its
+    pool since the last check; one host read (none on the CPU, where the
+    plain version raises at once)."""
     flag = _err_flags.get(torch.device(device))
     if flag is not None and int(flag.item()) != 0:
         flag.zero_()
         raise IndexError("a K9 row gather met a row index outside its pool")
 
 
-def row_gather(pool: torch.Tensor, rows: torch.Tensor, check: bool = True) -> torch.Tensor:
+def row_gather(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """K9 (`quokka_tpu/amr/packed.py::row_gather`): pool[rows] for a pool
     [cap, ...] of contiguous rows and an int32 index [n], into a fresh
     [n, ...] tensor. On a CUDA tensor it launches the kernel (one block a
-    row, 16-byte vectors), which flags an index outside [0, cap); `check`
-    reads that flag at once (a host sync) and raises IndexError, else the
-    flag waits for `check_gathers`. On the CPU: `row_gather_plain`."""
+    row, 16-byte vectors), which zero-fills a row whose index lies outside
+    [0, cap) and raises the device's error flag, read by `check_gathers`
+    (no host sync here). On the CPU: `row_gather_plain`."""
     if not _on_cuda(pool):
         return row_gather_plain(pool, rows)
-    from .._cuda import check as check_err, library
+    from .._cuda import check, library
 
     lib = library()
     if not pool.is_contiguous():
@@ -105,18 +104,13 @@ def row_gather(pool: torch.Tensor, rows: torch.Tensor, check: bool = True) -> to
         raise ValueError(f"K9 rows must be a multiple of 16 bytes, got {row_bytes}")
     out = torch.empty((rows.shape[0],) + tuple(pool.shape[1:]), dtype=pool.dtype,
                       device=pool.device)
-    if check:
-        err = torch.zeros(1, dtype=torch.int32, device=pool.device)
-    else:
-        err = _err_flags.setdefault(pool.device, torch.zeros(1, dtype=torch.int32,
-                                                             device=pool.device))
+    err = _err_flags.setdefault(pool.device, torch.zeros(1, dtype=torch.int32,
+                                                         device=pool.device))
     code = lib.qk_row_gather(pool.data_ptr(), rows.data_ptr(), out.data_ptr(),
                              rows.shape[0], row_bytes, pool.shape[0], err.data_ptr(),
                              _stream(pool))
-    check_err(code, "row_gather")
+    check(code, "row_gather")
     launch_counts["row_gather"] += 1
-    if check and int(err.item()) != 0:
-        raise IndexError(f"row index outside [0, {pool.shape[0]})")
     return out
 
 
@@ -184,7 +178,7 @@ def assemble_blocks(Up: torch.Tensor, own: torch.Tensor, nbr_c: torch.Tensor,
     neighbour rows are `nbr_c` [c, 26]."""
     chunk, nv = own.shape[:2]
     T = int(np.prod(ts))
-    nb = row_gather(Up, torch.clamp(nbr_c.reshape(-1), min=0), check=False)
+    nb = row_gather(Up, torch.clamp(nbr_c.reshape(-1), min=0))
     rows = torch.cat([nb.reshape(chunk, len(tp.DIRS), nv, T),
                       own.reshape(chunk, 1, nv, T)], dim=1)
     del nb
@@ -381,7 +375,7 @@ def pool_parent_blocks(Up, gp_dense, rows, nbr_p, org_p, g, ts, active,
     nbr_c = nbr_p.index_select(0, r64)
     bd0 = tp.make_backdrop_from_dense(gp_dense, org_p.index_select(0, r64), ts, gp2,
                                       gp2 if gp_width is None else gp_width, active)
-    return assemble_blocks(Up, row_gather(Up, rows, check=False), nbr_c, bd0, gp2, ts)
+    return assemble_blocks(Up, row_gather(Up, rows), nbr_c, bd0, gp2, ts)
 
 
 def pool_backdrop(prepped, po_c, tau, gf, g, ts, active):

@@ -188,10 +188,10 @@ def avgdown_packed(sim, l: int):
         sl = slice(i0, i0 + chunk)
         cs_c = st.child_slots[sl]
         rows = torch.clamp(cs_c.reshape(-1), min=0)
-        parts = [ops.restrict(pk.row_gather(child.Uh, rows, check=False), active)]
+        parts = [ops.restrict(pk.row_gather(child.Uh, rows), active)]
         own = [st.Uh[sl]]
         if child.Ur is not None:
-            parts.append(ops.restrict(pk.row_gather(child.Ur, rows, check=False), active))
+            parts.append(ops.restrict(pk.row_gather(child.Ur, rows), active))
             own.append(st.Ur[sl])
         restr = torch.cat(parts, dim=1).reshape(chunk, 2, 2, 2, nv, *half)
         out = _octant_assemble(torch.cat(own, dim=1), restr, cs_c, half)
@@ -200,6 +200,7 @@ def avgdown_packed(sim, l: int):
         st.Uh[sl] = out[:, :nh]
         if st.Ur is not None:
             st.Ur[sl] = out[:, nh:]
+    pk.check_gathers(st.Uh.device)
 
 
 def avgdown_packed_into_dense(sim, l: int):

@@ -14,12 +14,14 @@
 // are 16-byte aligned: the wrapper checks), neighbouring threads on
 // neighbouring addresses, so every load and store is coalesced. An index
 // outside [0, cap) copies nothing (the row is zero-filled) and sets the
-// error flag, which the wrapper turns into an IndexError.
+// error flag, which the wrapper's `check_gathers` turns into an IndexError.
 //
-// Bound on the H100: bytes. Each gathered row is read once and written
-// once, 2 x n x row bytes; a level-2 chunk's 64 x 26 neighbour rows of the
-// hydro pool (6 x 16^3 f32, 96 KiB a row) are 0.33 GB, >= 0.10 ms at
-// 3.35 TB/s. There is no arithmetic.
+// Bound on the H100: bytes. Each distinct row of the index is read once
+// and each gathered row written once, (d + n) x row bytes: the index
+// repeats rows (neighbouring tiles share neighbours; a missing neighbour
+// is clamped to row 0). A level-2 chunk's 64 x 26 neighbour rows of the
+// hydro pool (6 x 16^3 f32, 96 KiB a row) write 0.16 GB, >= 0.05 ms at
+// 3.35 TB/s, before the reads. There is no arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -442,23 +442,40 @@ def _bc_codes(bc_axis):
     return (0, 0) if bc_axis is None else (1, 1)
 
 
-def _transverse_axis_cuda(U, t: int, opts, bc_axis, state_is_cons: bool):
+def _transverse_axis_cuda(U5, t: int, opts, bc_axis, state_is_cons: bool):
+    """Launch K1 along `t` over a batch of states [B, 6, X, Y, Z] (B = 1 for
+    one state): dmin, chi's 3-point min and chi, each [B, X, Y, Z] (the
+    last two None without flattening)."""
     from .._cuda import check, library
 
     lib = library()
-    _check_kernel_inputs(opts, U)
+    if U5.dim() != 5:
+        raise ValueError(f"expected [B, 6, X, Y, Z] states, got {tuple(U5.shape)}")
+    _check_kernel_inputs(opts, U5[0], U5)
     lo, hi = _bc_codes(bc_axis)
-    X, Y, Z = U.shape[1:]
+    B, _, X, Y, Z = U5.shape
     do_chi = opts.use_flattening and opts.reconstruction_order == 3
-    dmin = torch.empty((X, Y, Z), dtype=U.dtype, device=U.device)
+    dmin = torch.empty((B, X, Y, Z), dtype=U5.dtype, device=U5.device)
     m3 = torch.empty_like(dmin) if do_chi else None
     chi = torch.empty_like(dmin) if do_chi else None
-    err = lib.qk_transverse(U.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
-                            X, Y, Z, 1, t, lo, hi, int(state_is_cons), int(do_chi),
-                            *_eos_args(opts), _stream(U))
+    err = lib.qk_transverse(U5.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
+                            X, Y, Z, B, t, lo, hi, int(state_is_cons), int(do_chi),
+                            *_eos_args(opts), _stream(U5))
     check(err, "transverse")
     launch_counts["transverse"] += 1
     return dmin, m3, chi
+
+
+def _transverse_cuda(U5, opts, bc_kinds: dict | None, state_is_cons: bool):
+    """K1 over all active axes of a batch [B, 6, X, Y, Z]: (dmins, chi_cell),
+    chi_cell the min over axes of each axis's 3-point min of chi."""
+    dmins, chi_cell = {}, None
+    for t in opts.active_axes:
+        bc_axis = None if bc_kinds is None else bc_kinds.get(t)
+        dmins[t], m3, _ = _transverse_axis_cuda(U5, t, opts, bc_axis, state_is_cons)
+        if m3 is not None:
+            chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
+    return dmins, chi_cell
 
 
 def precompute_transverse(U, opts, bc_kinds: dict | None,
@@ -468,13 +485,8 @@ def precompute_transverse(U, opts, bc_kinds: dict | None,
     axis's 3-point min of chi, folded in PyTorch."""
     if not _on_cuda(U):
         return precompute_transverse_plain(U, opts, bc_kinds, state_is_cons)
-    dmins, chi_cell = {}, None
-    for t in opts.active_axes:
-        bc_axis = None if bc_kinds is None else bc_kinds.get(t)
-        dmins[t], m3, _ = _transverse_axis_cuda(U, t, opts, bc_axis, state_is_cons)
-        if m3 is not None:
-            chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
-    return dmins, chi_cell, {}
+    dmins, chi_cell = _transverse_cuda(U[None], opts, bc_kinds, state_is_cons)
+    return {t: m[0] for t, m in dmins.items()}, _unbatch(chi_cell), {}
 
 
 def _unsupported(**kw):
@@ -522,29 +534,19 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
                                     bc_axis, dx_axis, state_is_cons, acc, fo_mask,
                                     fo_from, corr_mask, corr_acc)
     avg = tuple(avg_with) if avg_with is not None else ()
-    _check_kernel_inputs(opts, U, chi, dminv, dminw, *avg)
-    lo, hi = _bc_codes(bc_axis)
+    _check_kernel_inputs(opts, U, *avg)
     wall = bc_axis is not None
     X, Y, Z = U.shape[1:]
     plane = tuple(s for a, s in enumerate((X, Y, Z)) if a != axis)
-    cell = (X, Y, Z)
-    _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")]
-                  + list(zip(avg, (U.shape, cell, (6,) + plane, plane),
-                             ("avg flux", "avg facevel", "avg flux_hi", "avg vel_hi"))))
+    _check_shapes(list(zip(avg, (U.shape, (X, Y, Z), (6,) + plane, plane),
+                           ("avg flux", "avg facevel", "avg flux_hi", "avg vel_hi"))))
     if avg_with is not None and len(avg) != (4 if wall else 2):
         raise ValueError("avg_with holds (F, v) on a periodic axis, "
                          "(F, v, F_hi, v_hi) on a wall axis")
-    F = torch.empty_like(U)
-    v = torch.empty((X, Y, Z), dtype=U.dtype, device=U.device)
-    Fh = torch.empty((6,) + plane, dtype=U.dtype, device=U.device) if wall else None
-    vh = torch.empty(plane, dtype=U.dtype, device=U.device) if wall else None
+    F, v, Fh, vh = map(_unbatch, _axis_faces_cuda(
+        lib, U[None], axis, opts, _batch(chi), _batch(dminv), _batch(dminw), bc_axis,
+        state_is_cons, first_order))
     stream = _stream(U)
-    err = lib.qk_axis_flux(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
-                           F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
-                           X, Y, Z, 1, axis, lo, hi, int(state_is_cons),
-                           int(first_order), float(opts.K_visc),
-                           *_eos_args(opts), stream)
-    check(err, "axis_flux")
     faces = (F, v, Fh, vh) if wall else (F, v)
     if dx_axis is None:
         launch_counts["axis_flux"] += 1
@@ -566,6 +568,49 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     if avg_with is not None:
         return div, dvel
     return faces + (div, dvel)
+
+
+def _batch(t):
+    return None if t is None else t[None]
+
+
+def _unbatch(t):
+    return None if t is None else t[0]
+
+
+def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
+                     state_is_cons: bool, first_order: bool):
+    """Launch K2's face mode along `axis` over a batch [B, 6, X, Y, Z] (B = 1
+    for one state; the per-cell fields [B, X, Y, Z]): (F [B, 6, X, Y, Z],
+    v [B, X, Y, Z], F_hi, v_hi), the last two the wall's extra high faces
+    [B, 6, plane] / [B, plane] on a wall axis (one state only), else None.
+    The caller counts the launch."""
+    from .._cuda import check
+
+    if U5.dim() != 5:
+        raise ValueError(f"expected [B, 6, X, Y, Z] states, got {tuple(U5.shape)}")
+    if not first_order and opts.reconstruction_order != 3:
+        raise NotImplementedError("the CUDA sweep reconstructs with PPM only")
+    _check_kernel_inputs(opts, U5[0], U5, chi, dminv, dminw)
+    B, _, X, Y, Z = U5.shape
+    cell = (B, X, Y, Z)
+    _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")])
+    lo, hi = _bc_codes(bc_axis)
+    wall = bc_axis is not None
+    if wall and B != 1:
+        raise ValueError("a wall axis takes one state, not a batch")
+    plane = tuple(s for a, s in enumerate((X, Y, Z)) if a != axis)
+    F = torch.empty_like(U5)
+    v = torch.empty(cell, dtype=U5.dtype, device=U5.device)
+    Fh = torch.empty((B, 6) + plane, dtype=U5.dtype, device=U5.device) if wall else None
+    vh = torch.empty((B,) + plane, dtype=U5.dtype, device=U5.device) if wall else None
+    err = lib.qk_axis_flux(U5.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+                           F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
+                           X, Y, Z, B, axis, lo, hi, int(state_is_cons),
+                           int(first_order), float(opts.K_visc), *_eos_args(opts),
+                           _stream(U5))
+    check(err, "axis_flux")
+    return F, v, Fh, vh
 
 
 def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order,
@@ -778,44 +823,14 @@ def compute_fluxes_batched(Ug5, opts, first_order: bool = False):
                 fv.setdefault(d, []).append(v1[d])
         return ({d: torch.stack(x) for d, x in fl.items()},
                 {d: torch.stack(x) for d, x in fv.items()})
-    from .._cuda import check, library
+    from .._cuda import library
 
     lib = library()
-    if Ug5.dim() != 5:
-        raise ValueError(f"expected [B, 6, X, Y, Z] blocks, got {tuple(Ug5.shape)}")
-    if not first_order and opts.reconstruction_order != 3:
-        raise NotImplementedError("the CUDA sweep reconstructs with PPM only")
-    _check_kernel_inputs(opts, Ug5[0])
-    if not Ug5.is_contiguous():
-        raise ValueError("the CUDA hydro kernels take contiguous tensors")
-    B, _, X, Y, Z = Ug5.shape
-    stream = _stream(Ug5)
-    ea = _eos_args(opts)
-    dmins, chi_cell = {}, None
-    do_chi = opts.use_flattening and opts.reconstruction_order == 3
-    if not first_order:
-        for t in opts.active_axes:
-            dmin = torch.empty((B, X, Y, Z), dtype=Ug5.dtype, device=Ug5.device)
-            m3 = torch.empty_like(dmin) if do_chi else None
-            chi = torch.empty_like(dmin) if do_chi else None
-            err = lib.qk_transverse(Ug5.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
-                                    X, Y, Z, B, t, 0, 0, 1, int(do_chi), *ea, stream)
-            check(err, "transverse")
-            launch_counts["transverse"] += 1
-            dmins[t] = dmin
-            if m3 is not None:
-                chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
+    dmins, chi_cell = ({}, None) if first_order else _transverse_cuda(Ug5, opts, None, True)
     fl, fv = {}, {}
     for d in opts.active_axes:
         vax, wax = _transverse_axes(d, max(opts.ndim, 1))
-        dminv = dmins.get(vax) if vax in opts.active_axes else None
-        dminw = dmins.get(wax) if wax in opts.active_axes else None
-        F = torch.empty_like(Ug5)
-        v = torch.empty((B, X, Y, Z), dtype=Ug5.dtype, device=Ug5.device)
-        err = lib.qk_axis_flux(Ug5.data_ptr(), _ptr(chi_cell), _ptr(dminv), _ptr(dminw),
-                               F.data_ptr(), v.data_ptr(), None, None, X, Y, Z, B, d,
-                               0, 0, 1, int(first_order), float(opts.K_visc), *ea, stream)
-        check(err, "axis_flux")
+        fl[d], fv[d], _, _ = _axis_faces_cuda(lib, Ug5, d, opts, chi_cell, dmins.get(vax),
+                                              dmins.get(wax), None, True, first_order)
         launch_counts["axis_flux"] += 1
-        fl[d], fv[d] = F, v
     return fl, fv

@@ -175,7 +175,10 @@ class Case(NamedTuple):
     cost: Callable[[], tuple] = lambda: (0, 0)  # (bytes, FP32 operations)
     scaled: bool = False  # compare with compare_scaled (Newton coupling)
     # what to time, where run_kernel must copy an input it updates in place
+    # or checks its result with a host read
     run_timed: Callable[[], object] | None = None
+    # the one PyTorch call that computes the same function, where there is one
+    run_library: Callable[[], object] | None = None
 
     def check(self):
         """Run both versions; (ok, max_abs_err, max_rel_err, kernel result,
@@ -647,18 +650,31 @@ def corr_cases(U0: torch.Tensor, U1: torch.Tensor, opts, corr_masks: dict, seed:
 
 def gather_cases(pools: dict, rows: torch.Tensor) -> Iterator[Case]:
     """K9 on each pool of `pools` ({label: [cap, ...] tensor}) for the int32
-    row index `rows` against `torch.index_select` (its plain version, which
-    is also the one PyTorch call that computes the function). Bytes: each
-    gathered row read once and written once."""
+    row index `rows` against its plain version. The compared call reads the
+    kernel's error flag after the gather (`check_gathers`); the timed one
+    launches only, as the main path does. The library call is
+    `torch.index_select` with its int64 index built beforehand. Bytes: each
+    distinct row read once (the index repeats rows: neighbouring tiles
+    share neighbours, a missing one is clamped to row 0), each gathered row
+    written once."""
     from .amr import packed
 
+    rows64 = rows.to(torch.int64)
+    distinct = int(torch.unique(rows).numel())
     for label, pool in pools.items():
         row_bytes = pool[0].numel() * pool.element_size()
-        cost = (2 * rows.numel() * row_bytes, 0)
-        yield Case("row_gather", f"K9 {label}",
-                   lambda pool=pool: packed.row_gather(pool, rows),
+        cost = ((distinct + rows.numel()) * row_bytes, 0)
+
+        def checked(pool=pool):
+            out = packed.row_gather(pool, rows)
+            packed.check_gathers(pool.device)
+            return out
+
+        yield Case("row_gather", f"K9 {label}", checked,
                    lambda pool=pool: packed.row_gather_plain(pool, rows),
-                   lambda cost=cost: cost)
+                   lambda cost=cost: cost,
+                   run_timed=lambda pool=pool: packed.row_gather(pool, rows),
+                   run_library=lambda pool=pool: torch.index_select(pool, 0, rows64))
 
 
 def batched_cases(Ug5: torch.Tensor, R5: torch.Tensor, opts, ropts,

@@ -143,26 +143,15 @@ def compute_rad_axis_flux(cons_flat: torch.Tensor, axis: int,
     raises: one group, float32 (else TypeError), no wavespeed correction."""
     if not _on_cuda(cons_flat):
         return rad_axis_flux_plain(cons_flat, axis, opts)
-    from .._cuda import check, library
-
-    lib = library()
-    check_kernel_inputs(opts, 4, cons_flat)
-    X, Y, Z = cons_flat.shape[1:]
-    params = rad_params(opts, (1.0, 1.0, 1.0))
-    out = torch.empty((1, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
-    err = lib.qk_rad_axis_flux(cons_flat.data_ptr(), out.data_ptr(), X, Y, Z, 1, axis,
-                               ctypes.addressof(params), _stream(cons_flat))
-    check(err, "rad_axis_flux")
-    launch_counts["rad_axis_flux"] += 1
-    return out
+    return compute_rad_axis_flux_batched(cons_flat[None], axis, opts)[0]
 
 
 def compute_rad_axis_flux_batched(cons5: torch.Tensor, axis: int,
                                   opts: RadOptions) -> torch.Tensor:
-    """K7 over a chunk of ghost-padded radiation blocks [B, 4, X, Y, Z] (the
-    packed AMR engine; the JAX package vmaps its flux function over them):
-    [B, 1, 4, X, Y, Z], one launch for the chunk on a CUDA tensor, the plain
-    version block by block on the CPU."""
+    """K7 over a batch of radiation blocks [B, 4, X, Y, Z] (B = 1 for one
+    block; the packed AMR engine's chunks of ghost-padded blocks, over which
+    the JAX package vmaps its flux function): [B, 1, 4, X, Y, Z], one launch
+    on a CUDA tensor, the plain version block by block on the CPU."""
     if not _on_cuda(cons5):
         return torch.stack([rad_axis_flux_plain(c, axis, opts) for c in cons5])
     from .._cuda import check, library
@@ -170,11 +159,8 @@ def compute_rad_axis_flux_batched(cons5: torch.Tensor, axis: int,
     lib = library()
     if cons5.dim() != 5:
         raise ValueError(f"expected [B, 4, X, Y, Z] blocks, got {tuple(cons5.shape)}")
-    B = cons5.shape[0]
-    check_kernel_inputs(opts, 4, cons5[0])
-    if not cons5.is_contiguous():
-        raise ValueError("the CUDA radiation kernels take contiguous tensors")
-    X, Y, Z = cons5.shape[2:]
+    check_kernel_inputs(opts, 4, cons5[0], cons5)
+    B, _, X, Y, Z = cons5.shape
     params = rad_params(opts, (1.0, 1.0, 1.0))
     out = torch.empty((B, 1, 4, X, Y, Z), dtype=cons5.dtype, device=cons5.device)
     err = lib.qk_rad_axis_flux(cons5.data_ptr(), out.data_ptr(), X, Y, Z, B, axis,

@@ -14,10 +14,14 @@ the caller; why: tests/port/jax_amr_shell.py). Two problems:
 Both tag the root's middle half (`amr.n_error_buf = 0`), as
 tests/port/packed_problems.py does on the port's side.
 
-    python tests/port/jax_packed.py OUT.npz PROBLEM STEPS N CHUNK [MAX_LEVEL]
+    python tests/port/jax_packed.py OUT.npz PROBLEM STEPS N CHUNK [MAX_LEVEL [REGRID]]
+
+(MAX_LEVEL 1 and REGRID, the regrid interval, 2 by default.)
 
 The output holds the root, each packed level's active tiles (ijk) and rows
 (Uh, Ur), at the start ("init_") and after the steps, and the FOFC count.
+The initial state alone goes to OUT.init.npz (OUT ending in .npz) before
+the steps, so that the caller can start its own run meanwhile.
 """
 
 import os
@@ -123,10 +127,11 @@ def pulse_problem():
     return PackedPulse()
 
 
-def deck(problem, n, steps, chunk, max_level=1):
+def deck(problem, n, steps, chunk, max_level=1, regrid=2):
     base = f"""
         amr.n_cell = {n} {n} {n}
         amr.max_level = {max_level}
+        regrid_interval = {regrid}
         amr.sparse_min_level = 1
         amr.tile_size = 16 16 16
         amr.pool_chunk = {chunk}
@@ -166,7 +171,7 @@ def snapshot(sim, prefix):
     return out
 
 
-def main(out, problem, steps, n, chunk, max_level=1):
+def main(out, problem, steps, n, chunk, max_level=1, regrid=2):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -182,16 +187,18 @@ def main(out, problem, steps, n, chunk, max_level=1):
         """
     else:
         prob, precision, extra = bump_problem(), "single", "hydro.use_pallas = 1\n"
-    sim = AMRSimulation(prob, ParmParse.from_string(deck(problem, n, steps, chunk, max_level)
+    sim = AMRSimulation(prob, ParmParse.from_string(deck(problem, n, steps, chunk, max_level, regrid)
                                                     + extra),
                         precision=precision)
     sim.set_initial_conditions()
     init = snapshot(sim, "init_")
+    # written whole, then renamed: a reader never sees a partial file
+    part = f"{out}.part.npz"
+    np.savez(part, **init)
+    os.replace(part, out[:-len(".npz")] + ".init.npz")
     sim.fofc_counts = []
     sim.evolve()
     n_fofc = int(sum(int(c) for c in sim.fofc_counts))
-    # written whole, then renamed: a reader never sees a partial file
-    part = f"{out}.part.npz"
     np.savez(part, finest=sim.finest_level, t=sim.t, n_fofc=n_fofc,
              rel_err=np.asarray(sim.conservation_rel_err), **init, **snapshot(sim, ""))
     os.replace(part, out)
@@ -202,4 +209,5 @@ if __name__ == "__main__":
         os.path.abspath(__file__)))))
     out, problem, steps, n, chunk = sys.argv[1:6]
     max_level = int(sys.argv[6]) if len(sys.argv) > 6 else 1
-    main(out, problem, int(steps), int(n), int(chunk), max_level)
+    regrid = int(sys.argv[7]) if len(sys.argv) > 7 else 2
+    main(out, problem, int(steps), int(n), int(chunk), max_level, regrid)

@@ -56,12 +56,22 @@ class SharedJaxRun:
             if self.proc.returncode != 0:
                 self.failed.write_text(self.log.read_text()[-3000:])
                 raise AssertionError(self.failed.read_text())
+        return self._wait(self.out)
+
+    def init_result(self) -> dict:
+        """The file OUT.init.npz that a reference script writes before its
+        run (its initial state), as soon as it exists."""
+        return self._wait(self.out.with_name(self.out.stem + ".init.npz"))
+
+    def _wait(self, path: Path) -> dict:
         deadline = time.monotonic() + 1200
-        while not self.out.exists():
+        while not path.exists():
+            if self.proc is not None and self.proc.poll() not in (None, 0):
+                self.failed.write_text(self.log.read_text()[-3000:])
             assert not self.failed.exists(), self.failed.read_text()
-            assert time.monotonic() < deadline, f"no {self.out.name}"
+            assert time.monotonic() < deadline, f"no {path.name}"
             time.sleep(0.2)
-        return dict(np.load(self.out))
+        return dict(np.load(path))
 
     def kill(self):
         if self.proc is not None:

@@ -6,14 +6,18 @@ the domain and the root takes the seeded lean step); `PackedPulse` its
 radiating pulse (constant opacity 10 as the power law the CUDA coupling
 evaluates). `bump_deck` / `pulse_deck` give their decks at N^3 + 1 packed
 level of 16^3 tiles; `tests/port/jax_packed.py` builds the same decks and
-problems for the JAX package.
+problems for the JAX package. `port_sim`, `start_from` and `compare` run
+the port's side of a comparison with a JAX reference run's output.
 """
 
 import numpy as np
 import torch
 
+from quokka_tpu_torch import ParmParse
+from quokka_tpu_torch.amr import AMRSimulation
 from quokka_tpu_torch.eos import IdealGasEOS
 from quokka_tpu_torch.indices import EGAS, EINT, RHO
+from quokka_tpu_torch.interop import amr_hierarchy_to_numpy, load_amr_hierarchy
 from quokka_tpu_torch.registry import (BC_PERIODIC, BCSpec, EOSTraits, PhysicsTraits,
                                        PowerLawOpacity, Problem, RadTraits)
 
@@ -102,10 +106,11 @@ class PackedPulse(Problem):
         return m[0][:, :, None, None] & m[1][:, None, :, None] & m[2][:, None, None, :]
 
 
-def _deck(n, steps, chunk, max_level=1):
+def _deck(n, steps, chunk, max_level=1, regrid=2):
     return f"""
 amr.n_cell = {n} {n} {n}
 amr.max_level = {max_level}
+regrid_interval = {regrid}
 amr.sparse_min_level = 1
 amr.tile_size = 16 16 16
 amr.pool_chunk = {chunk}
@@ -128,8 +133,44 @@ def bump_deck(n, steps, chunk):
     return _deck(n, steps, chunk)
 
 
-def pulse_deck(n, steps, chunk, max_level=1):
-    return _deck(n, steps, chunk, max_level) + """
+def pulse_deck(n, steps, chunk, max_level=1, regrid=2):
+    return _deck(n, steps, chunk, max_level, regrid) + """
 radiation.cfl = 0.3
 radiation.max_substeps = 4
 """
+
+
+def port_sim(problem, deck, precision):
+    """The port's AMRSimulation on the CPU, its initial hierarchy built."""
+    sim = AMRSimulation(problem, ParmParse.from_string(deck), device="cpu", precision=precision)
+    sim.set_initial_conditions()
+    return sim
+
+
+def start_from(sim, ref):
+    """The port's tiles equal the JAX package's; then its hierarchy."""
+    mine = amr_hierarchy_to_numpy(sim)
+    for l in range(1, sim.finest_level + 1):
+        np.testing.assert_array_equal(mine[f"ijk{l}"], ref[f"init_ijk{l}"])
+    load_amr_hierarchy(sim, ref, prefix="init_")
+
+
+def compare(sim, ref, bounds):
+    """Every level of `sim` against the reference: equal tile sets; each
+    component within bounds[component] (the radiation rows' components
+    numbered from 6; the last bound for the rest) of its max."""
+    got = amr_hierarchy_to_numpy(sim)
+    assert sim.finest_level == int(ref["finest"])
+    for key in ref:
+        if key.startswith("ijk"):
+            np.testing.assert_array_equal(got[key], ref[key])
+    for key in [k for k in ref if k[:2] in ("U0", "Uh", "Ur")]:
+        a, b = got[key].astype(np.float64), ref[key].astype(np.float64)
+        assert a.shape == b.shape and np.all(np.isfinite(a)), key
+        axis = 0 if key == "U0" else 1
+        off = 6 if key.startswith("Ur") else 0
+        for c in range(b.shape[axis]):
+            ac, bc = np.take(a, c, axis), np.take(b, c, axis)
+            scale = np.abs(bc).max()
+            bound = bounds[min(off + c, len(bounds) - 1)]
+            assert np.abs(ac - bc).max() <= bound * scale, (key, c, np.abs(ac - bc).max() / scale)

@@ -10,6 +10,9 @@ the CPU:
   ulps of each component's max (`ulp_close`);
 - K9, the row gather: bitwise `jnp.take`, and an index outside the pool
   raises;
+- the register scatter of a pool child into its pool parent on a partial
+  chunk: the port's active rows only against JAX's program, which also
+  adds a spare row into the parent's last slot (the documented deviation);
 - `fused_block_rk2` (the packed engine's single-pass RK2 of a chunk) on a
   rough float64 chunk whose FOFC fires in both stages next to the tile
   edges, against the JAX package's: the new tiles and the register faces
@@ -84,6 +87,41 @@ def test_k9_plain_is_take_bitwise():
     for bad in (-1, 40):
         with pytest.raises(IndexError):
             tpk.row_gather(torch.tensor(pool), torch.tensor(np.array([0, bad], np.int32)))
+
+
+@pytest.mark.parametrize("d", [0, 1, 2])
+def test_register_scatter_active_rows_vs_jax(d):
+    """The register scatter of a pool child into its pool parent on a
+    partial chunk (3 active rows, then a spare row of parent slot -1):
+    the port adds the active rows only, exactly as a plain loop does; the
+    JAX program adds the spare row too, into the parent's last slot (its
+    `dynamic_slice` wraps the index -1, `allow_negative_indices`), and
+    equals the port on the active rows alone."""
+    rng = np.random.default_rng(11 + d)
+    half = (2, 2, 2)
+    faces = tuple(2 * h + (e == d) for e, h in enumerate(half))
+    cfaces = tuple(h + (e == d) for e, h in enumerate(half))
+    F = rng.standard_normal((3, 2) + faces)
+    restr = rng.standard_normal((4, 2) + cfaces)
+    ps = np.array([1, 0, 1, -1], np.int32)
+    po = np.array([[0, 0, 0], [2, 0, 2], [0, 2, 2], [2, 2, 0]], np.int32)
+    want = F.copy()
+    for r in range(3):
+        o = po[r]
+        want[ps[r], :, o[0]:o[0] + cfaces[0], o[1]:o[1] + cfaces[1],
+             o[2]:o[2] + cfaces[2]] += restr[r]
+    got = tpk.scatter_restr(torch.tensor(F), torch.tensor(restr), torch.tensor(ps),
+                            torch.tensor(po), 3).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-15)
+    prog = jpk.scatter_restr_faces_prog(half, d)
+    jax_active = np.asarray(prog(jnp.asarray(F), jnp.asarray(restr[:3]), jnp.asarray(ps[:3]),
+                                 jnp.asarray(po[:3])))
+    np.testing.assert_allclose(got, jax_active, rtol=0, atol=1e-15)
+    jax_all = np.asarray(prog(jnp.asarray(F), jnp.asarray(restr), jnp.asarray(ps),
+                              jnp.asarray(po)))
+    o = po[3]
+    want[-1, :, o[0]:o[0] + cfaces[0], o[1]:o[1] + cfaces[1], o[2]:o[2] + cfaces[2]] += restr[3]
+    np.testing.assert_allclose(jax_all, want, rtol=0, atol=1e-15)
 
 
 def _rough_chunk():
@@ -165,3 +203,8 @@ def test_packed_kernels_match_plain_on_card():
         assert ok, (case.label, max_abs)
         if case.kernel == "row_gather":
             assert max_abs == 0.0
+    bad = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+    tpk.row_gather(pool, bad)
+    with pytest.raises(IndexError):
+        tpk.check_gathers(pool.device)
+    tpk.check_gathers(pool.device)  # the flag was cleared

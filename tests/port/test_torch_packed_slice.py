@@ -21,7 +21,8 @@ JAX references run in processes of their own beside the port's runs
 
 The shell of the reference benchmark is the main path on the card
 (`chip_smoke.py`); on the CPU its 32^3 + 1 packed run alone takes the JAX
-package a minute, past this file's budget.
+package a minute, past this file's budget. Two packed levels:
+tests/port/test_torch_packed_levels.py.
 """
 
 import numpy as np
@@ -35,6 +36,7 @@ from quokka_tpu_torch.interop import amr_hierarchy_to_numpy, load_amr_hierarchy
 
 import packed_problems as pp_
 from jax_ref import SharedJaxRun, run_root
+from packed_problems import compare, port_sim, start_from
 
 N, STEPS, CHUNK = 32, 2, 4
 BUMP_BOUNDS = [1e-5, 3e-5, 3e-5, 3e-5, 1e-5, 1e-5]
@@ -54,38 +56,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def port_sim(problem, deck, precision):
-    sim = AMRSimulation(problem, ParmParse.from_string(deck), device="cpu", precision=precision)
-    sim.set_initial_conditions()
-    return sim
-
-
-def start_from(sim, ref):
-    """The port's tiles equal the JAX package's; then its hierarchy."""
-    mine = amr_hierarchy_to_numpy(sim)
-    for l in range(1, sim.finest_level + 1):
-        np.testing.assert_array_equal(mine[f"ijk{l}"], ref[f"init_ijk{l}"])
-    load_amr_hierarchy(sim, ref, prefix="init_")
-
-
-def compare(sim, ref, bounds):
-    got = amr_hierarchy_to_numpy(sim)
-    assert sim.finest_level == int(ref["finest"])
-    for key in ref:
-        if key.startswith("ijk"):
-            np.testing.assert_array_equal(got[key], ref[key])
-    for key in [k for k in ref if k[:2] in ("U0", "Uh", "Ur")]:
-        a, b = got[key].astype(np.float64), ref[key].astype(np.float64)
-        assert a.shape == b.shape and np.all(np.isfinite(a)), key
-        axis = 0 if key == "U0" else 1
-        off = 6 if key.startswith("Ur") else 0
-        for c in range(b.shape[axis]):
-            ac, bc = np.take(a, c, axis), np.take(b, c, axis)
-            scale = np.abs(bc).max()
-            bound = bounds[min(off + c, len(bounds) - 1)]
-            assert np.abs(ac - bc).max() <= bound * scale, (key, c, np.abs(ac - bc).max() / scale)
 
 
 def test_seeded_root_bump_f32_matches_jax(refs, monkeypatch):
