@@ -25,9 +25,12 @@ the card:
   timed: the root's seeded lean step (K1, K2e), the pool levels' batched
   sweeps (K1, K2), K7, K5 and the row gathers (K9).
 
-Besides, phase 4 runs Sedov and Orszag-Tang 32^3 in float64 on the card
-(the classic formulation and K8's plain form, as the JAX package takes
-XLA) against the CPU, and the packed engine at 32^3 + 1 pool level.
+Besides, phase 4 runs Sedov, Orszag-Tang and RadhydroBench (both
+radiation configurations) at 32^3 and the dense AMR shell at 16^3 + 1
+level in float64 on the card (the classic formulation, K8's plain form and
+the plain versions of K4-K7, as the JAX package takes XLA) against the
+CPU, with no kernel launched, and the packed engine at 32^3 + 1 and + 2
+pool levels.
 
 Run from the repository root:  python3 chip_smoke.py
 Phases print as they go; any failure exits non-zero. The last three lines
@@ -367,8 +370,17 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    summary = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "bytes": 0, "ops": 0, "library_ms": None} for k in KERNELS}
+    def new_summary():
+        return {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                    "bytes": 0, "ops": 0, "library_ms": None} for k in KERNELS}
+
+    def bitwise(case, got, ref):
+        """K7 and K9 equal their plain versions bit for bit."""
+        if case.kernel not in ("row_gather", "rad_axis_flux"):
+            return ""
+        return " (bitwise)" if bool(torch.equal(got, ref)) else None
+
+    summary = new_summary()
     failed = []
 
     # ---- 3. kernels against their plain versions, at the main paths' shapes
@@ -570,7 +582,7 @@ def main() -> int:
               f"substep {dt_sub:.6e})",
               kernel_check.amr_cases(Ug0, Ug1, Rf, fopts, ropts,
                                      coupling=(U1f, src, dt_sub, amr_eos, amr_problem)),
-              lambda c: c.kernel in amr_timed, summary, failed)
+              lambda c: c.kernel in amr_timed, summary, failed, bitwise)
     del Ug0, Ug1, Rf, asim, U1f, radL, src
     release()
     nf = 2 * n
@@ -581,7 +593,7 @@ def main() -> int:
     run_cases("rough padded 520^3 states (hydro shocks; |f| -> 1, E at the floor)",
               kernel_check.amr_cases(Ug0, Ug1, Rf, fopts, ropts, " rough",
                                      coupling=(Ur, None, dt_sub, amr_eos, amr_problem)),
-              lambda c: False, summary, failed)
+              lambda c: False, summary, failed, bitwise)
     del Ug0, Ug1, Rf, Ur
     release()
     # on the card compute_rad_fluxes launches K7 or raises: radiation.use_pallas
@@ -609,17 +621,20 @@ def main() -> int:
             failed.append(f"AMR shell {extra}: K7 or K2d not launched")
     del sim
     release()
-    # packed AMR: K2e at the root's 256^3 with the boundary masks of the
-    # shell's level-1 coverage (both stages, the fo_from redo), K9 on a
-    # chunk's 64 x 26 neighbour rows of the level-1 hydro and radiation
-    # pools (the level-2 rows have the same shapes), and the batched K1/K2
-    # and K7 launches over that chunk's stage-1 blocks (36^3 hydro, 32^3
-    # radiation) against the per-block plain versions
-    pdeck = radhydro_shell.DECK_256_PACKED.replace("amr.max_level = 2", "amr.max_level = 1")
+    # packed AMR, on the main path's hierarchy (256^3 + 2 packed levels):
+    # K2e at the root's 256^3 with the boundary masks of the shell's level-1
+    # coverage (both stages, the fo_from redo); K9 on the main path's chunk,
+    # 512 x 26 neighbour rows of the level-2 hydro and radiation pools (the
+    # kernel's timed row), and on 64 x 26 rows of level 1 (PR 6's shape);
+    # the batched K1/K2 and K7 launches over a 64-tile chunk's stage-1
+    # blocks (36^3 hydro, 32^3 radiation) against the per-block plain
+    # versions, K7 over the main path's chunk of 512 radiation blocks of 32^3
+    # (timed), and K7 at its edge shapes (extents 4 and 5, ragged tiles, a
+    # batch of 3, orders 1-3)
     psim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
-                         ParmParse.from_string(pdeck, ["verbose=0"]))
+                         ParmParse.from_string(radhydro_shell.DECK_256_PACKED, ["verbose=0"]))
     psim.set_initial_conditions()
-    st1 = psim.level_pool[1]
+    st1, st2 = psim.level_pool[1], psim.level_pool[2]
     bmasks = psim._root_seed_masks()
     if bmasks is None:
         raise SystemExit("the shell's level-1 coverage touches the domain edge at 256^3")
@@ -633,41 +648,68 @@ def main() -> int:
               kernel_check.corr_cases(P0, P1, popts, bmasks, seed=13),
               lambda c: c.label in CORR_STAGE, summary, failed)
     del P0, P1, bmasks
-    nbr_c = st1.meta.nbr_dev[:64]
-    rows = torch.clamp(nbr_c.reshape(-1), min=0)
-    gather_cases = list(kernel_check.gather_cases({"hydro rows": st1.Uh,
-                                                   "radiation rows": st1.Ur}, rows))
-
-    def bitwise(case, got, ref):
-        if case.kernel != "row_gather":
-            return ""
-        return " (bitwise)" if bool(torch.equal(got, ref)) else None
-
-    run_cases(f"K9, level-1 chunk of 64 x 26 neighbour rows (pools of {st1.meta.capacity} rows)",
+    chunk = radhydro_shell.CARD_PACKED_CHUNK
+    rows = torch.clamp(st2.meta.nbr_dev[:chunk].reshape(-1), min=0)
+    gather_cases = list(kernel_check.gather_cases({"hydro rows": st2.Uh,
+                                                   "radiation rows": st2.Ur}, rows))
+    run_cases(f"K9, level-2 chunk of {chunk} x 26 neighbour rows (pools of "
+              f"{st2.meta.capacity} rows, {int(torch.unique(rows).numel())} distinct)",
               gather_cases, lambda c: True, summary, failed, bitwise)
     summary["row_gather"]["library_ms"] = sum(kernel_check.time_ms(c.run_library)
                                               for c in gather_cases)
+    rows64 = torch.clamp(st1.meta.nbr_dev[:64].reshape(-1), min=0)
+    aside = new_summary()  # PR 6's shape, printed beside the kernel's row
+    gather_cases = list(kernel_check.gather_cases({"hydro rows": st1.Uh,
+                                                   "radiation rows": st1.Ur}, rows64))
+    run_cases(f"K9, level-1 chunk of 64 x 26 neighbour rows (pools of {st1.meta.capacity} "
+              "rows)", gather_cases, lambda c: True, aside, failed, bitwise)
+    aside["row_gather"]["library_ms"] = sum(kernel_check.time_ms(c.run_library)
+                                            for c in gather_cases)
     w = psweep.donor_pad_width(psim._g)
     th0 = torch.zeros((), dtype=torch.float32, device="cuda")
-    org_c = st1.meta.origin_dev[:64]
-    po_c = torch.zeros((64, 3), dtype=torch.int32, device="cuda")
-    blocks = []
-    for part, gf, pool in (("h", 10, st1.Uh), ("r", 8, st1.Ur)):
-        pad = psim._dense_pad_part(part, w)(psim.level_U[0])
-        bd = psweep.ParentContext("dense", (pad, pad)).backdrop(
-            None, org_c, po_c, th0, gf, psim._g, psim.tile_shape, (0, 1, 2)).contiguous()
-        blocks.append(psweep.assemble_chunk(pool, 0, 64, nbr_c, bd, gf, psim.tile_shape))
-        del pad, bd
+
+    def chunk_blocks(count, parts):
+        """The stage-1 blocks of level 1's first `count` tiles."""
+        nbr_c, org_c = st1.meta.nbr_dev[:count], st1.meta.origin_dev[:count]
+        po_c = torch.zeros((count, 3), dtype=torch.int32, device="cuda")
+        blocks = []
+        for part, gf, pool in parts:
+            pad = psim._dense_pad_part(part, w)(psim.level_U[0])
+            bd = psweep.ParentContext("dense", (pad, pad)).backdrop(
+                None, org_c, po_c, th0, gf, psim._g, psim.tile_shape, (0, 1, 2)).contiguous()
+            blocks.append(psweep.assemble_chunk(pool, 0, count, nbr_c, bd, gf,
+                                                psim.tile_shape))
+            del pad, bd
+        return blocks
+
+    prad = psim._radiation.opts
+    blocks = chunk_blocks(64, (("h", 10, st1.Uh), ("r", 8, st1.Ur)))
     run_cases("packed level-1 chunk 0: batched K1 + K2 faces and K7 vs per-block plain",
-              kernel_check.batched_cases(blocks[0], blocks[1], psim.level_opts[1],
-                                         psim._radiation.opts),
-              lambda c: False, summary, failed)
-    del psim, st1, blocks, gather_cases, rows, nbr_c
+              kernel_check.batched_cases(blocks[0], blocks[1], psim.level_opts[1], prad),
+              lambda c: False, summary, failed, bitwise)
+    (R_chunk,) = chunk_blocks(chunk, (("r", 8, st1.Ur),))
+    run_cases(f"packed level-1 chunk of {chunk} radiation blocks "
+              f"{tuple(R_chunk.shape[2:])} (the main path's): K7 batched (timed)",
+              kernel_check.k7_batched_cases(R_chunk, prad, f" {chunk} blocks"),
+              lambda c: True, aside, failed, bitwise)
+    run_cases("K7 edge shapes, orders 1-3", kernel_check.k7_edge_cases(prad, "cuda"),
+              lambda c: False, summary, failed, bitwise)
+    for key in ("row_gather", "rad_axis_flux"):
+        summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"],
+                                          aside[key]["max_abs_err"])
+        a = aside[key]
+        print(f"  {KERNELS[key][0]} at the "
+              + ("64 x 26 level-1 chunk (PR 6's shape)" if key == "row_gather" else
+                 f"packed chunk of {chunk} x 32^3, 3 axes")
+              + f": kernel {a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, bound "
+              f"{a['bound_ms']:.3f} ms ({a['bytes'] / 1e9:.3f} GB), library "
+              + (f"{a['library_ms']:.3f} ms" if a["library_ms"] is not None else "none"))
+    del psim, st1, st2, blocks, R_chunk, gather_cases, rows, rows64
     release()
     print(f"times: CUDA events, mean of 5 after 1 warm-up, on {smi}; K2, K2d, K6, K7 and K8 "
           "sum the three axes, K5 its two stages, K2c the three launches of a clean lean "
           "stage at 512^3, K2e those of a clean seeded stage at 256^3, K9 its hydro and "
-          "radiation gathers")
+          "radiation gathers of the main path's chunk")
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
@@ -815,6 +857,49 @@ def main() -> int:
     if f64["cuda"][2] != 0:
         raise SystemExit("a float64 run on the card launched a float32 kernel")
     del f64, sim, msim
+
+    print("-- float64 radiation on the card (the plain versions of K4-K7, as the JAX "
+          "package takes XLA): RadhydroBench 32^3, 2 steps, configs A and B; the dense "
+          "AMR shell 16^3 + 1 level, 1 coarse step; GPU vs CPU within 1e-12 x each "
+          "component's max, no kernel launched on the card")
+    rad64 = {}
+    for dev in ("cuda", "cpu"):
+        for fused in (1, 0):
+            reset_counts()
+            small = ParmParse.from_string(DECK_256, [
+                "amr.n_cell=32 32 32", "max_timesteps=2", "verbose=0",
+                f"radiation.fused_substep={fused}"])
+            sim = Simulation(RadhydroBenchProblem(), small, device=dev, precision="double")
+            sim.set_initial_conditions()
+            sim.evolve()
+            rad64[fused, dev] = (sim.U.cpu(), read_counts())
+            print(f"  RadhydroBench {dev} fused_substep={fused}: {sim.istep} steps, "
+                  f"t {sim.t:.9e}, dtype {sim.U.dtype}")
+        reset_counts()
+        small = ParmParse.from_string(radhydro_shell.DECK_256, [
+            "amr.n_cell=16 16 16", "max_timesteps=1", "verbose=0", "precision=double"])
+        sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(), small, device=dev)
+        sim.set_initial_conditions()
+        sim.evolve()
+        rad64["shell", dev] = ([u.cpu() for u in sim.level_U[:sim.finest_level + 1]],
+                               [m.cpu() for m in sim.level_mask[:sim.finest_level + 1]],
+                               read_counts())
+        print(f"  AMR shell {dev}: finest level {sim.finest_level}, t {sim.t:.9e}, "
+              f"dtype {sim.level_U[0].dtype}")
+    launched = {what: {k: v for k, v in rad64[what, "cuda"][-1].items() if v}
+                for what in (1, 0, "shell")}
+    print(f"  kernel launches on the card: {launched}")
+    for fused, cfg in ((1, "A"), (0, "B")):
+        gpu_vs_cpu(rad64[fused, "cuda"][0], rad64[fused, "cpu"][0],
+                   f"RadhydroBench f64 config {cfg} GPU vs CPU", 0.0, 1e-12)
+    (Ug_l, mg_l, _), (Uc_l, mc_l, _) = rad64["shell", "cuda"], rad64["shell", "cpu"]
+    if len(Ug_l) != len(Uc_l) or not all(torch.equal(a, b) for a, b in zip(mg_l, mc_l)):
+        raise SystemExit("AMR shell f64: the GPU and CPU level masks differ")
+    for lev, (a, b) in enumerate(zip(Ug_l, Uc_l)):
+        gpu_vs_cpu(a, b, f"AMR shell f64 level {lev} GPU vs CPU", 0.0, 1e-12)
+    if any(launched.values()):
+        raise SystemExit(f"a float64 radiation run on the card launched a kernel: {launched}")
+    del rad64, sim, Ug_l, Uc_l
 
     print("-- packed AMR, GPU vs CPU per level, equal tile sets and FOFC counts: the "
           "hydro bump 32^3 + 1 packed level f32, 2 coarse steps (the seeded root, K2e); "

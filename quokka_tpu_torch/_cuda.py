@@ -53,7 +53,7 @@ _SIGNATURES = {
     "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_rad_stage2": [_P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_mhd_axis": [_P, _P, _P, _L, _L, _L, _I, _I, _F, _F, _F, _F, _F, _P],
-    "qk_row_gather": [_P, _P, _P, _L, _L, _L, _P, _P],
+    "qk_row_gather": [_P, _P, _P, _L, _L, _L, _P, _P, _P],
 }
 
 

@@ -76,7 +76,10 @@ def check_gathers(device) -> None:
     """Raise IndexError if a K9 launch on `device` met an index outside its
     pool since the last check; one host read (none on the CPU, where the
     plain version raises at once)."""
-    flag = _err_flags.get(torch.device(device))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:  # the flags are kept by index
+        device = torch.device("cuda", torch.cuda.current_device())
+    flag = _err_flags.get(device)
     if flag is not None and int(flag.item()) != 0:
         flag.zero_()
         raise IndexError("a K9 row gather met a row index outside its pool")
@@ -85,10 +88,12 @@ def check_gathers(device) -> None:
 def row_gather(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """K9 (`quokka_tpu/amr/packed.py::row_gather`): pool[rows] for a pool
     [cap, ...] of contiguous rows and an int32 index [n], into a fresh
-    [n, ...] tensor. On a CUDA tensor it launches the kernel (one block a
-    row, 16-byte vectors), which zero-fills a row whose index lies outside
-    [0, cap) and raises the device's error flag, read by `check_gathers`
-    (no host sync here). On the CPU: `row_gather_plain`."""
+    [n, ...] tensor. On a CUDA tensor it launches the kernel (a persistent
+    grid of bulk copies through shared memory, taking row segments in
+    output order from a counter zeroed here), which zero-fills a row
+    whose index lies outside [0, cap) and raises the device's error flag,
+    read by `check_gathers` (no host sync here). On the CPU:
+    `row_gather_plain`."""
     if not _on_cuda(pool):
         return row_gather_plain(pool, rows)
     from .._cuda import check, library
@@ -100,15 +105,20 @@ def row_gather(pool: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         raise ValueError("K9 takes an int32 [n] index on the pool's device")
     rows = rows.contiguous()
     row_bytes = pool[0].numel() * pool.element_size()
-    if row_bytes % 16:
-        raise ValueError(f"K9 rows must be a multiple of 16 bytes, got {row_bytes}")
+    if row_bytes % 16 or pool.data_ptr() % 16 or row_bytes >= 2**31:
+        raise ValueError(f"K9 takes 16-byte aligned rows of a multiple of 16 bytes "
+                         f"(below 2 GiB), got {row_bytes} at {pool.data_ptr():#x}")
+    if pool.shape[0] >= 2**31:
+        raise ValueError(f"K9 takes pools of fewer than 2^31 rows, got {pool.shape[0]}")
     out = torch.empty((rows.shape[0],) + tuple(pool.shape[1:]), dtype=pool.dtype,
                       device=pool.device)
     err = _err_flags.setdefault(pool.device, torch.zeros(1, dtype=torch.int32,
                                                          device=pool.device))
+    # the kernel's work counter: the blocks take the next row segment from it
+    counter = torch.zeros(1, dtype=torch.int64, device=pool.device)
     code = lib.qk_row_gather(pool.data_ptr(), rows.data_ptr(), out.data_ptr(),
                              rows.shape[0], row_bytes, pool.shape[0], err.data_ptr(),
-                             _stream(pool))
+                             counter.data_ptr(), _stream(pool))
     check(code, "row_gather")
     launch_counts["row_gather"] += 1
     return out
@@ -554,8 +564,8 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
     the transport faces, K5 the coupling. Returns (Uph, Upr, own faces or
     None, register contribution, valid)."""
     from ..radiation.pool import TileGridView
-    from ..radiation.source import source_update
-    from ..radiation.sweep import compute_rad_axis_flux_batched
+    from ..radiation.source import source_update, source_update_plain
+    from ..radiation.sweep import compute_rad_axis_flux_batched, rad_axis_flux_plain
     from ..radiation.system import add_fluxes_rk2, predict_step
 
     g = 4
@@ -577,8 +587,17 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
     def scalar(x):
         return torch.tensor(float(npdt(x)), dtype=dtp, device=dev)
 
+    # K7 and K5 for a float32 chunk, as the JAX package's `compute_rad_fluxes`
+    # dispatches (`quokka_tpu/amr/packed.py:857`); any other dtype takes
+    # their plain versions on its own device (JAX's XLA)
+    f32 = dtp == torch.float32
+    coupling = source_update if f32 else source_update_plain
+
     def fluxes(R):
-        return {d: compute_rad_axis_flux_batched(R, d, ropts) for d in active_axes}
+        if f32:
+            return {d: compute_rad_axis_flux_batched(R, d, ropts) for d in active_axes}
+        return {d: torch.stack([rad_axis_flux_plain(r, d, ropts) for r in R])
+                for d in active_axes}
 
     def grouped(R):  # [c, 4G, ...] -> [c * G, 4, ...]
         return R.reshape(R.shape[0] * G, 4, *R.shape[2:])
@@ -590,7 +609,7 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
         sp = U_blk.shape[2:]
         Uf = U_blk.transpose(0, 1).reshape(nv, c * sp[0], *sp[1:]).contiguous()
         rf = None if src is None else src.reshape(c * sp[0], *sp[1:]).contiguous()
-        U2f = source_update(Uf, rf, dt_f, stage, ropts, eos, problem, rs)
+        U2f = coupling(Uf, rf, dt_f, stage, ropts, eos, problem, rs)
         return U2f.reshape(nv, c, *sp).transpose(0, 1)
 
     def faces_flat(fl, gw):

@@ -35,12 +35,18 @@ struct Eos {
 };
 
 // NaN-propagating min/max (jnp.minimum / torch.minimum semantics; fminf
-// would drop a NaN operand).
+// would drop a NaN operand), one instruction each: min.NaN / max.NaN return
+// the canonical NaN if either operand is NaN and equal min.f32 / max.f32
+// (fminf / fmaxf) otherwise.
 __device__ __forceinline__ float mn(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float mx(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float sgn(float a) {
   return a > 0.0f ? 1.0f : (a < 0.0f ? -1.0f : a);

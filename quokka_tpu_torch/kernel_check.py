@@ -399,7 +399,7 @@ def amr_cases(Ug0: torch.Tensor, Ug1: torch.Tensor, R: torch.Tensor, opts, ropts
                    lambda cost=cost: cost)
     del dmins1, chi1
     for d in range(3):
-        cost = (2 * _nbytes(R), OPS_K7_AXIS * R[0].numel())
+        cost = k7_cost(R)
         yield Case("rad_axis_flux", f"K7 axis {d}{tag}",
                    lambda d=d: rsweep.compute_rad_axis_flux(R, d, ropts),
                    lambda d=d: _slabbed(lambda Rs: rsweep.rad_axis_flux_plain(Rs, d, ropts),
@@ -648,6 +648,60 @@ def corr_cases(U0: torch.Tensor, U1: torch.Tensor, opts, corr_masks: dict, seed:
                            timed if w else (None, None)))
 
 
+def k7_cost(R: torch.Tensor):
+    """(bytes, FP32 operations) of one K7 axis over radiation blocks `R`
+    [4, X, Y, Z] or [B, 4, X, Y, Z]: each input value read once, the flux
+    (as many values) written once, OPS_K7_AXIS a cell."""
+    nbytes = R.numel() * R.element_size()
+    return 2 * nbytes, OPS_K7_AXIS * (R.numel() // 4)
+
+
+def k9_cost(pool: torch.Tensor, rows: torch.Tensor):
+    """(bytes, 0) of K9 gathering `rows` (int32 [n]) of `pool` [cap, ...]:
+    each distinct row read once, each gathered row written once."""
+    row_bytes = pool[0].numel() * pool.element_size()
+    return (int(torch.unique(rows).numel()) + rows.numel()) * row_bytes, 0
+
+
+def rough_rad_blocks(nbatch: int, shape, seed: int, device) -> torch.Tensor:
+    """Seeded radiation blocks [nbatch, 4, X, Y, Z] f32 (c = 10, so |F| < c
+    E is |f| < 1): E ~ 1 with 10% of cells at 2e-10, |f| up to 0.5 with 10%
+    at 0.9999, so reconstructed faces go inadmissible and the donor-cell
+    fallback fires."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    full = (nbatch, *shape)
+
+    def rand(*s):
+        return torch.rand(s, generator=g, device=device, dtype=torch.float64)
+
+    E = 0.5 + rand(*full)
+    E[rand(*full) < 0.1] = 2e-10
+    nvec = torch.randn((3, *full), generator=g, device=device, dtype=torch.float64)
+    nvec /= nvec.norm(dim=0)
+    fmag = 0.5 * rand(*full)
+    fmag[rand(*full) < 0.1] = 0.9999
+    F = nvec * fmag * 10.0 * E
+    return torch.stack([E, F[0], F[1], F[2]], dim=1).float().contiguous()
+
+
+# (batch, extents) of the K7 edge shapes: extents of 4 and 5 (the periodic
+# halo wraps more than once around the tile), extents that are not
+# multiples of the kernel's tile (32 along, 16 across), a batch of 3
+K7_EDGE_SHAPES = ((1, (4, 4, 4)), (3, (5, 5, 5)), (3, (37, 18, 33)), (1, (4, 35, 17)))
+
+
+def k7_edge_cases(ropts, device, seed: int = 3) -> Iterator[Case]:
+    """K7 (batched form) on the edge shapes, every axis and reconstruction
+    order, against its plain version block by block (bitwise)."""
+    import dataclasses
+
+    for i, (nb, shape) in enumerate(K7_EDGE_SHAPES):
+        R5 = rough_rad_blocks(nb, shape, seed + i, device)
+        for order in (1, 2, 3):
+            o = dataclasses.replace(ropts, reconstruction_order=order)
+            yield from k7_batched_cases(R5, o, f" B {nb} {shape} order {order}")
+
+
 def gather_cases(pools: dict, rows: torch.Tensor) -> Iterator[Case]:
     """K9 on each pool of `pools` ({label: [cap, ...] tensor}) for the int32
     row index `rows` against its plain version. The compared call reads the
@@ -660,10 +714,8 @@ def gather_cases(pools: dict, rows: torch.Tensor) -> Iterator[Case]:
     from .amr import packed
 
     rows64 = rows.to(torch.int64)
-    distinct = int(torch.unique(rows).numel())
     for label, pool in pools.items():
-        row_bytes = pool[0].numel() * pool.element_size()
-        cost = ((distinct + rows.numel()) * row_bytes, 0)
+        cost = k9_cost(pool, rows)
 
         def checked(pool=pool):
             out = packed.row_gather(pool, rows)
@@ -697,8 +749,15 @@ def batched_cases(Ug5: torch.Tensor, R5: torch.Tensor, opts, ropts,
         yield Case("axis_flux", f"K1+K2 faces batched {what}{tag}",
                    lambda fo=fo: sweep.compute_fluxes_batched(Ug5, opts, fo),
                    lambda fo=fo: per_block_fluxes(fo))
+    yield from k7_batched_cases(R5, ropts, tag)
+
+
+def k7_batched_cases(R5: torch.Tensor, ropts, tag: str = "") -> Iterator[Case]:
+    """K7 per axis over a chunk of radiation blocks `R5` [B, 4, X, Y, Z]
+    (one launch an axis) against its plain version block by block."""
     for d in range(3):
         yield Case("rad_axis_flux", f"K7 batched axis {d}{tag}",
                    lambda d=d: rsweep.compute_rad_axis_flux_batched(R5, d, ropts),
                    lambda d=d: torch.stack([rsweep.rad_axis_flux_plain(r, d, ropts)
-                                            for r in R5]))
+                                            for r in R5]),
+                   lambda: k7_cost(R5))

@@ -11,10 +11,12 @@ box. A substep is
   4. the stage-2 implicit matter coupling ((1 - IMEX_a32) dt),
 
 run either as the two fused stage kernels of K4 (`radiation.fused_substep
-= 1`, the default, for an f32 state) or stage by stage (`= 0`): K6 three
-times per transport evaluation, plain-torch predict / combine, K5 after
-each stage. The number of substeps is ceil(dt_hydro / (CFL_rad dx /
-c_hat)) as in the reference (``:397-406``).
+= 1`, the default, for an f32 state) or stage by stage (`= 0`, and any
+float64 state): K6 three times per transport evaluation, plain-torch
+predict / combine, K5 after each stage. A float64 state takes the plain
+versions of K6 and K5 on its own device, as the JAX package takes XLA.
+The number of substeps is ceil(dt_hydro / (CFL_rad dx / c_hat)) as in
+the reference (``:397-406``).
 
 `LevelRadiation` is the radiation of one dense AMR level: the flux-dict
 formulation (K7) on the ghost-padded level, whose face fluxes feed the flux
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..registry import BC_PERIODIC, Problem
-from .source import source_update
+from .source import source_update, source_update_plain
 from .substep import fused_substep
 from .system import RadOptions, add_fluxes_rk2, predict_step, rad_transport_div
 
@@ -104,15 +106,19 @@ class RadiationAdvance(_SimRef):
         eos, problem = sim.eos, sim.problem
         dx, active = sim.grid.dx, sim.grid.active_axes
         shape = U.shape[1:]
+        # K5 for a float32 state; any other dtype takes its plain version on
+        # its own device, as the JAX package's `U.dtype == jnp.float32` test
+        # sends it to XLA (`quokka_tpu/radiation/advance.py:233`)
+        coupling = source_update if U.dtype == torch.float32 else source_update_plain
         R0 = U[rs:].reshape(1, 4, *shape)
         divF0 = rad_transport_div(U, rs, opts, active, dx)
         R1 = predict_step(R0, divF0, dt, opts)
         U1 = torch.cat([U[:rs], R1.reshape(4, *shape)])
-        U1 = source_update(U1, rad_src, dt, 1, opts, eos, problem, rs)
+        U1 = coupling(U1, rad_src, dt, 1, opts, eos, problem, rs)
         divF1 = rad_transport_div(U1, rs, opts, active, dx)
         R_new = add_fluxes_rk2(R0, U1[rs:].reshape(1, 4, *shape), divF0, divF1, dt, opts)
         U2 = torch.cat([U1[:rs], R_new.reshape(4, *shape)])
-        return source_update(U2, rad_src, dt, 2, opts, eos, problem, rs)
+        return coupling(U2, rad_src, dt, 2, opts, eos, problem, rs)
 
     def substep(self, U, time: float, dt: float):
         """One radiation substep of length `dt` starting at `time`."""
@@ -241,6 +247,9 @@ class LevelRadiation(_SimRef):
         ng, dx, active = sim.ng, self.grid.dx, self.grid.active_axes
         dt = _scalar(dt, U.dtype)
         rad_src = self._rad_src(_scalar(time, U.dtype), U)
+        # K5 for a float32 state, the plain version for any other dtype
+        # (`quokka_tpu/radiation/advance.py:457`)
+        coupling = source_update if U.dtype == torch.float32 else source_update_plain
 
         def flat(F):
             return {d: Fd.reshape(4 * G, *Fd.shape[2:]) for d, Fd in F.items()}
@@ -256,7 +265,7 @@ class LevelRadiation(_SimRef):
         R1 = predict_step(R0, divF0, dt, opts)
         U1 = torch.cat([U[:rs], R1.reshape(4 * G, *shape)])
         del R1
-        U1 = source_update(U1, rad_src, dt, 1, opts, sim.eos, sim.problem, rs)
+        U1 = coupling(U1, rad_src, dt, 1, opts, sim.eos, sim.problem, rs)
 
         Ug1 = fills[1](U1)
         fluxes1 = compute_rad_fluxes(Ug1, 0, opts, active, dx)
@@ -266,7 +275,7 @@ class LevelRadiation(_SimRef):
         del divF0, divF1
         U2 = torch.cat([U1[:rs], R_new.reshape(4 * G, *shape)])
         del U1, R_new
-        U2 = source_update(U2, rad_src, dt, 2, opts, sim.eos, sim.problem, rs)
+        U2 = coupling(U2, rad_src, dt, 2, opts, sim.eos, sim.problem, rs)
         if reduce is not None:
             reduce(flat(fluxes1))
             return U2, None

@@ -161,6 +161,9 @@ def compute_rad_axis_flux_batched(cons5: torch.Tensor, axis: int,
         raise ValueError(f"expected [B, 4, X, Y, Z] blocks, got {tuple(cons5.shape)}")
     check_kernel_inputs(opts, 4, cons5[0], cons5)
     B, _, X, Y, Z = cons5.shape
+    if 4 * X * Y * Z >= 2**31 or B >= 2**16:
+        raise ValueError(f"K7 takes blocks of 4 X Y Z < 2^31 values, B < 65536; got "
+                         f"{tuple(cons5.shape)}")
     params = rad_params(opts, (1.0, 1.0, 1.0))
     out = torch.empty((B, 1, 4, X, Y, Z), dtype=cons5.dtype, device=cons5.device)
     err = lib.qk_rad_axis_flux(cons5.data_ptr(), out.data_ptr(), X, Y, Z, B, axis,

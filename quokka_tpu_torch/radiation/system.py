@@ -13,8 +13,8 @@ a roll, so on the unpadded state the wrap is the periodic boundary: the
 port steps radiation ghost-free and periodic only.
 
 `rad_transport_div` is the transport divergence of the unigrid substep:
-kernel K6 (`sweep.compute_rad_div`, its plain version on the CPU at any
-dtype) per axis. The flux-dict formulation (`compute_rad_fluxes`, kernel K7
+kernel K6 (`sweep.compute_rad_div`) per axis for a float32 state, its plain
+version on the CPU and for any other dtype. The flux-dict formulation (`compute_rad_fluxes`, kernel K7
 per axis, + `rad_div_fluxes`) is what the dense AMR levels run
 (`advance.LevelRadiation`): their flux registers consume the face fluxes.
 """
@@ -157,18 +157,22 @@ def compute_rad_fluxes(Ug: torch.Tensor, rad_start: int, opts: RadOptions,
     faces of the primitive (E, f), per-face donor-cell fallback. Returns
     {axis: flux [G,4,X,Y,Z]}, slot f the face between cells f-1 and f.
 
-    Each axis is kernel K7 (`sweep.compute_rad_axis_flux`): on a CUDA tensor
-    it launches the kernel or raises, whatever `radiation.use_pallas` says;
-    on the CPU it is K7's plain version at any dtype. The optical-depth
-    wavespeed correction (`tau_fn`) is not ported."""
+    A float32 state takes kernel K7 (`sweep.compute_rad_axis_flux`) per
+    axis: on a CUDA tensor it launches the kernel or raises, whatever
+    `radiation.use_pallas` says; on the CPU it is K7's plain version. Any
+    other dtype takes the plain version on its own device, as the JAX
+    package sends non-f32 states to XLA (`quokka_tpu/radiation/system.py:
+    178-185`). The optical-depth wavespeed correction (`tau_fn`) is not
+    ported."""
     del dx
     if tau_fn is not None:
         raise NotImplementedError("compute_rad_fluxes: the wavespeed correction "
                                   "(tau_fn) is not ported yet")
-    from .sweep import compute_rad_axis_flux
+    from .sweep import compute_rad_axis_flux, rad_axis_flux_plain
 
     cons_flat = Ug[rad_start:]
-    return {d: compute_rad_axis_flux(cons_flat, d, opts) for d in active_axes}
+    axis_fn = compute_rad_axis_flux if cons_flat.dtype == torch.float32 else rad_axis_flux_plain
+    return {d: axis_fn(cons_flat, d, opts) for d in active_axes}
 
 
 def rad_div_fluxes(fluxes: dict, dx: Sequence[float]) -> torch.Tensor:
@@ -191,13 +195,16 @@ def rad_div_fluxes(fluxes: dict, dx: Sequence[float]) -> torch.Tensor:
 def rad_transport_div(Ug: torch.Tensor, rad_start: int, opts: RadOptions,
                       active_axes: Sequence[int], dx: Sequence[float]) -> torch.Tensor:
     """Total transport divergence [G, 4, X, Y, Z] of the unpadded state:
-    K6 per axis, summed ((x + y) + z)."""
-    from .sweep import compute_rad_div
+    K6 per axis for a float32 state (its plain version for any other
+    dtype, on the state's own device, as the JAX package sends non-f32
+    states to XLA), summed ((x + y) + z)."""
+    from .sweep import compute_rad_div, rad_div_plain
 
     cons_flat = Ug[rad_start:]
+    div_fn = compute_rad_div if cons_flat.dtype == torch.float32 else rad_div_plain
     out = None
     for d in active_axes:
-        contrib = compute_rad_div(cons_flat, d, opts, dx[d])
+        contrib = div_fn(cons_flat, d, opts, dx[d])
         out = contrib if out is None else out + contrib
     return out.reshape(opts.n_groups, 4, *Ug.shape[1:])
 

@@ -9,7 +9,9 @@ beside the port's runs in this one:
 
 - float64, `use_pallas = 0`, with XLA:CPU kept from contracting fused
   multiply-adds (why: `jax_amr_shell.py`): per level, every component
-  within 1e-12 of its max, the masks equal;
+  within 1e-12 of its max, the masks equal; the port's run never hands a
+  float64 tensor to a radiation kernel wrapper (on the card each launches
+  its float32 kernel or raises);
 - float32, `hydro.use_pallas = radiation.use_pallas = 1` (the Pallas
   kernels interpreted, XLA's fused multiply-adds as in the JAX package's
   own tests): the masks equal, and per level, the gas density within 5e-6
@@ -40,6 +42,7 @@ from quokka_tpu_torch.problems.radhydro_shell import RadhydroShellProblem
 from quokka_tpu_torch.registry import EOSTraits, PhysicsTraits, Problem
 
 from jax_amr_shell import shell_deck
+from torch_port_common import refuse_f64_rad_kernels
 
 HERE = Path(__file__).resolve().parent
 N, STEPS = 16, 2
@@ -91,10 +94,17 @@ def port_shell(precision, steps=STEPS, extra=""):
 
 
 def run_port(precision):
-    """(the evolved port run, its levels at the start)."""
+    """(the evolved port run, its levels at the start). The float64 run goes
+    under `refuse_f64_rad_kernels`: it must take the plain versions of K5
+    and K7, as the JAX package takes XLA (the float32 run, in another
+    thread meanwhile, passes the guards)."""
     sim = port_shell(precision)
     init = amr_levels_to_numpy(sim)[0]
-    sim.evolve()
+    if precision == "double":
+        with refuse_f64_rad_kernels():
+            sim.evolve()
+    else:
+        sim.evolve()
     return sim, init
 
 

@@ -32,6 +32,7 @@ import torch
 import packed_problems as pp_
 from jax_ref import SharedJaxRun, run_root
 from packed_problems import compare, port_sim, start_from
+from torch_port_common import refuse_f64_rad_kernels
 
 N, STEPS, CHUNK, MAX_LEVEL, REGRID = 32, 1, 4, 2, 1
 
@@ -64,7 +65,8 @@ def test_two_packed_levels_pulse_f64_matches_jax(ref):
     rebuilt = []
     orig = sim._regrid_pool_level
     sim._regrid_pool_level = lambda l: rebuilt.append(l) or orig(l)
-    sim.evolve()
+    with refuse_f64_rad_kernels():  # K5 and K7 take their plain versions in f64
+        sim.evolve()
     assert rebuilt == [1]
     want = ref.result()
     assert sim.fofc_cells == int(want["n_fofc"])

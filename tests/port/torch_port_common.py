@@ -1,6 +1,8 @@
 """Shared inputs and tolerances of the port parity tests (tests/port)."""
 
+import contextlib
 import dataclasses
+import importlib
 
 import numpy as np
 import torch
@@ -10,6 +12,19 @@ from quokka_tpu.hydro import advance as jadv
 from quokka_tpu.registry import BC_REFLECT
 
 from quokka_tpu_torch.interop import hydro_options_from_fields, state_from_numpy
+
+# the radiation kernel wrappers K4-K7, by the module attributes their callers
+# read: K4 `fused_substep`, K5 `source_update` (imported by the unigrid and
+# dense-level subcycles, looked up by the packed engine), K6, K7 and K7
+# batched
+RAD_KERNEL_WRAPPERS = (
+    ("quokka_tpu_torch.radiation.advance", "fused_substep"),
+    ("quokka_tpu_torch.radiation.advance", "source_update"),
+    ("quokka_tpu_torch.radiation.source", "source_update"),
+    ("quokka_tpu_torch.radiation.sweep", "compute_rad_div"),
+    ("quokka_tpu_torch.radiation.sweep", "compute_rad_axis_flux"),
+    ("quokka_tpu_torch.radiation.sweep", "compute_rad_axis_flux_batched"),
+)
 
 REFLECT = (BC_REFLECT, BC_REFLECT)
 BC_KINDS = {
@@ -83,3 +98,32 @@ def ulp_close(b, a, rtol=1e-5, ulp_of_max=64, what=""):
         atol = ulp_of_max * np.spacing(np.max(np.abs(b[c][m]), initial=0.0))
         np.testing.assert_allclose(a[c][m], b[c][m], rtol=rtol, atol=atol,
                                    err_msg=f"{what} component {c}")
+
+
+@contextlib.contextmanager
+def refuse_f64_rad_kernels():
+    """Within the block a radiation kernel wrapper (K4-K7) that is handed a
+    float64 tensor raises AssertionError: on the card it would launch its
+    float32 kernel or raise, so a float64 run must take the plain versions
+    at the call sites. float32 calls pass through, so a float32 run may
+    share the block (another thread's)."""
+    saved = []
+
+    def guard(fn, name):
+        def refuse(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.dtype == torch.float64
+                   for a in (*args, *kwargs.values())):
+                raise AssertionError(f"float64 reached the kernel wrapper {name}")
+            return fn(*args, **kwargs)
+        return refuse
+
+    try:
+        for mod_name, attr in RAD_KERNEL_WRAPPERS:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, attr)
+            saved.append((mod, attr, fn))
+            setattr(mod, attr, guard(fn, f"{mod_name}.{attr}"))
+        yield
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
