@@ -32,6 +32,14 @@ the plain versions of K4-K7, as the JAX package takes XLA) against the
 CPU, with no kernel launched, and the packed engine at 32^3 + 1 and + 2
 pool levels.
 
+Phase 3 also holds K1 and K2's tiled face kernel over the main path's
+chunk of 512 level-1 hydro blocks (36^3; timed) and the face kernel at
+its edge shapes to their plain versions; phase 11 holds
+the batched K5 to its plain version on main path 6's own first level-2
+chunk (captured in its warm-up step: stage 1 on the 2g-deep blocks with
+the ring mask, stage 2 on the crop, written into pool rows), and times
+it.
+
 Run from the repository root:  python3 chip_smoke.py
 Phases print as they go; any failure exits non-zero. The last three lines
 are the kernels' JSON summary, the card's name and power limit, and
@@ -181,9 +189,10 @@ def rough_padded_hydro(n, seed, fill):
     return fill(U.contiguous())
 
 
-def run_cases(title, cases, timed, summary, failed, extra_of=None):
+def run_cases(title, cases, timed, summary, failed, extra_of=None, plain_reps=5):
     """Check each case against its plain version; time the timed ones (the
-    kernel as `run_timed` gives it, where it does)."""
+    kernel as `run_timed` gives it, where it does; the plain version over
+    `plain_reps` calls)."""
     from quokka_tpu_torch import kernel_check
 
     print(f"-- {title}")
@@ -197,7 +206,7 @@ def run_cases(title, cases, timed, summary, failed, extra_of=None):
         s = summary[case.kernel]
         if timed(case):
             ms = kernel_check.time_ms(case.run_timed or case.run_kernel)
-            plain_ms = kernel_check.time_ms(case.run_plain)
+            plain_ms = kernel_check.time_ms(case.run_plain, reps=plain_reps)
             nbytes, ops = case.cost()
             b_ms, b_by = kernel_check.bound_ms(nbytes, ops)
             s["ms"] += ms
@@ -340,6 +349,7 @@ def main() -> int:
     from quokka_tpu_torch.problems import mhd
     from quokka_tpu_torch.problems.radhydro_bench import DECK_256, RadhydroBenchProblem
     from quokka_tpu_torch.problems.sedov import DECK_512, SedovProblem
+    from quokka_tpu_torch.radiation import source as rsource
     from quokka_tpu_torch.radiation import sweep as rsweep
     from quokka_tpu_torch.registry import BC_REFLECT
 
@@ -380,7 +390,14 @@ def main() -> int:
             return ""
         return " (bitwise)" if bool(torch.equal(got, ref)) else None
 
+    def ulps(case, got, ref):
+        """K2's faces against the plain version in float32 ulps of each
+        component's max (the one-thread-a-face kernel, whose bits the tile
+        keeps, read 0-3 on these inputs)."""
+        return f" ({kernel_check.ulps_of_max(got, ref):.2f} ulp of max)"
+
     summary = new_summary()
+    faces_aside = new_summary()  # K2's faces at the packed chunk, beside its row
     failed = []
 
     # ---- 3. kernels against their plain versions, at the main paths' shapes
@@ -694,6 +711,29 @@ def main() -> int:
               lambda c: True, aside, failed, bitwise)
     run_cases("K7 edge shapes, orders 1-3", kernel_check.k7_edge_cases(prad, "cuda"),
               lambda c: False, summary, failed, bitwise)
+    # K1 and K2's tiled face kernel over the main path's chunk of 512
+    # level-1 hydro blocks (36^3, the stage-1 depth; timed: K1, K2 PPM), and
+    # the face kernel at its edge shapes (extents 4 and 5, ragged tiles, a
+    # batch of 3, walls), each with its distance in ulps of each component's
+    # max
+    for depth, what in ((10, "stage 1"), (6, "stage 2")):
+        (H_chunk,) = chunk_blocks(chunk, (("h", depth, st1.Uh),))
+        tag = f" {chunk} x {H_chunk.shape[-1]}^3"
+        cases = list(kernel_check.face_cases(H_chunk, psim.level_opts[1], tag=tag,
+                                             orders=(False, True) if depth == 10 else (False,)))
+        if depth == 10:
+            cases.insert(0, kernel_check.k1_batched_case(H_chunk, psim.level_opts[1], tag))
+        run_cases(f"packed level-1 chunk of {chunk} hydro blocks {tuple(H_chunk.shape[2:])} "
+                  f"({what}): K1 and K2 faces (the plain versions timed over 2 calls)", cases,
+                  lambda c: True, faces_aside, failed, ulps, plain_reps=2)
+        del H_chunk, cases
+    run_cases("K2 face kernel edge shapes, PPM and first order",
+              kernel_check.face_edge_cases(psim.level_opts[1], "cuda"), lambda c: False,
+              summary, failed, ulps)
+    summary["axis_flux"]["max_abs_err"] = max(summary["axis_flux"]["max_abs_err"],
+                                              faces_aside["axis_flux"]["max_abs_err"])
+    print("  K1 and K2's faces at the packed chunks: the rows above (K2 faces: PPM at "
+          "the stage-1 and stage-2 depths, first order at stage 1; 3 axes each)")
     for key in ("row_gather", "rad_axis_flux"):
         summary[key]["max_abs_err"] = max(summary[key]["max_abs_err"],
                                           aside[key]["max_abs_err"])
@@ -1167,9 +1207,35 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"initial conditions and the two pool levels built in "
           f"{time.perf_counter() - t0:.3f} s")
-    reset_counts()
-    mz_packed, mz_packed_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=1)
-    packed_launches = read_counts()
+    # the K5 inputs of the warm-up step's first level-2 chunk (both stages),
+    # cloned as the chunk runs: phase 11 holds K5 to its plain version on
+    # them, the shell's own mix of Newton iterations
+    shell_k5 = {}
+    level_subcycle, coupling = psweep.fused_rad_subcycle_packed, rsource.source_update_batched
+
+    def subcycle_capture(*args, **kw):
+        shell_k5["on"] = args[9] is sim.level_pool[2].meta and "stage2" not in shell_k5
+        return level_subcycle(*args, **kw)
+
+    def coupling_capture(gas, rad, src, dt, stage, *args, keep=None, out=None):
+        got = coupling(gas, rad, src, dt, stage, *args, keep=keep, out=out)
+        if shell_k5.get("on") and f"stage{stage}" not in shell_k5 and (
+                stage == 1 or "stage1" in shell_k5):
+            shell_k5[f"stage{stage}"] = dict(
+                gas=gas.clone() if stage == 1 else None, rad=rad.clone(),
+                src=None if src is None else src.clone(), keep=keep, dt=dt,
+                gas1=got[0].clone() if stage == 1 else None, args=args)
+        return got
+
+    psweep.fused_rad_subcycle_packed = subcycle_capture
+    rsource.source_update_batched = coupling_capture
+    try:
+        reset_counts()
+        mz_packed, mz_packed_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=1)
+        packed_launches = read_counts()
+    finally:
+        psweep.fused_rad_subcycle_packed = level_subcycle
+        rsource.source_update_batched = coupling
     rel = sim.conservation_rel_err
     finite = bool(torch.isfinite(sim.level_U[0]).all()) and all(
         bool(torch.isfinite(st.Uh[:st.meta.n_active]).all())
@@ -1202,6 +1268,41 @@ def main() -> int:
         raise SystemExit(f"kernels not launched on the packed AMR path: {missing}")
     del sim
     release()
+
+    # ---- 11. K5 on the packed shell's own chunk
+    phase("11. K5 on main path 6's first level-2 chunk (captured in its warm-up step): "
+          "stage 1 on the 2g-deep blocks with the ring mask, stage 2 on the crop, "
+          "written into pool rows")
+    if "stage2" not in shell_k5:
+        raise SystemExit("main path 6 ran no level-2 chunk's coupling")
+    s1, s2 = shell_k5["stage1"], shell_k5["stage2"]
+    g = (s1["gas"].shape[-1] - s2["rad"].shape[-1]) // 2
+    pools = (torch.empty((s1["gas"].shape[0] + 1, 6) + tuple(s2["rad"].shape[2:]),
+                         device="cuda"),
+             torch.empty((s1["gas"].shape[0] + 1, 4) + tuple(s2["rad"].shape[2:]),
+                         device="cuda"))
+    rows = slice(1, None)
+    k5_aside = new_summary()
+    k5_cases = list(kernel_check.k5_batched_cases(
+        s1["gas"], s1["rad"], s1["src"], s1["keep"], s1["dt"], 1, *s1["args"][:3],
+        tag=f" shell chunk {tuple(s1['rad'].shape[:1] + s1['rad'].shape[2:])}"))
+    k5_cases += list(kernel_check.k5_batched_cases(
+        psweep._crop(s1["gas1"], g), s2["rad"], s2["src"], None, s2["dt"], 2, *s2["args"][:3],
+        tag=f" shell chunk {tuple(s2['rad'].shape[:1] + s2['rad'].shape[2:])}",
+        out=(pools[0][rows], pools[1][rows])))
+    run_cases(f"K5 batched on the shell's level-2 chunk ({int(s1['keep'].sum())} real "
+              f"cells of {s1['keep'].numel()} at stage 1)", k5_cases, lambda c: True,
+              k5_aside, failed)
+    a = k5_aside["rad_source"]
+    summary["rad_source"]["max_abs_err"] = max(summary["rad_source"]["max_abs_err"],
+                                               a["max_abs_err"])
+    print(f"  K5 at the shell's level-2 chunk, both stages: kernel {a['ms']:.3f} ms, plain "
+          f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.3f} ms ({a['bytes'] / 1e9:.3f} GB, "
+          f"{a['ops'] / 1e9:.2f} GFLOP), library none")
+    del shell_k5, s1, s2, pools, k5_cases
+    release()
+    if failed:
+        raise SystemExit(f"kernel mismatch: {failed}")
 
     rows = []
     for key, (kname, source, replaces) in KERNELS.items():

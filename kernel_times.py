@@ -1,19 +1,47 @@
 #!/usr/bin/env python3
-"""Time kernels K7 and K9 of one tree of quokka_tpu_torch on the card, at
-the AMR shells' shapes, so that two trees (a parent and a change) can be
-compared in one call on one card, in turns (parent, change, change,
-parent), each turn a process of its own:
+"""Time kernels K5, K2's face kernel, K7 and K9 of one tree of
+quokka_tpu_torch on the card, at the main paths' shapes, so that two trees
+(a parent and a change) can be compared in one call on one card, in turns
+(parent, change, change, parent), each turn a process of its own:
 
-    python3 kernel_times.py [--tree DIR] [--check]
+    python3 kernel_times.py [--tree DIR] [--check] [--only k5,k2,k7,k9]
+                            [--shell FILE] [--tiles]
+    python3 kernel_times.py --capture FILE
+    python3 kernel_times.py --histogram --shell FILE
 
 DIR is a checkout of the repository (default: the one that holds this
 script); its quokka_tpu_torch is imported and its kernels are built in it.
 With --check every timed launch is also held against its plain version
-(bitwise). Prints the card's name and power limit, then one JSON line
-{"tree": DIR, "device": ..., "times": {...}, "checks": {...}}; times are
-milliseconds a call (CUDA events, mean of 5 calls after a warm-up).
+(K7 and K9 bitwise; K2's faces within rtol 1e-5 + 64 ulps of each
+component's max, K5 within 2e-5 of it, each with its largest deviation
+printed). Prints the card's name and power limit, then one JSON line
+{"tree": DIR, "device": ..., "times": {...}, "checks": {...}, "errors":
+{...}}; times are milliseconds a call (CUDA events, mean of 5 calls after
+a warm-up).
 
-Inputs, made on the card from fixed seeds:
+--capture FILE runs the packed shell (`DECK_256_PACKED`, chunks of 512
+tiles) until the matter coupling of the first level-2 chunk has run both
+stages, saves that chunk's K5 inputs to FILE (about 0.4 GB) and stops: the
+stage-1 gas and radiation blocks [512, 6 | 4, 24^3], the radiation source
+and the ring mask of real cells, the stage-2 gas (cropped from the stage-1
+result), radiation and source at 16^3, dt and the radiation options. It
+works with the trees before and after K5 took strided views.
+
+Kernels and inputs, made on the card from fixed seeds where not captured:
+- K5: RadhydroBench 256^3 after 2 steps (`DECK_256`), stage 1 and stage
+  2 on that state, as `chip_smoke.py` phase 3 runs them; with --shell, the
+  captured level-2 chunk: the launch alone (the tree's form: the parent
+  folds the chunk into one contiguous [10, 512 * X, Y, Z] state, the
+  change reads the views where they lie) and the launch with the glue
+  around it on the main path (the parent's concatenations, transposes,
+  `torch.where` and copies; the change allocates the stage-1 outputs and
+  writes stage 2 into the pools' rows);
+- K2's face kernel (`hydro.sweep._axis_faces_cuda`, one launch an axis,
+  conserved input): a 256^3 state with reflecting walls on every axis (the
+  Sedov shape, hi-wall planes included), the dense shell's padded fine
+  level [6, 520^3] (periodic, roll semantics), and the packed chunk's
+  blocks, 512 x 36^3 (stage 1) and 512 x 28^3 (stage 2) in PPM and 512 x
+  36^3 in first order; K1's fields come from the tree's own K1;
 - K7 (`compute_rad_axis_flux_batched`), each axis: one radiation block at
   the dense shell's padded fine level, [1, 4, 520, 520, 520], and the
   packed engine's chunk of 512 blocks of 32^3; E ~ 1 with 10% of the cells
@@ -25,9 +53,27 @@ Inputs, made on the card from fixed seeds:
   a hydro pool (rows of 6 x 16^3 f32) and a radiation pool (4 x 16^3);
   beside each, one `torch.index_select` with its int64 index built
   beforehand.
+
+--dump FILE saves the face kernel's outputs (PPM and first order, every
+axis, with and without viscosity and reconstruct_eint) on seeded blocks at
+its edge shapes and slices of the main shapes; --compare A B says whether
+two trees' dumps are the same bits.
+
+--tiles times the face kernel at the three shapes with each tile of
+`TILE_VARIANTS` (faces along the axis x lines across), where the tree's
+`hydro.sweep._face_tile` chooses them.
+
+--histogram counts the Newton residual evaluations of every cell with the
+plain version (`counts["cell_resid"]`; the kernel runs the same
+iterations: it equals the plain version bit for bit) on RadhydroBench
+256^3 and, with --shell, on the captured chunk, at both stages: the mean
+over cells against the mean over warps (32 consecutive cells, as the
+kernel's threads take them) of what a warp runs, the sum over Newton
+solves of its lanes' maximum.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,6 +81,9 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+# (faces along the axis, lines across) tried by --tiles
+TILE_VARIANTS = ((32, 16), (32, 8), (64, 8), (16, 16), (16, 32))
 
 
 def lattice_rows(shape, first, count):
@@ -71,38 +120,408 @@ def rad_blocks(torch, nbatch, n, seed):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    ap.add_argument("--check", action="store_true")
-    args = ap.parse_args()
-    tree = Path(args.tree).resolve()
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# ------------------------------------------------------------------ capture
+class _Captured(Exception):
+    pass
+
+
+def capture(path, overrides=(), device="cuda"):
+    """Run the packed shell until the first level-2 chunk's coupling has
+    run both stages; save its K5 inputs (tree-independent, unfolded).
+    `overrides` and `device` shrink the run for a rehearsal on the CPU."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("error: no CUDA device; the kernels run only on the card", file=sys.stderr)
-        return 2
-    if not (tree / "quokka_tpu_torch").is_dir():
-        print(f"error: {tree} holds no quokka_tpu_torch", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(tree))
-    from quokka_tpu_torch import _cuda, kernel_check
+    from quokka_tpu_torch import ParmParse
+    from quokka_tpu_torch.amr import AMRSimulation
     from quokka_tpu_torch.amr import packed
+    from quokka_tpu_torch.problems import radhydro_shell
+    from quokka_tpu_torch.radiation import source
+
+    sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(), ParmParse.from_string(
+        radhydro_shell.DECK_256_PACKED, [
+            "verbose=0", f"amr.packed_chunk={radhydro_shell.CARD_PACKED_CHUNK}",
+            *overrides]), device=device)
+    sim.set_initial_conditions()
+    got, on = {}, [False]
+    subcycle, mask_fn = packed.fused_rad_subcycle_packed, packed.ring_real_mask
+
+    def level_subcycle(*args, **kw):
+        on[0] = args[9] is sim.level_pool[2].meta
+        return subcycle(*args, **kw)
+
+    def keep(*args, **kw):
+        m = mask_fn(*args, **kw)
+        if on[0] and "stage1" in got and "keep" not in got["stage1"]:
+            got["stage1"]["keep"] = m.clone()
+        return m
+
+    def record(stage, gas, rad, src, dt, opts, eos):
+        entry = {"gas": gas.contiguous().clone(), "rad": rad.contiguous().clone(),
+                 "src": None if src is None else src.contiguous().clone(), "dt": dt}
+        got[f"stage{stage}"] = entry
+        got["ropts"], got["eos"] = opts, eos
+        if stage == 2:
+            got["stage1"].setdefault("keep", None)
+            raise _Captured()
+
+    if hasattr(source, "source_update_batched"):
+        inner = source.source_update_batched
+
+        def coupling(gas, rad, src, dt, stage, *args, keep=None, out=None):
+            res = inner(gas, rad, src, dt, stage, *args, keep=keep, out=out)
+            if on[0] and f"stage{stage}" not in got:
+                record(stage, gas, rad, src, dt, *args[:2])
+                if keep is not None:
+                    got["stage1"]["keep"] = keep.clone()
+            return res
+
+        patches = [(source, "source_update_batched", coupling)]
+    else:
+        inner = source.source_update
+
+        def coupling(U, src, dt, stage, *args):
+            res = inner(U, src, dt, stage, *args)
+            if on[0] and f"stage{stage}" not in got:
+                nv, cx, Y, Z = U.shape
+                blk = U.reshape(nv, cx // Y, Y, Y, Z).transpose(0, 1)
+                record(stage, blk[:, :6], blk[:, 6:],
+                       None if src is None else src.reshape(cx // Y, Y, Y, Z), dt, *args[:2])
+            return res
+
+        patches = [(source, "source_update", coupling), (packed, "ring_real_mask", keep)]
+    patches.append((packed, "fused_rad_subcycle_packed", level_subcycle))
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    for m, a, fn in patches:
+        setattr(m, a, fn)
+    try:
+        sim.max_timesteps = 1
+        sim.evolve()
+        raise SystemExit("the coarse step ended before a level-2 chunk's coupling ran")
+    except _Captured:
+        pass
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    torch.save(got, path)
+    s1, s2 = got["stage1"], got["stage2"]
+    print(f"captured the first level-2 chunk: stage 1 gas {tuple(s1['gas'].shape)}, "
+          f"keep {None if s1['keep'] is None else tuple(s1['keep'].shape)}, stage 2 rad "
+          f"{tuple(s2['rad'].shape)}, dt {s1['dt']!r}, source {s1['src'] is not None}",
+          flush=True)
+
+
+# ---------------------------------------------------------------- the kernels
+def shell_k5(torch, shell, kernel_check, source, problem, check, times, checks, errors):
+    """K5 on the captured level-2 chunk, at both stages: the launch alone
+    and with its glue, in the tree's own form."""
+    from quokka_tpu_torch.amr.packed import _crop
+
+    ropts, eos = shell["ropts"], shell["eos"]
+    rs = source.RAD_START
+    g = 4
+    batched = hasattr(source, "source_update_batched")
+    s1, s2 = shell["stage1"], shell["stage2"]
+    c = s1["gas"].shape[0]
+    # stage 2 reads the stage-1 gas through a crop of the [c, 6, 24^3] block
+    gas_full = torch.zeros((c, 6) + tuple(s1["gas"].shape[2:]), device="cuda")
+    _crop(gas_full, g).copy_(s2["gas"])
+    gas2 = _crop(gas_full, g)
+    src2 = None
+    if s2["src"] is not None:
+        src_full = torch.zeros((c,) + tuple(s1["gas"].shape[2:]), device="cuda")
+        _crop(src_full, g).copy_(s2["src"])
+        src2 = _crop(src_full, g)
+    Uph_new = torch.empty_like(s2["gas"])
+    Upr_new = torch.empty_like(s2["rad"])
+
+    def fold(gas, rad, src):
+        U = torch.cat([gas, rad], dim=1)
+        nv, sp = U.shape[1], U.shape[2:]
+        Uf = U.transpose(0, 1).reshape(nv, c * sp[0], *sp[1:]).contiguous()
+        rf = None if src is None else src.reshape(c * sp[0], *sp[1:]).contiguous()
+        return U, Uf, rf
+
+    def plain(stage, gas, rad, src, keep):
+        out = []
+        for b in range(c):
+            U = torch.cat([gas[b], rad[b]])
+            r = source.source_update_plain(U, None if src is None else src[b], s1["dt"],
+                                           stage, ropts, eos, problem, rs)
+            if keep is not None:
+                r = torch.where(keep[b][None], r, U)
+            out.append(r)
+        return torch.stack(out)
+
+    for stage, gas, rad, src, keep in ((1, s1["gas"], s1["rad"], s1["src"], s1["keep"]),
+                                       (2, gas2, s2["rad"], src2, None)):
+        dt = s1["dt"] if stage == 1 else s2["dt"]
+        key = f"K5 shell chunk stage {stage} {tuple(rad.shape[:1] + rad.shape[2:])}"
+        if batched:
+            outs = (None if stage == 1 else (Uph_new, Upr_new))
+
+            def launch(gas=gas, rad=rad, src=src, keep=keep, stage=stage, dt=dt, outs=outs):
+                return source.source_update_batched(gas, rad, src, dt, stage, ropts, eos,
+                                                    problem, rs, keep=keep, out=outs)
+
+            glue = launch
+
+            def result():
+                return torch.cat(launch(), dim=1)
+        else:
+            U, Uf, rf = fold(gas, rad, src)
+
+            def launch(Uf=Uf, rf=rf, stage=stage, dt=dt):
+                return source.source_update(Uf, rf, dt, stage, ropts, eos, problem, rs)
+
+            def glue(gas=gas, rad=rad, src=src, keep=keep, stage=stage, dt=dt):
+                Ub, Ufl, rfl = fold(gas, rad, src)
+                U2 = source.source_update(Ufl, rfl, dt, stage, ropts, eos, problem, rs)
+                U2 = U2.reshape(Ub.shape[1], c, *Ub.shape[2:]).transpose(0, 1)
+                if keep is not None:
+                    return torch.where(keep[:, None], U2, Ub)
+                Uph_new.copy_(U2[:, :6])
+                Upr_new.copy_(U2[:, 6:])
+                return U2
+
+            def result(launch=launch, U=U, keep=keep):
+                r = launch().reshape(U.shape[1], c, *U.shape[2:]).transpose(0, 1)
+                return r if keep is None else torch.where(keep[:, None], r, U)
+        times[key] = kernel_check.time_ms(launch)
+        times[key + " with glue"] = kernel_check.time_ms(glue)
+        if check:
+            ok, max_abs, _ = kernel_check.compare_scaled(result(), plain(stage, gas, rad, src,
+                                                                         keep))
+            checks[key], errors[key] = ok, max_abs
+        print(f"  {key}: {times[key]:.3f} ms, with glue {times[key + ' with glue']:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if check else ""),
+              flush=True)
+
+
+def radbench_state(torch):
+    """RadhydroBench 256^3 f32 after 2 steps: (state, dt of a substep, sim)."""
+    from quokka_tpu_torch import ParmParse, Simulation
+    from quokka_tpu_torch.problems.radhydro_bench import DECK_256, RadhydroBenchProblem
+
+    sim = Simulation(RadhydroBenchProblem(), ParmParse.from_string(
+        DECK_256, ["max_timesteps=2", "verbose=0"]), device="cuda", precision="single")
+    sim.set_initial_conditions()
+    sim.evolve()
+    rad = sim._radiation
+    nsub = rad.n_substeps(sim.dt_prev)
+    dt_rad = float(torch.tensor(sim.dt_prev / nsub, dtype=torch.float32))
+    return sim.U, dt_rad, sim
+
+
+def time_k5(torch, args, shell, times, checks, errors):
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.problems.radhydro_bench import RadhydroBenchProblem
+    from quokka_tpu_torch.problems.radhydro_shell import RadhydroShellProblem
+    from quokka_tpu_torch.radiation import source
+
+    U, dt_rad, sim = radbench_state(torch)
+    opts, eos, prob = sim._radiation.opts, sim.eos, RadhydroBenchProblem()
+    for stage in (1, 2):
+        key = f"K5 RadhydroBench 256^3 stage {stage}"
+        times[key] = kernel_check.time_ms(lambda: source.source_update(
+            U, None, dt_rad, stage, opts, eos, prob, source.RAD_START))
+        if args.check:
+            ok, max_abs, _ = kernel_check.compare_scaled(
+                source.source_update(U, None, dt_rad, stage, opts, eos, prob,
+                                     source.RAD_START),
+                source.source_update_plain(U, None, dt_rad, stage, opts, eos, prob,
+                                           source.RAD_START))
+            checks[key], errors[key] = ok, max_abs
+        print(f"  {key}: {times[key]:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+              flush=True)
+    del U, sim
+    torch.cuda.empty_cache()
+    if shell is not None:
+        shell_k5(torch, shell, kernel_check, source, RadhydroShellProblem(), args.check,
+                 times, checks, errors)
+
+
+def hydro_opts(n):
+    from quokka_tpu_torch.eos import IdealGasEOS
+    from quokka_tpu_torch.hydro.advance import HydroOptions
+
+    return HydroOptions(eos=IdealGasEOS(gamma=1.4), active_axes=(0, 1, 2),
+                        dx=(1.0 / n,) * 3, reconstruct_eint=False)
+
+
+def hydro_blocks(torch, nbatch, shape, seed):
+    """Seeded conserved hydro blocks [nbatch, 6, X, Y, Z] f32 on the card:
+    rho in [0.5, 1.5], |v| ~ 0.3 (2 in a tenth of the cells), eint in [1, 2]
+    (x30 in a tenth), so that PPM's limiters and every HLLC branch run."""
+    import torch as _t
+
+    g = _t.Generator(device="cuda").manual_seed(seed)
+    full = (nbatch, *shape)
+    out = _t.empty((nbatch, 6, *shape), dtype=_t.float32, device="cuda")
+    rho = 0.5 + _t.rand(full, generator=g, device="cuda")
+    v = 0.3 * _t.randn((3, *full), generator=g, device="cuda")
+    v[:, _t.rand(full, generator=g, device="cuda") < 0.1] *= 7.0
+    eint = 1.0 + _t.rand(full, generator=g, device="cuda")
+    eint[_t.rand(full, generator=g, device="cuda") < 0.1] *= 30.0
+    out[:, 0] = rho
+    for k in range(3):
+        out[:, 1 + k] = rho * v[k]
+    ke = 0.5 * rho * (v[0] ** 2 + v[1] ** 2 + v[2] ** 2)
+    out[:, 4] = rho * eint + ke
+    out[:, 5] = rho * eint
+    return out
+
+
+def face_shapes(torch):
+    """(label, blocks [B, 6, X, Y, Z], bc_kinds or None, first order,
+    plain slabs)"""
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    walls = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)}
+    return (
+        ("K2 faces 256^3 walls", lambda: hydro_blocks(torch, 1, (256,) * 3, 21), walls,
+         False),
+        ("K2 faces 520^3 padded", lambda: hydro_blocks(torch, 1, (520,) * 3, 22), None,
+         False),
+        ("K2 faces 512 x 36^3", lambda: hydro_blocks(torch, 512, (36,) * 3, 23), None,
+         False),
+        ("K2 faces 512 x 28^3", lambda: hydro_blocks(torch, 512, (28,) * 3, 24), None,
+         False),
+        ("K2 faces 512 x 36^3 first order", lambda: hydro_blocks(torch, 512, (36,) * 3, 23),
+         None, True),
+    )
+
+
+def face_plain(torch, kernel_check, sweep, U5, d, opts, chi, dmins, bc, fo):
+    """The plain faces of axis d, block by block (the 520^3 block in slabs
+    along another axis, where the sweep's stencil does not reach)."""
+    out = []
+    for b in range(U5.shape[0]):
+        dm = {t: m[b] for t, m in dmins.items()}
+        c = None if chi is None else chi[b]
+        bc_axis = None if bc is None else bc[d]
+
+        def fn(U, cc, dmn):
+            return sweep.axis_flux_plain(U, d, opts, cc, dmn, fo, bc_axis=bc_axis,
+                                         state_is_cons=True)
+
+        nslab = 8 if U5.shape[-1] > 300 else 1
+        res = kernel_check._slabbed(fn, (U5[b], c, dm), (d + 1) % 3, nslab)
+        out.append(res)
+    return tuple(torch.stack([r[i] for r in out]) for i in range(len(out[0])))
+
+
+def time_faces(torch, args, times, checks, errors, variants=None):
+    from quokka_tpu_torch import _cuda, kernel_check
+    from quokka_tpu_torch.hydro import sweep
+
+    lib = _cuda.library()
+    for label, make, bc, fo in face_shapes(torch):
+        if variants is not None and (fo or "28" in label):
+            continue
+        U5 = make()
+        opts = hydro_opts(U5.shape[-1])
+        if fo:
+            dmins, chi = {}, None
+        else:
+            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)
+        for d in range(3):
+            vax, wax = sweep._transverse_axes(d, 3)
+            bc_axis = None if bc is None else bc[d]
+
+            def launch(d=d, vax=vax, wax=wax, bc_axis=bc_axis):
+                return sweep._axis_faces_cuda(lib, U5, d, opts, chi, dmins.get(vax),
+                                              dmins.get(wax), bc_axis, True, fo)
+
+            if variants is not None:
+                chosen = sweep._face_tile
+                try:
+                    for tile in (None,) + tuple(variants):
+                        nf = U5.shape[2 + d] + (bc_axis is not None)
+                        t = tile or chosen(nf, U5.shape[3 if d == 2 else 4])
+                        key = f"{label} axis {d} tile {t[0]} x {t[1]}" + (
+                            " (chosen)" if tile is None else "")
+                        sweep._face_tile = lambda nf, na, t=t: t
+                        times[key] = kernel_check.time_ms(launch)
+                        print(f"  {key}: {times[key]:.3f} ms", flush=True)
+                finally:
+                    sweep._face_tile = chosen
+                continue
+            key = f"{label} axis {d}"
+            times[key] = kernel_check.time_ms(launch)
+            if args.check:
+                got = launch()
+                got = got if bc_axis is not None else got[:2]
+                ref = face_plain(torch, kernel_check, sweep, U5, d, opts, chi, dmins, bc, fo)
+                ok, max_abs, _ = kernel_check.compare(
+                    tuple(g for g in got if g is not None), ref)
+                checks[key], errors[key] = ok, max_abs
+                del got, ref
+            print(f"  {key}: {times[key]:.3f} ms"
+                  + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+                  flush=True)
+        del U5, dmins, chi
+        torch.cuda.empty_cache()
+
+
+# (batch, extents, walls) of the face outputs --dump saves: the face
+# kernel's edge shapes (extents 4 and 5, ragged tiles, a batch of 3, walls)
+# and a slice of each main shape
+DUMP_SHAPES = ((1, (4, 4, 4), True), (1, (5, 5, 5), False), (3, (5, 5, 5), False),
+               (3, (37, 18, 33), False), (1, (37, 18, 33), True), (1, (4, 35, 17), True),
+               (1, (64, 64, 64), True), (64, 36, False), (64, 28, False))
+
+
+def dump_faces(torch, path):
+    """Save the face kernel's outputs (PPM and first order, every axis) on
+    seeded blocks at DUMP_SHAPES, for --compare against another tree's."""
+    from quokka_tpu_torch import _cuda
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    lib = _cuda.library()
+    out = {}
+    for i, (nb, shape, walls) in enumerate(DUMP_SHAPES):
+        shape = (shape,) * 3 if isinstance(shape, int) else shape
+        U5 = hydro_blocks(torch, nb, shape, 60 + i)
+        bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
+        for extra in ({}, {"K_visc": 0.1, "reconstruct_eint": True}):
+            opts = dataclasses.replace(hydro_opts(8), **extra)
+            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)
+            for fo in (False, True):
+                for d in range(3):
+                    vax, wax = sweep._transverse_axes(d, 3)
+                    res = sweep._axis_faces_cuda(lib, U5, d, opts, None if fo else chi,
+                                                 None if fo else dmins.get(vax),
+                                                 None if fo else dmins.get(wax),
+                                                 None if bc is None else bc[d], True, fo)
+                    key = (f"B {nb} {shape}{' walls' if walls else ''} {extra or ''} "
+                           f"{'first order' if fo else 'PPM'} axis {d}")
+                    out[key] = [r.cpu() for r in res if r is not None]
+    torch.save(out, path)
+    print(f"saved {len(out)} face outputs to {path}", flush=True)
+
+
+def compare_dumps(torch, a, b):
+    """Bitwise equality (and the largest difference) of two --dump files."""
+    da, db = torch.load(a), torch.load(b)
+    same = 0
+    for key in da:
+        eq = all(torch.equal(x, y) for x, y in zip(da[key], db[key]))
+        diff = max(float((x - y).abs().max()) for x, y in zip(da[key], db[key]))
+        same += eq
+        if not eq:
+            print(f"  differs: {key}: max |diff| {diff:.3e}")
+    print(f"face outputs bitwise equal: {same} of {len(da)}", flush=True)
+    return same == len(da)
+
+
+def time_k7(torch, args, times, checks):
+    from quokka_tpu_torch import kernel_check
     from quokka_tpu_torch.radiation import sweep as rsweep
     from quokka_tpu_torch.radiation.system import RadOptions
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    _cuda.library()
-    for line in _cuda.build_info["log"].splitlines():
-        if any(k in line for k in ("rad_axis_flux", "row_gather")) or "registers" in line:
-            print("  ptxas:", line.strip())
-    times, checks = {}, {}
     ropts = RadOptions(c=10.0, chat=5.0, arad=1.0)
-
     for label, nbatch, n, nslab in (("K7 520^3", 1, 520, 8), ("K7 512 x 32^3", 512, 32, 1)):
         R5 = rad_blocks(torch, nbatch, n, 5)
         for d in range(3):
@@ -123,6 +542,11 @@ def main():
                                                      if args.check else ""), flush=True)
         del R5
         torch.cuda.empty_cache()
+
+
+def time_k9(torch, args, times, checks):
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.amr import packed
 
     cap, lattice = 28672, (32, 32, 28)
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -145,7 +569,138 @@ def main():
                   f"{times[key + ' index_select']:.3f} ms"
                   + (f", bitwise {checks[key]}" if args.check else ""), flush=True)
         times[f"K9 {count} x 26 distinct rows"] = int(torch.unique(rows).numel())
-    print(json.dumps({"tree": str(tree), "device": smi, "times": times, "checks": checks}))
+
+
+# ------------------------------------------------------------------ histogram
+def warp_stats(per_solve):
+    """(mean residual evaluations a cell, mean over warps of the sum over
+    Newton solves of the warp's maximum, histogram of a cell's total) from
+    the per-solve counts [cells] of one coupling call."""
+    import torch
+
+    solves = torch.stack([p.reshape(-1) for p in per_solve]).long()  # [S, cells]
+    total = solves.sum(0)
+    pad = (-total.numel()) % 32
+    warps = torch.nn.functional.pad(solves, (0, pad)).reshape(solves.shape[0], -1, 32)
+    warp_cost = warps.max(dim=2).values.sum(0)
+    hist = torch.bincount(total)
+    return (float(total.double().mean()), float(warp_cost.double().mean()),
+            {int(k): int(v) for k, v in enumerate(hist.tolist()) if v})
+
+
+def histogram(torch, shell):
+    from quokka_tpu_torch.problems.radhydro_bench import RadhydroBenchProblem
+    from quokka_tpu_torch.problems.radhydro_shell import RadhydroShellProblem
+    from quokka_tpu_torch.radiation import source
+
+    out = {}
+    U, dt_rad, sim = radbench_state(torch)
+    inputs = [(f"RadhydroBench 256^3 stage {s}", s, [U], None, dt_rad, sim._radiation.opts,
+               sim.eos, RadhydroBenchProblem(), None) for s in (1, 2)]
+    if shell is not None:
+        s1, s2 = shell["stage1"], shell["stage2"]
+        for s, st in ((1, s1), (2, s2)):
+            blocks = torch.cat([st["gas"], st["rad"]], dim=1)
+            # the chunk folded into one state: the kernel's cell order
+            nv, sp = blocks.shape[1], blocks.shape[2:]
+            Uf = blocks.transpose(0, 1).reshape(nv, -1, *sp[1:])
+            src = None if st["src"] is None else st["src"].reshape(-1, *sp[1:])
+            keep = st.get("keep")
+            inputs.append((f"packed shell level-2 chunk stage {s} {tuple(blocks.shape)}", s,
+                           [Uf], src, st["dt"], shell["ropts"], shell["eos"],
+                           RadhydroShellProblem(), keep))
+    for title, stage, (Ux,), src, dt, opts, eos, prob, *keep in inputs:
+        counts = {"cell_resid": []}
+        source.source_update_plain(Ux, src, dt, stage, opts, eos, prob, source.RAD_START,
+                                   counts)
+        rows = [(title, counts["cell_resid"])]
+        if keep and keep[0] is not None:
+            # the ring cells without a neighbour tile are discarded after the
+            # coupling: their work, and that of the real cells alone
+            k = keep[0].reshape(-1)
+            rows.append((title + ", real cells (others counted 0)",
+                         [c.reshape(-1) * k for c in counts["cell_resid"]]))
+            rows.append((title + ", discarded ring cells (others counted 0)",
+                         [c.reshape(-1) * ~k for c in counts["cell_resid"]]))
+            print(f"  {title}: {int(k.sum())} real cells of {k.numel()}")
+        for label, per_solve in rows:
+            cell, warp, hist = warp_stats(per_solve)
+            out[label] = {"cell_mean": cell, "warp_mean": warp, "ratio": warp / cell,
+                          "solves": len(per_solve), "hist": hist}
+            print(f"  {label}: residual evaluations a cell {cell:.4f}, a warp {warp:.4f} "
+                  f"(ratio {warp / cell:.4f}, {len(per_solve)} Newton solves); "
+                  f"cells by evaluations {hist}", flush=True)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--only", default="k5,k2,k7,k9")
+    ap.add_argument("--shell", default=None, help="a chunk saved by --capture")
+    ap.add_argument("--capture", default=None)
+    ap.add_argument("--histogram", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
+    ap.add_argument("--dump", default=None, help="save the face kernel's outputs")
+    ap.add_argument("--compare", nargs=2, default=None, help="two --dump files")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; the kernels run only on the card", file=sys.stderr)
+        return 2
+    if not (tree / "quokka_tpu_torch").is_dir():
+        print(f"error: {tree} holds no quokka_tpu_torch", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(tree))
+    from quokka_tpu_torch import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _cuda.library()
+    if args.capture:
+        capture(args.capture)
+        return 0
+    if args.dump:
+        dump_faces(torch, args.dump)
+        return 0
+    if args.compare:
+        return 0 if compare_dumps(torch, *args.compare) else 1
+    shell = torch.load(args.shell, weights_only=False) if args.shell else None
+    if args.histogram:
+        print(json.dumps({"tree": str(tree), "device": smi, "histogram": histogram(torch,
+                                                                                   shell)}))
+        return 0
+    names = ("rad_source", "face_tile_kernel", "face_kernel", "rad_stage", "rad_axis_flux",
+             "row_gather")
+    for line in _cuda.build_info["log"].splitlines():
+        if any(k in line for k in names) or "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    times, checks, errors = {}, {}, {}
+    only = set(args.only.split(","))
+    if args.tiles:
+        from quokka_tpu_torch.hydro import sweep
+
+        if not hasattr(sweep, "_face_tile"):
+            print("error: this tree's face kernel takes no tile", file=sys.stderr)
+            return 2
+        time_faces(torch, args, times, checks, errors, TILE_VARIANTS)
+        only = set()
+    if "k5" in only:
+        time_k5(torch, args, shell, times, checks, errors)
+    if "k2" in only:
+        time_faces(torch, args, times, checks, errors)
+    if "k7" in only:
+        time_k7(torch, args, times, checks)
+    if "k9" in only:
+        time_k9(torch, args, times, checks)
+    print(json.dumps({"tree": str(tree), "device": smi, "times": times, "checks": checks,
+                      "errors": errors}))
     if args.check and not all(checks.values()):
         print("error: a kernel disagrees with its plain version", file=sys.stderr)
         return 1

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "qk_transverse": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                       _F, _F, _F, _F, _I, _P],
     "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _F, _F, _F, _F, _F, _I, _P],
+                     _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
     "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _F, _I, _I, _F, _F, _F, _F, _I, _P],
     "qk_axis_div": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
@@ -49,7 +49,7 @@ _SIGNATURES = {
     # `RadParams` (radiation/sweep.py), copied into the launch by value
     "qk_rad_div": [_P, _P, _L, _L, _L, _I, _P, _P],
     "qk_rad_axis_flux": [_P, _P, _L, _L, _L, _L, _I, _P, _P],
-    "qk_rad_source": [_P, _P, _P, _L, _F, _I, _P, _P],
+    "qk_rad_source": [_P, _F, _I, _P, _P],  # a host `SourceViews` (radiation/source.py)
     "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_rad_stage2": [_P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_mhd_axis": [_P, _P, _P, _L, _L, _L, _I, _I, _F, _F, _F, _F, _F, _P],

@@ -561,10 +561,12 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
     transport reads is recomputed in the block (the coupling is pointwise;
     ring cells take the gathered neighbour gas, so they equal the owner's
     values). The gas coupling updates the hydro rows. K7 (batched) makes
-    the transport faces, K5 the coupling. Returns (Uph, Upr, own faces or
-    None, register contribution, valid)."""
+    the transport faces, K5 the coupling (batched: it reads the chunk's
+    blocks and crops where they lie and writes stage 2 into the new pools'
+    rows). Returns (Uph, Upr, own faces or None, register contribution,
+    valid)."""
+    from ..radiation import source
     from ..radiation.pool import TileGridView
-    from ..radiation.source import source_update, source_update_plain
     from ..radiation.sweep import compute_rad_axis_flux_batched, rad_axis_flux_plain
     from ..radiation.system import add_fluxes_rk2, predict_step
 
@@ -591,7 +593,7 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
     # dispatches (`quokka_tpu/amr/packed.py:857`); any other dtype takes
     # their plain versions on its own device (JAX's XLA)
     f32 = dtp == torch.float32
-    coupling = source_update if f32 else source_update_plain
+    coupling = source.source_update_batched if f32 else source.source_update_batched_plain
 
     def fluxes(R):
         if f32:
@@ -601,16 +603,6 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
 
     def grouped(R):  # [c, 4G, ...] -> [c * G, 4, ...]
         return R.reshape(R.shape[0] * G, 4, *R.shape[2:])
-
-    def newton(U_blk, src, dt_f, stage):
-        """The pointwise coupling of a [c, nv, X, Y, Z] block, the chunk
-        axis folded into x (one K5 launch)."""
-        c, nv = U_blk.shape[:2]
-        sp = U_blk.shape[2:]
-        Uf = U_blk.transpose(0, 1).reshape(nv, c * sp[0], *sp[1:]).contiguous()
-        rf = None if src is None else src.reshape(c * sp[0], *sp[1:]).contiguous()
-        U2f = coupling(Uf, rf, dt_f, stage, ropts, eos, problem, rs)
-        return U2f.reshape(nv, c, *sp).transpose(0, 1)
 
     def faces_flat(fl, gw):
         return slice_tile_faces({d: F.reshape(F.shape[0], nr, *F.shape[3:])
@@ -658,12 +650,12 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
             R0b = _crop(R0g, g).reshape(chunk, G, 4, *tsg)
             R1b = predict_step(grouped(R0b.reshape(chunk, nr, *tsg)),
                                grouped(divF0.reshape(chunk, nr, *tsg)), dt_f, ropts)
-            Ub = torch.cat([gasg, R1b.reshape(chunk, nr, *tsg)], dim=1)
-            U1b = newton(Ub, src_b, dt_f, 1)
-            real_g = ring_real_mask(nbr_c, ts, g)[:, None]
-            U1b = torch.where(real_g, U1b, Ub)
-            del Ub, gasg, R1b
-            R1blk = overlay_backdrop(U1b[:, nh:], nbr_c, bd_b, g, ts).contiguous()
+            # stage-1 coupling of the 2g-deep block; the ring cells without a
+            # neighbour tile keep their values (the backdrop overlays them)
+            gas1, rad1 = coupling(gasg, R1b.reshape(chunk, nr, *tsg), src_b, dt_f, 1,
+                                  ropts, eos, problem, rs, keep=ring_real_mask(nbr_c, ts, g))
+            del gasg, R1b
+            R1blk = overlay_backdrop(rad1, nbr_c, bd_b, g, ts)
             fl1 = fluxes(R1blk)
             divF1 = _crop(_rad_div(fl1, dx), g)
             R1n = _crop(R1blk, g)
@@ -671,15 +663,14 @@ def fused_rad_subcycle_packed(Uph, Upr, time: float, dt_level: float, nsub: int,
                                    grouped(R1n),
                                    grouped(_crop(divF0.reshape(chunk, nr, *tsg), g)),
                                    grouped(divF1.reshape(chunk, nr, *ts)), dt_f, ropts)
-            U2t = torch.cat([_crop(U1b[:, :nh], g), R_new.reshape(chunk, nr, *ts)], dim=1)
-            U2t = newton(U2t, rad_src, dt_f, 2)
-            del U1b, R1blk, R_new, divF0, divF1, R0g
+            coupling(_crop(gas1, g), R_new.reshape(chunk, nr, *ts), rad_src, dt_f, 2, ropts,
+                     eos, problem, rs, out=(Uph_new[sl], Upr_new[sl]))
+            del gas1, rad1, R1blk, R_new, divF0, divF1, R0g
             own0 = faces_flat(fl0, g2)
             own1 = faces_flat(fl1, g)
             del fl0, fl1
-            fin = torch.isfinite(U2t).reshape(chunk, -1).all(dim=1)
-            Uph_new[sl] = U2t[:, :nh]
-            Upr_new[sl] = U2t[:, nh:]
+            fin = (torch.isfinite(Uph_new[sl]).reshape(chunk, -1).all(dim=1)
+                   & torch.isfinite(Upr_new[sl]).reshape(chunk, -1).all(dim=1))
             act = torch.arange(i0, i0 + chunk, device=dev) < meta.n_active
             if own_out:
                 # non-leaf: the full-resolution faces summed over the

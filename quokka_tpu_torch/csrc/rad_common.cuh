@@ -224,8 +224,19 @@ struct NewtonOut {
   float Egas, Erad, R, work, kP, kE, kF, fourPiB;
 };
 
+// True when no opacity law depends on T (every T_exp is 0): then kP, kE,
+// kF, kP / kE, tau and the Jacobian's J11 are the same at every Newton
+// iteration, and `newton<true>` computes them once a cell.
+__host__ __device__ __forceinline__ bool constant_opacity(const RadParams& p) {
+  return p.kP.T_exp == 0.0f && p.kE.T_exp == 0.0f && p.kF.T_exp == 0.0f;
+}
+
 // Newton-Raphson in (Egas, R) for one cell
 // (source_terms._newton_energy_exchange); stops when this cell converges.
+// kConstOpacity (`constant_opacity`): the T-independent quantities are
+// hoisted out of the loop. They are computed by the very same operations
+// as the loop would repeat, so both forms give the same bits.
+template <bool kConstOpacity>
 __device__ __forceinline__ NewtonOut newton(float Egas0, float Erad0,
                                             float rho, const float mom0[3],
                                             const float Frad0[3], float Src,
@@ -249,6 +260,10 @@ __device__ __forceinline__ NewtonOut newton(float Egas0, float Erad0,
   float tau = ((dt * rho) * kP) * p.chat;
   float R = (fourPiB - Erad0 / kPoE) * tau + work;
   float Egas = Egas0, Erad = Erad0;
+  // -1e100 of the JAX package is -inf in float32
+  const float J11_const =
+      kConstOpacity ? (tau > 0.0f ? -kPoE / tau - 1.0f : -__int_as_float(0x7f800000))
+                    : 0.0f;
   for (int it = 0; it < MAX_NEWTON_ITER; ++it) {
     const float F_G = (Egas - Egas0) + p.cscale * R;
     const float F_D = (Erad - Erad0) - (R + Src);
@@ -261,8 +276,8 @@ __device__ __forceinline__ NewtonOut newton(float Egas0, float Erad0,
     const float J00 = 1.0f;
     const float J01 = p.cscale;
     const float J10 = dEg_dT / cv_rho;
-    // -1e100 of the JAX package is -inf in float32
-    const float J11 = tau > 0.0f ? -kPoE / tau - 1.0f : -__int_as_float(0x7f800000);
+    const float J11 = kConstOpacity ? J11_const
+                      : (tau > 0.0f ? -kPoE / tau - 1.0f : -__int_as_float(0x7f800000));
     const float det = J00 * J11 - J01 * J10;
     const float y0 = -F_G;
     const float y1 = -F_D;
@@ -275,21 +290,20 @@ __device__ __forceinline__ NewtonOut newton(float Egas0, float Erad0,
     const float R_new = constrain ? R : R + dR;
     const float T_new = Egas_new / cv_rho;
     const float fourPiB_new = p.arad * pow4(T_new);
-    const float kP_new = opacity(p.kP, rho, T_new);
-    const float kE_new = opacity(p.kE, rho, T_new);
-    const float kPoE_new = kE_new > 0.0f ? kP_new / kE_new : 1.0f;
-    const float tau_new = ((dt * rho) * kP_new) * p.chat;
-    Erad = tau_new > 0.0f ? kPoE_new * (fourPiB_new - (R_new - work) / tau_new) : Erad;
+    if (!kConstOpacity) {
+      kP = opacity(p.kP, rho, T_new);
+      kE = opacity(p.kE, rho, T_new);
+      kPoE = kE > 0.0f ? kP / kE : 1.0f;
+      tau = ((dt * rho) * kP) * p.chat;
+    }
+    Erad = tau > 0.0f ? kPoE * (fourPiB_new - (R_new - work) / tau) : Erad;
     Egas = Egas_new;
     R = R_new;
     T = T_new;
     fourPiB = fourPiB_new;
-    kP = kP_new;
-    kE = kE_new;
-    kPoE = kPoE_new;
-    tau = tau_new;
   }
-  return {Egas, Erad, R, work, kP, kE, opacity(p.kF, rho, T), fourPiB};
+  return {Egas, Erad, R, work, kP, kE, kConstOpacity ? kF0 : opacity(p.kF, rho, T),
+          fourPiB};
 }
 
 // Implicit flux update + momentum deposition (source_terms flux_update).
@@ -345,6 +359,7 @@ __device__ __forceinline__ bool lag_converged(float work_new, float work_old,
 // (source_terms.add_source_terms_single_group, non-isothermal): Newton
 // solve, implicit flux update, and the lagged work-term outer loop, each
 // stopping when this cell converges.
+template <bool kConstOpacity>
 __device__ __forceinline__ void source_cell(float u[NVR], float Src_rate,
                                             bool has_src, float dt_radiation,
                                             int stage, const RadParams& p) {
@@ -359,8 +374,8 @@ __device__ __forceinline__ void source_cell(float u[NVR], float Src_rate,
   const float Egas0 = u[4] - ke0;
   const float Etot0 = Egas0 + p.cscale * (Erad0 + Src);
 
-  const NewtonOut nw = newton(Egas0, Erad0, rho, mom0, Frad0, Src, Etot0, dt,
-                              false, 0.0f, p);
+  const NewtonOut nw = newton<kConstOpacity>(Egas0, Erad0, rho, mom0, Frad0, Src,
+                                             Etot0, dt, false, 0.0f, p);
   float Egas_g = nw.Egas, Erad_g = nw.Erad, R = nw.R, work = nw.work;
   float Frad_t1[3], dMom[3];
   flux_update(nw, rho, mom0, Frad0, dt, p, Frad_t1, dMom);
@@ -369,8 +384,8 @@ __device__ __forceinline__ void source_cell(float u[NVR], float Src_rate,
     bool done = lag_converged(work_i, work, R, Etot0, p);
     if (!done) work = work_i;
     for (int ite = 1; ite < MAX_OUTER_ITER && !done; ++ite) {
-      const NewtonOut n2 = newton(Egas0, Erad0, rho, mom0, Frad0, Src, Etot0,
-                                  dt, true, work, p);
+      const NewtonOut n2 = newton<kConstOpacity>(Egas0, Erad0, rho, mom0, Frad0, Src,
+                                                 Etot0, dt, true, work, p);
       float Fn[3], dMn[3];
       flux_update(n2, rho, mom0, Frad0, dt, p, Fn, dMn);
       const float work_new = work_term(mom0, Fn, dMn, n2.kE, n2.kF, dt, p);

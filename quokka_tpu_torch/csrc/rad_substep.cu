@@ -17,7 +17,9 @@
 // reads its 7-cell line through the same periodic index map, so no padded
 // copy exists. Both stages read neighbours of their input, so each writes
 // fresh buffers, never in place. The transport and the Newton coupling of
-// a cell share one thread: nothing between them goes to DRAM.
+// a cell share one thread: nothing between them goes to DRAM. The coupling
+// is K5's (rad_common.cuh `source_cell`), specialised like it on opacity
+// laws that do not depend on T.
 //
 // Bound on the H100: bytes, unless the Newton loops run long. Stage 1 reads
 // 40 B a cell (U; the neighbours' radiation reads hit L1/L2) and writes
@@ -29,6 +31,7 @@
 
 namespace qk {
 
+template <bool kConstOpacity>
 __global__ void rad_stage1_kernel(const float* __restrict__ U,
                                   const float* __restrict__ src,
                                   float* __restrict__ U1,
@@ -52,13 +55,14 @@ __global__ void rad_stage1_kernel(const float* __restrict__ U,
 #pragma unroll
   for (int k = 0; k < 4; ++k) u[RS + k] = R1[k];
   const bool has_src = src != nullptr;
-  source_cell(u, has_src ? src[idx] : 0.0f, has_src, dt, 1, p);
+  source_cell<kConstOpacity>(u, has_src ? src[idx] : 0.0f, has_src, dt, 1, p);
 #pragma unroll
   for (int v = 0; v < NVR; ++v) U1[v * ncell + idx] = u[v];
 #pragma unroll
   for (int k = 0; k < 4; ++k) div0[k * ncell + idx] = d[k];
 }
 
+template <bool kConstOpacity>
 __global__ void rad_stage2_kernel(const float* __restrict__ U1,
                                   const float* __restrict__ R0,
                                   const float* __restrict__ div0,
@@ -88,7 +92,7 @@ __global__ void rad_stage2_kernel(const float* __restrict__ U1,
 #pragma unroll
   for (int k = 0; k < 4; ++k) u[RS + k] = R2[k];
   const bool has_src = src != nullptr;
-  source_cell(u, has_src ? src[idx] : 0.0f, has_src, dt, 2, p);
+  source_cell<kConstOpacity>(u, has_src ? src[idx] : 0.0f, has_src, dt, 2, p);
 #pragma unroll
   for (int v = 0; v < NVR; ++v) U2[v * ncell + idx] = u[v];
 }
@@ -100,8 +104,10 @@ extern "C" int qk_rad_stage1(const float* U, const float* src, float* U1,
                              float dt, const qk::RadParams* p, void* stream) {
   const int64_t ncell = (int64_t)X * Y * Z;
   const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
-  qk::rad_stage1_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      U, src, U1, div0, X, Y, Z, dt, *p);
+  auto kernel = qk::constant_opacity(*p) ? qk::rad_stage1_kernel<true>
+                                         : qk::rad_stage1_kernel<false>;
+  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(U, src, U1, div0, X, Y, Z,
+                                                           dt, *p);
   return (int)cudaGetLastError();
 }
 
@@ -111,7 +117,9 @@ extern "C" int qk_rad_stage2(const float* U1, const float* R0, const float* div0
                              const qk::RadParams* p, void* stream) {
   const int64_t ncell = (int64_t)X * Y * Z;
   const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
-  qk::rad_stage2_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      U1, R0, div0, src, U2, X, Y, Z, dt, *p);
+  auto kernel = qk::constant_opacity(*p) ? qk::rad_stage2_kernel<true>
+                                         : qk::rad_stage2_kernel<false>;
+  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(U1, R0, div0, src, U2, X, Y,
+                                                           Z, dt, *p);
   return (int)cudaGetLastError();
 }

@@ -8,14 +8,37 @@
 // (state_is_cons), the first-order FOFC fluxes (donor cell + LLF), and the
 // lean div-only sweep (K2c, below).
 //
-// face kernel: one thread per (face, transverse position), z fastest. Face
-//   slot f lies between cells f-1 and f; on a wall axis slot n (the hi
-//   wall) goes to the separate flux_hi / vel_hi planes. The thread reads
-//   cells f-3..f+2 through the wall index map (common.cuh), converts them
-//   to primitives in registers, builds the PPM states of cells f-1 and f,
-//   blends them with chi, and solves HLLC with the carbuncle dw (CW84
-//   viscosity when K_visc > 0); first_order reads only cells f-1, f and
-//   solves LLF. It writes F (state component order) and the face velocity.
+// face kernel (`face_tile_kernel`): a thread block owns a tile of `ta`
+//   faces along the axis by `tw` lines across it (the lines run along z,
+//   the contiguous axis, for the x and y sweeps and along y for the z
+//   sweep; the third coordinate is fixed), and stages the cells the tile
+//   reads in shared memory in three phases separated by __syncthreads:
+//     1. load each of the ta + 5 cells a line needs (3 below the first
+//        face, 2 above the last) once, through the wall index map
+//        (common.cuh: periodic wrap, or the mirrored cell with its normal
+//        momentum flipped), neighbouring threads on neighbouring
+//        addresses, and convert it to primitives (state_is_cons) once;
+//     2. reconstruct each of the ta + 1 cells the faces touch once: PPM
+//        (ppm_cell) per component gives both its face states, blended with
+//        the cell's chi; the cell's two dmin values are staged beside them;
+//     3. each face builds its two states, qL = plus(f-1) and qR = minus(f),
+//        and solves HLLC once with the carbuncle dw (CW84 viscosity when
+//        K_visc > 0); F (state component order) and the face velocity are
+//        written coalesced.
+//   Face slot f lies between cells f-1 and f; on a wall axis slot n (the hi
+//   wall) goes to the separate flux_hi / vel_hi planes. The expressions and
+//   their order of operations are those of the one-thread-a-face form this
+//   replaces (`sweep_face`, which K2c and K2e keep), which computed each
+//   cell's primitives six times and its reconstruction twice; with
+//   -fmad=false the fluxes are the same bits (kernel_times.py --compare).
+//   `hydro.sweep._face_tile` picks (ta, tw) for the axis's face count and
+//   line count: up to 40 faces along, up to 512 faces a tile, ~40 KB of
+//   shared memory. __launch_bounds__(256, 4) holds a thread to 64
+//   registers without spills, so four blocks (32 warps) fit a
+//   multiprocessor; uncapped, the z sweep took 72 and ran 12% slower.
+// first-order face kernel (`fo_face_kernel`): one thread per face, z
+//   fastest, reads cells f-1 and f and solves LLF (the FOFC fallback
+//   fluxes); no stencil is shared enough for a tile to pay.
 // div kernel: one thread per cell, div = (F(i) - F(i+1)) / dx and
 //   dvel = (v(i+1) - v(i)) / dx, where with avg_with both faces are first
 //   averaged with stage 1's, 0.5 * (F1 + F2), in registers.
@@ -68,16 +91,16 @@
 // face-array round trip costs (6+1) x 4 B written and read per cell, which
 // the stage-1 caller needs in DRAM anyway (the FOFC fallback re-blends it).
 //
-// Bound on the H100: neither roof. A face reads 6 cells x 6 components
-// (mostly L1/L2 hits shared with neighbouring threads), ~2 chi and ~4 dmin
-// values, and writes 7 floats, against roughly 600 FP32 operations with 8
-// divisions and 6 square roots: on the order of 20 flops per DRAM byte,
-// near the H100's FP32 ridge. Measured on an NVIDIA H100 80GB HBM3 at a
-// 700 W power limit, one 256^3 stage-1 sweep (face + div kernels) took
-// ~2.2 ms: ~0.9 TB/s and ~4.6 TFLOP/s, so latency and instruction
-// throughput bound it (multi-instruction IEEE divisions and square roots;
-// 56-64 registers a thread cap occupancy). Staging the stencil in shared
-// memory and fewer divisions are the next steps.
+// Bound on the H100: bytes on paper. A face of the tile kernel reads its
+// cell's 6 values, chi and two dmin fields once (plus the 5 staged halo
+// cells of a tile line) and writes 7 floats, 64 B a cell, against roughly
+// 620 FP32 operations counted once (kernel_check.OPS_K2_SWEEP with the
+// divergence): at 256^3 1.07 GB, >= 0.32 ms at 3.35 TB/s. In practice
+// instruction issue bounds it: each face solve has ~10 IEEE divisions and
+// 6 square roots, which are instruction sequences, and -fmad=false keeps
+// every product and sum apart. The one-thread-a-face form this replaces
+// also redid each cell's primitives 6 times and its PPM twice; the tile
+// does each once, so what is left is one HLLC a face and one PPM a cell.
 #include "common.cuh"
 
 namespace qk {
@@ -217,92 +240,14 @@ __device__ __forceinline__ void hllc(const Face& L, const Face& R, float du,
   }
 }
 
-// One face of the sweep: slot f lies between cells f-1 and f (through the
-// wall index map, so f = n is the hi wall, or face 0 again on a periodic
-// axis). Reads cells f-3..f+2, converts them to primitives in registers,
-// builds the PPM states of cells f-1 and f, blends them with chi, and solves
-// HLLC with the carbuncle dw (CW84 viscosity when K_visc > 0); first_order
-// reads only cells f-1, f and solves LLF. Returns the flux in state
-// component order and the face velocity. The sweep axis is a template
-// parameter: the canonical-frame component indices (1+axis, 1+vax, 1+wax)
-// become compile-time constants, which keeps the 6 x 6 stencil and the face
-// states in registers.
+// Canonical-frame flux `out` -> state component order, and the face
+// velocity from the upwind side's 1/rho.
 template <int axis>
-__device__ __forceinline__ void sweep_face(
-    const float* __restrict__ Q, const float* __restrict__ chi,
-    const float* __restrict__ dminv, const float* __restrict__ dminw,
-    int64_t ncell, int64_t base, int64_t stride, int64_t f, int64_t n, int lo,
-    int hi, int is_cons, int first_order, float K_visc, const Eos& e,
-    float Fs[NV], float& fv) {
+__device__ __forceinline__ void state_order(const float out[NV], float rinv_L,
+                                            float rinv_R, float Fs[NV],
+                                            float& fv) {
   constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
   constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
-  float qL[NV], qR[NV], out[NV];
-  float rinv_L, rinv_R;
-  if (first_order) {
-    load_prim(Q, ncell, base, stride, f - 1, n, lo, hi, axis, is_cons, e, qL);
-    load_prim(Q, ncell, base, stride, f, n, lo, hi, axis, is_cons, e, qR);
-    const Face L = face_state(qL, axis, vax, wax, e);
-    const Face R = face_state(qR, axis, vax, wax, e);
-    llf(L, R, out);
-    rinv_L = L.rinv;
-    rinv_R = R.rinv;
-  } else {
-    float w[6][NV];  // cells f-3 .. f+2
-#pragma unroll
-    for (int o = 0; o < 6; ++o)
-      load_prim(Q, ncell, base, stride, f - 3 + o, n, lo, hi, axis, is_cons,
-                e, w[o]);
-    float chi_m1 = 1.0f, chi_0 = 1.0f;
-    if (chi != nullptr) {
-      chi_m1 = load_field(chi, base, stride, f - 1, n, lo, hi);
-      chi_0 = load_field(chi, base, stride, f, n, lo, hi);
-    }
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      float m_unused, p_unused;
-      float plus_m1, minus_0;
-      ppm_cell(w[0][c], w[1][c], w[2][c], w[3][c], w[4][c], m_unused, plus_m1);
-      ppm_cell(w[1][c], w[2][c], w[3][c], w[4][c], w[5][c], minus_0, p_unused);
-      if (chi != nullptr) {
-        qL[c] = chi_m1 * plus_m1 + (1.0f - chi_m1) * w[2][c];
-        qR[c] = chi_0 * minus_0 + (1.0f - chi_0) * w[3][c];
-      } else {
-        qL[c] = plus_m1;
-        qR[c] = minus_0;
-      }
-    }
-    const Face L = face_state(qL, axis, vax, wax, e);
-    const Face R = face_state(qR, axis, vax, wax, e);
-    const float du = w[3][1 + axis] - w[2][1 + axis];
-    float dw = 0.0f, dvl = 0.0f, dvr = 0.0f, dwl = 0.0f, dwr = 0.0f;
-    if (dminv != nullptr) {
-      dvl = load_field(dminv, base, stride, f - 1, n, lo, hi);
-      dvr = load_field(dminv, base, stride, f, n, lo, hi);
-      dw = mn(dvl, dvr);
-    }
-    if (dminw != nullptr) {
-      dwl = load_field(dminw, base, stride, f - 1, n, lo, hi);
-      dwr = load_field(dminw, base, stride, f, n, lo, hi);
-      const float m2 = mn(dwl, dwr);
-      dw = dminv != nullptr ? mn(dw, m2) : m2;
-    }
-    hllc(L, R, du, dw, e, out);
-    if (K_visc > 0.0f) {
-      float div_v = du;
-      if (dminv != nullptr) div_v = div_v + 0.5f * (dvl + dvr);
-      if (dminw != nullptr) div_v = div_v + 0.5f * (dwl + dwr);
-      const float visc = K_visc * mx(-div_v, 0.0f);
-      float UL[NV], FL[NV], UR[NV], FR[NV];
-      cons_flux(L, UL, FL);
-      cons_flux(R, UR, FR);
-#pragma unroll
-      for (int c = 0; c < NV; ++c) out[c] = out[c] + visc * (UL[c] - UR[c]);
-    }
-    rinv_L = L.rinv;
-    rinv_R = R.rinv;
-  }
-
-  // canonical -> state component order
   Fs[0] = out[0];
   Fs[1 + axis] = out[1];
   Fs[1 + vax] = out[2];
@@ -312,33 +257,319 @@ __device__ __forceinline__ void sweep_face(
   fv = Fs[0] * (Fs[0] >= 0.0f ? rinv_R : rinv_L);
 }
 
+// The first-order face f: donor-cell states of cells f-1 and f (through
+// the wall map) and LLF, in state component order.
 template <int axis>
-__global__ void face_kernel(const float* __restrict__ Q,
-                            const float* __restrict__ chi,
-                            const float* __restrict__ dminv,
-                            const float* __restrict__ dminw,
-                            float* __restrict__ F, float* __restrict__ vel,
-                            float* __restrict__ F_hi,
-                            float* __restrict__ vel_hi, int64_t X, int64_t Y,
-                            int64_t Z, int lo, int hi, int is_cons,
-                            int first_order, float K_visc, Eos e) {
+__device__ __forceinline__ void llf_face(const float* __restrict__ Q,
+                                         int64_t ncell, int64_t base,
+                                         int64_t stride, int64_t f, int64_t n,
+                                         int lo, int hi, int is_cons,
+                                         const Eos& e, float Fs[NV],
+                                         float& fv) {
+  constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
+  constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
+  float qL[NV], qR[NV], out[NV];
+  load_prim(Q, ncell, base, stride, f - 1, n, lo, hi, axis, is_cons, e, qL);
+  load_prim(Q, ncell, base, stride, f, n, lo, hi, axis, is_cons, e, qR);
+  const Face L = face_state(qL, axis, vax, wax, e);
+  const Face R = face_state(qR, axis, vax, wax, e);
+  llf(L, R, out);
+  state_order<axis>(out, L.rinv, R.rinv, Fs, fv);
+}
+
+// HLLC at one face from its reconstructed states qL, qR (primitives), the
+// normal velocity jump du of the two cells, and their dmin values along
+// the transverse axes (has_v / has_w: the field exists), with the CW84
+// viscosity when K_visc > 0; in state component order.
+template <int axis>
+__device__ __forceinline__ void hllc_face(const float qL[NV],
+                                          const float qR[NV], float du,
+                                          bool has_v, float dvl, float dvr,
+                                          bool has_w, float dwl, float dwr,
+                                          float K_visc, const Eos& e,
+                                          float Fs[NV], float& fv) {
+  constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
+  constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
+  float out[NV];
+  const Face L = face_state(qL, axis, vax, wax, e);
+  const Face R = face_state(qR, axis, vax, wax, e);
+  float dw = 0.0f;
+  if (has_v) dw = mn(dvl, dvr);
+  if (has_w) {
+    const float m2 = mn(dwl, dwr);
+    dw = has_v ? mn(dw, m2) : m2;
+  }
+  hllc(L, R, du, dw, e, out);
+  if (K_visc > 0.0f) {
+    float div_v = du;
+    if (has_v) div_v = div_v + 0.5f * (dvl + dvr);
+    if (has_w) div_v = div_v + 0.5f * (dwl + dwr);
+    const float visc = K_visc * mx(-div_v, 0.0f);
+    float UL[NV], FL[NV], UR[NV], FR[NV];
+    cons_flux(L, UL, FL);
+    cons_flux(R, UR, FR);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) out[c] = out[c] + visc * (UL[c] - UR[c]);
+  }
+  state_order<axis>(out, L.rinv, R.rinv, Fs, fv);
+}
+
+// One face of the sweep, one thread (K2c and K2e: each cell solves its two
+// faces): slot f lies between cells f-1 and f (through the wall index map,
+// so f = n is the hi wall, or face 0 again on a periodic axis). Reads
+// cells f-3..f+2, converts them to primitives in registers, builds the PPM
+// states of cells f-1 and f, blends them with chi, and solves HLLC
+// (`hllc_face`); first_order reads only cells f-1, f and solves LLF.
+// Returns the flux in state component order and the face velocity. The
+// sweep axis is a template parameter: the canonical-frame component
+// indices become compile-time constants, which keeps the 6 x 6 stencil
+// and the face states in registers.
+template <int axis>
+__device__ __forceinline__ void sweep_face(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw,
+    int64_t ncell, int64_t base, int64_t stride, int64_t f, int64_t n, int lo,
+    int hi, int is_cons, int first_order, float K_visc, const Eos& e,
+    float Fs[NV], float& fv) {
+  if (first_order) {
+    llf_face<axis>(Q, ncell, base, stride, f, n, lo, hi, is_cons, e, Fs, fv);
+    return;
+  }
+  float qL[NV], qR[NV];
+  float w[6][NV];  // cells f-3 .. f+2
+#pragma unroll
+  for (int o = 0; o < 6; ++o)
+    load_prim(Q, ncell, base, stride, f - 3 + o, n, lo, hi, axis, is_cons, e,
+              w[o]);
+  float chi_m1 = 1.0f, chi_0 = 1.0f;
+  if (chi != nullptr) {
+    chi_m1 = load_field(chi, base, stride, f - 1, n, lo, hi);
+    chi_0 = load_field(chi, base, stride, f, n, lo, hi);
+  }
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    float m_unused, p_unused;
+    float plus_m1, minus_0;
+    ppm_cell(w[0][c], w[1][c], w[2][c], w[3][c], w[4][c], m_unused, plus_m1);
+    ppm_cell(w[1][c], w[2][c], w[3][c], w[4][c], w[5][c], minus_0, p_unused);
+    if (chi != nullptr) {
+      qL[c] = chi_m1 * plus_m1 + (1.0f - chi_m1) * w[2][c];
+      qR[c] = chi_0 * minus_0 + (1.0f - chi_0) * w[3][c];
+    } else {
+      qL[c] = plus_m1;
+      qR[c] = minus_0;
+    }
+  }
+  const float du = w[3][1 + axis] - w[2][1 + axis];
+  float dvl = 0.0f, dvr = 0.0f, dwl = 0.0f, dwr = 0.0f;
+  if (dminv != nullptr) {
+    dvl = load_field(dminv, base, stride, f - 1, n, lo, hi);
+    dvr = load_field(dminv, base, stride, f, n, lo, hi);
+  }
+  if (dminw != nullptr) {
+    dwl = load_field(dminw, base, stride, f - 1, n, lo, hi);
+    dwr = load_field(dminw, base, stride, f, n, lo, hi);
+  }
+  hllc_face<axis>(qL, qR, du, dminv != nullptr, dvl, dvr, dminw != nullptr, dwl,
+                  dwr, K_visc, e, Fs, fv);
+}
+
+// Where face slot f of the line at (fixed, across) goes: the face arrays
+// [6, X, Y, Z] / [X, Y, Z] below n, the hi-wall planes [6, plane] /
+// [plane] at f = n (the plane over the two other axes in order: its offset
+// is fixed * n_across + across for every axis).
+__device__ __forceinline__ void store_face(
+    float* __restrict__ F, float* __restrict__ vel, float* __restrict__ F_hi,
+    float* __restrict__ vel_hi, int64_t ncell, int64_t nplane, int64_t off,
+    int64_t poff, bool on_plane, const float Fs[NV], float fv) {
+  if (!on_plane) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) F[c * ncell + off] = Fs[c];
+    vel[off] = fv;
+  } else {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) F_hi[c * nplane + poff] = Fs[c];
+    vel_hi[poff] = fv;
+  }
+}
+
+constexpr int FACE_THREADS = 256;
+
+// The geometry of one tile of the face kernels: the axis, the lines across
+// it and the fixed third coordinate, and this block's tile.
+struct FaceTile {
+  int n, n_across, stride_a, stride_c, stride_f, nf;
+  int a0, c0, fixed, faces, lines, base;
+  int64_t nplane;
+};
+
+template <int axis>
+__device__ __forceinline__ FaceTile face_tile(int X, int Y, int Z, bool wall,
+                                              int ta, int tw) {
+  FaceTile t;
+  t.n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  t.n_across = axis == 2 ? Y : Z;
+  t.stride_a = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  t.stride_c = axis == 2 ? Z : 1;
+  t.stride_f = axis == 1 ? Y * Z : (axis == 0 ? Z : Y * Z);
+  t.nf = wall ? t.n + 1 : t.n;
+  t.nplane = axis == 0 ? (int64_t)Y * Z : (axis == 1 ? (int64_t)X * Z : (int64_t)X * Y);
+  const int tiles_a = (t.nf + ta - 1) / ta;
+  const int tiles_c = (t.n_across + tw - 1) / tw;
+  int b = blockIdx.x;
+  const int tA = b % tiles_a;
+  b /= tiles_a;
+  const int tC = b % tiles_c;
+  t.fixed = b / tiles_c;
+  t.a0 = tA * ta;
+  t.c0 = tC * tw;
+  t.faces = min(ta, t.nf - t.a0);
+  t.lines = min(tw, t.n_across - t.c0);
+  t.base = t.fixed * t.stride_f + t.c0 * t.stride_c;
+  return t;
+}
+
+// Shared-memory index of (along j, line i) in a tile with n_along entries
+// a line: the contiguous global axis is the fastest one in shared memory
+// too, and element e of a phase maps to (j, i) so that neighbouring e sit
+// on neighbouring global and shared addresses.
+template <int axis>
+__device__ __forceinline__ int tix(int j, int i, int n_along, int lines) {
+  return axis == 2 ? i * n_along + j : j * lines + i;
+}
+template <int axis>
+__device__ __forceinline__ void tpos(int e, int n_along, int lines, int& j,
+                                     int& i) {
+  if (axis == 2) {
+    j = e % n_along;
+    i = e / n_along;
+  } else {
+    j = e / lines;
+    i = e % lines;
+  }
+}
+
+// The PPM face kernel, a shared-memory tile (see the header). Blocks of a
+// batch [B, 6, X, Y, Z] are blockIdx.y; offsets inside one component of one
+// block are 32-bit (the wrapper holds X Y Z below 2^31).
+template <int axis>
+__global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw,
+    float* __restrict__ F, float* __restrict__ vel, float* __restrict__ F_hi,
+    float* __restrict__ vel_hi, int X, int Y, int Z, int lo, int hi,
+    int is_cons, float K_visc, int ta, int tw, Eos e) {
+  extern __shared__ float smem[];
+  const int64_t ncell = (int64_t)X * Y * Z;
   {  // batch index: block b of a [B, 6, X, Y, Z] chunk (B = 1 unbatched)
-    const int64_t b = blockIdx.y, nc = X * Y * Z;
-    Q += b * NV * nc;
-    F += b * NV * nc;
-    vel += b * nc;
-    if (chi != nullptr) chi += b * nc;
-    if (dminv != nullptr) dminv += b * nc;
-    if (dminw != nullptr) dminw += b * nc;
+    const int64_t b = blockIdx.y;
+    Q += b * NV * ncell;
+    F += b * NV * ncell;
+    vel += b * ncell;
+    if (chi != nullptr) chi += b * ncell;
+    if (dminv != nullptr) dminv += b * ncell;
+    if (dminw != nullptr) dminw += b * ncell;
+  }
+  const FaceTile t = face_tile<axis>(X, Y, Z, lo != BC_PERIODIC, ta, tw);
+  const int ns = t.faces + 5;  // staged cells a line: a0-3 .. a0+faces+1
+  const int nr = t.faces + 1;  // reconstructed cells: a0-1 .. a0+faces-1
+  const int cap_s = (ta + 5) * tw, cap_r = (ta + 1) * tw;
+  float* prim_s = smem;                  // [NV][cap_s]
+  float* qm_s = prim_s + NV * cap_s;     // [NV][cap_r] blended minus states
+  float* qp_s = qm_s + NV * cap_r;       // [NV][cap_r] blended plus states
+  float* dv_s = qp_s + NV * cap_r;       // [cap_r]
+  float* dw_s = dv_s + cap_r;            // [cap_r]
+
+  // 1. primitives of the staged cells
+  for (int el = threadIdx.x; el < ns * t.lines; el += FACE_THREADS) {
+    int j, i;
+    tpos<axis>(el, ns, t.lines, j, i);
+    float q[NV];
+    load_prim(Q, ncell, t.base + i * t.stride_c, t.stride_a, t.a0 - 3 + j, t.n, lo,
+              hi, axis, is_cons, e, q);
+    const int s = tix<axis>(j, i, ns, t.lines);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) prim_s[c * cap_s + s] = q[c];
+  }
+  __syncthreads();
+
+  // 2. blended face states of the reconstructed cells, and their dmins
+  for (int el = threadIdx.x; el < nr * t.lines; el += FACE_THREADS) {
+    int r, i;
+    tpos<axis>(el, nr, t.lines, r, i);
+    const int64_t lbase = t.base + i * t.stride_c;
+    const int64_t a = t.a0 - 1 + r;
+    const int o = tix<axis>(r, i, nr, t.lines);
+    const int s = tix<axis>(r + 2, i, ns, t.lines);
+    const int sa = axis == 2 ? 1 : t.lines;  // staged neighbour along the axis
+    float chi_c = 1.0f;
+    if (chi != nullptr) chi_c = load_field(chi, lbase, t.stride_a, a, t.n, lo, hi);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const float* w = prim_s + c * cap_s + s;
+      float minus, plus;
+      ppm_cell(w[-2 * sa], w[-sa], w[0], w[sa], w[2 * sa], minus, plus);
+      if (chi != nullptr) {
+        plus = chi_c * plus + (1.0f - chi_c) * w[0];
+        minus = chi_c * minus + (1.0f - chi_c) * w[0];
+      }
+      qm_s[c * cap_r + o] = minus;
+      qp_s[c * cap_r + o] = plus;
+    }
+    if (dminv != nullptr) dv_s[o] = load_field(dminv, lbase, t.stride_a, a, t.n, lo, hi);
+    if (dminw != nullptr) dw_s[o] = load_field(dminw, lbase, t.stride_a, a, t.n, lo, hi);
+  }
+  __syncthreads();
+
+  // 3. HLLC at faces a0 .. a0+faces-1: face fa lies between reconstructed
+  // cells fa and fa+1 (staged fa+2 and fa+3)
+  for (int el = threadIdx.x; el < t.faces * t.lines; el += FACE_THREADS) {
+    int fa, i;
+    tpos<axis>(el, t.faces, t.lines, fa, i);
+    const int oL = tix<axis>(fa, i, nr, t.lines);
+    const int oR = tix<axis>(fa + 1, i, nr, t.lines);
+    const int sL = tix<axis>(fa + 2, i, ns, t.lines);
+    const int sR = tix<axis>(fa + 3, i, ns, t.lines);
+    float qL[NV], qR[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      qL[c] = qp_s[c * cap_r + oL];
+      qR[c] = qm_s[c * cap_r + oR];
+    }
+    const float du = prim_s[(1 + axis) * cap_s + sR] - prim_s[(1 + axis) * cap_s + sL];
+    const bool has_v = dminv != nullptr, has_w = dminw != nullptr;
+    float Fs[NV], fv;
+    hllc_face<axis>(qL, qR, du, has_v, has_v ? dv_s[oL] : 0.0f,
+                    has_v ? dv_s[oR] : 0.0f, has_w, has_w ? dw_s[oL] : 0.0f,
+                    has_w ? dw_s[oR] : 0.0f, K_visc, e, Fs, fv);
+    const int f = t.a0 + fa;
+    const int across = t.c0 + i;
+    store_face(F, vel, F_hi, vel_hi, ncell, t.nplane,
+               t.base + (int64_t)f * t.stride_a + i * t.stride_c,
+               (int64_t)t.fixed * t.n_across + across, f == t.n, Fs, fv);
+  }
+}
+
+// The first-order face kernel: one thread per (face, transverse position),
+// z fastest, over ext = (X, Y, Z) with the axis extent n + 1 on a wall axis.
+template <int axis>
+__global__ void __launch_bounds__(FACE_THREADS) fo_face_kernel(
+    const float* __restrict__ Q, float* __restrict__ F, float* __restrict__ vel,
+    float* __restrict__ F_hi, float* __restrict__ vel_hi, int64_t X, int64_t Y,
+    int64_t Z, int lo, int hi, int is_cons, Eos e) {
+  const int64_t ncell = X * Y * Z;
+  {
+    const int64_t b = blockIdx.y;
+    Q += b * NV * ncell;
+    F += b * NV * ncell;
+    vel += b * ncell;
   }
   const int64_t dims[3] = {X, Y, Z};
   const int64_t n = dims[axis];
-  const bool wall = lo != BC_PERIODIC;
   int64_t ext[3] = {X, Y, Z};
-  ext[axis] = wall ? n + 1 : n;
-  const int64_t total = ext[0] * ext[1] * ext[2];
+  ext[axis] = lo != BC_PERIODIC ? n + 1 : n;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
+  if (idx >= ext[0] * ext[1] * ext[2]) return;
   int64_t co[3];
   unravel(idx, ext[1], ext[2], co);
   const int64_t f = co[axis];
@@ -346,31 +577,12 @@ __global__ void face_kernel(const float* __restrict__ Q,
   int64_t oc[3] = {co[0], co[1], co[2]};
   oc[axis] = 0;
   const int64_t base = (oc[0] * Y + oc[1]) * Z + oc[2];
-  const int64_t ncell = X * Y * Z;
-
   float Fs[NV], fv;
-  sweep_face<axis>(Q, chi, dminv, dminw, ncell, base, stride, f, n, lo, hi,
-                   is_cons, first_order, K_visc, e, Fs, fv);
-
-  if (f < n) {
-    const int64_t off = base + f * stride;
-#pragma unroll
-    for (int c = 0; c < NV; ++c) F[c * ncell + off] = Fs[c];
-    vel[off] = fv;
-  } else {  // hi-wall face: plane over the two transverse axes
-    int64_t pd[2], pc[2], k = 0;
-    for (int a = 0; a < 3; ++a)
-      if (a != axis) {
-        pd[k] = dims[a];
-        pc[k] = co[a];
-        ++k;
-      }
-    const int64_t nplane = pd[0] * pd[1];
-    const int64_t off = pc[0] * pd[1] + pc[1];
-#pragma unroll
-    for (int c = 0; c < NV; ++c) F_hi[c * nplane + off] = Fs[c];
-    vel_hi[off] = fv;
-  }
+  llf_face<axis>(Q, ncell, base, stride, f, n, lo, hi, is_cons, e, Fs, fv);
+  // the hi-wall plane over the two other axes, in order
+  const int64_t a1 = axis == 0 ? 1 : 0, a2 = axis == 2 ? 1 : 2;
+  store_face(F, vel, F_hi, vel_hi, ncell, dims[a1] * dims[a2], base + f * stride,
+             co[a1] * dims[a2] + co[a2], f == n, Fs, fv);
 }
 
 __global__ void div_kernel(const float* __restrict__ F,
@@ -535,25 +747,47 @@ extern "C" int qk_axis_lean(const float* Q, const float* chi,
   return (int)cudaGetLastError();
 }
 
+// The face kernels of one axis over a batch [nbatch, 6, X, Y, Z] (nbatch 1
+// on a wall axis), in tiles of ta faces by tw lines (`face_tile_kernel`,
+// or `fo_face_kernel` for the first-order fluxes).
 extern "C" int qk_axis_flux(const float* Q, const float* chi,
                             const float* dminv, const float* dminw, float* F,
                             float* vel, float* F_hi, float* vel_hi, long long X,
                             long long Y, long long Z, long long nbatch,
                             int axis, int lo, int hi,
                             int is_cons, int first_order, float K_visc,
-                            float gamma, float gm1, float inv_gm1, float s_n,
-                            int reconstruct_eint, void* stream) {
+                            int ta, int tw, float gamma, float gm1,
+                            float inv_gm1, float s_n, int reconstruct_eint,
+                            void* stream) {
   const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
-  int64_t ext[3] = {X, Y, Z};
-  if (lo != qk::BC_PERIODIC) ext[axis] += 1;
-  const int64_t total = ext[0] * ext[1] * ext[2];
-  const dim3 blocks((unsigned)((total + qk::THREADS - 1) / qk::THREADS),
-                    (unsigned)nbatch);
-  auto kernel = axis == 0 ? qk::face_kernel<0>
-                : (axis == 1 ? qk::face_kernel<1> : qk::face_kernel<2>);
-  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      Q, chi, dminv, dminw, F, vel, F_hi, vel_hi, X, Y, Z, lo, hi, is_cons,
-      first_order, K_visc, e);
+  const long long n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const long long nf = lo != qk::BC_PERIODIC ? n + 1 : n;
+  const long long n_across = axis == 2 ? Y : Z;
+  const long long fixed = axis == 0 ? Y : X;
+  const long long tiles = ((nf + ta - 1) / ta) * ((n_across + tw - 1) / tw) * fixed;
+  const dim3 blocks((unsigned)tiles, (unsigned)nbatch);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (first_order) {
+    const long long total = X * Y * Z / n * nf;
+    auto kernel = axis == 0 ? qk::fo_face_kernel<0>
+                  : (axis == 1 ? qk::fo_face_kernel<1> : qk::fo_face_kernel<2>);
+    kernel<<<dim3((unsigned)((total + qk::FACE_THREADS - 1) / qk::FACE_THREADS),
+                  (unsigned)nbatch),
+             qk::FACE_THREADS, 0, st>>>(Q, F, vel, F_hi, vel_hi, X, Y, Z, lo, hi, is_cons, e);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = axis == 0 ? qk::face_tile_kernel<0>
+                : (axis == 1 ? qk::face_tile_kernel<1> : qk::face_tile_kernel<2>);
+  const size_t smem =
+      sizeof(float) * ((size_t)(ta + 5) * tw * qk::NV + (size_t)(ta + 1) * tw * (2 * qk::NV + 2));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, qk::FACE_THREADS, smem, st>>>(Q, chi, dminv, dminw, F, vel, F_hi,
+                                                 vel_hi, (int)X, (int)Y, (int)Z, lo, hi,
+                                                 is_cons, K_visc, ta, tw, e);
   return (int)cudaGetLastError();
 }
 

@@ -578,6 +578,17 @@ def _unbatch(t):
     return None if t is None else t[0]
 
 
+def _face_tile(n_faces: int, n_across: int) -> Tuple[int, int]:
+    """(faces along the axis, lines across) of one tile of K2's face kernel
+    (``csrc/sweep.cu`` `face_tile_kernel`): at most 40 faces along, split
+    evenly (a packed block's line of 28 or 36 faces is one tile), and as
+    many lines as keep a tile at or below 512 faces (two a thread), split
+    evenly across."""
+    ta = -(-n_faces // -(-n_faces // 40))
+    tw = max(1, min(n_across, 512 // ta))
+    return ta, -(-n_across // -(-n_across // tw))
+
+
 def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
                      state_is_cons: bool, first_order: bool):
     """Launch K2's face mode along `axis` over a batch [B, 6, X, Y, Z] (B = 1
@@ -604,10 +615,14 @@ def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
     v = torch.empty(cell, dtype=U5.dtype, device=U5.device)
     Fh = torch.empty((B, 6) + plane, dtype=U5.dtype, device=U5.device) if wall else None
     vh = torch.empty((B,) + plane, dtype=U5.dtype, device=U5.device) if wall else None
+    if X * Y * Z >= 2**31 or B > 65535:
+        raise ValueError("the CUDA face kernel takes < 2^31 cells a block and <= 65535 blocks")
+    n_faces = (X, Y, Z)[axis] + (1 if wall else 0)
+    ta, tw = _face_tile(n_faces, Y if axis == 2 else Z)
     err = lib.qk_axis_flux(U5.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
                            F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
                            X, Y, Z, B, axis, lo, hi, int(state_is_cons),
-                           int(first_order), float(opts.K_visc), *_eos_args(opts),
+                           int(first_order), float(opts.K_visc), ta, tw, *_eos_args(opts),
                            _stream(U5))
     check(err, "axis_flux")
     return F, v, Fh, vh

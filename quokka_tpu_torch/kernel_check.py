@@ -44,6 +44,7 @@ FP32_OPS_PER_S = 67e12
 # FP32 operations per cell, counted from the CUDA sources
 OPS_K1_AXIS = 50  # cons->prim, dmin, flattening chi and its 3-point min
 OPS_K2_SWEEP = 620  # PPM of 6 components, HLLC at one face, divergence
+OPS_K2_FACE = 606  # the face kernel alone: K2's sweep without the divergence
 OPS_K3 = 80
 OPS_FO_FACE = 110  # cons->prim of two cells, two face states, LLF (K2c's blend)
 OPS_K6_AXIS = 280  # (E, f) prims, PPM of 4 components, HLL at one face, div
@@ -761,3 +762,213 @@ def k7_batched_cases(R5: torch.Tensor, ropts, tag: str = "") -> Iterator[Case]:
                    lambda d=d: torch.stack([rsweep.rad_axis_flux_plain(r, d, ropts)
                                             for r in R5]),
                    lambda: k7_cost(R5))
+
+
+def ulps_of_max(got, ref) -> float:
+    """The largest |got - ref| over the finite values of each component, in
+    units of one float32 ulp of that component's largest magnitude (the
+    measure "within n ulps" of the face kernels), the worst component."""
+    worst = 0.0
+    for g, r in zip(_flat(got), _flat(ref)):
+        g, r = g.float(), r.float()
+        per_comp = r.dim() >= 4 or (r.dim() == 3 and r.shape[0] == 6)
+        if r.dim() > 4:
+            g, r = g.reshape(-1, *g.shape[-4:]), r.reshape(-1, *r.shape[-4:])
+            g, r = g.transpose(0, 1), r.transpose(0, 1)
+        for gc, rc in (zip(g, r) if per_comp else [(g, r)]):
+            fin = torch.isfinite(rc)
+            if not bool(fin.any()):
+                continue
+            scale = rc[fin].abs().max()
+            ulp = float(torch.nextafter(scale, torch.tensor(float("inf"),
+                                                            device=scale.device)) - scale)
+            worst = max(worst, float((gc[fin] - rc[fin]).abs().max()) / ulp)
+    return worst
+
+
+# ------------------------------------------------ K2's face kernel, batched
+def hydro_blocks(nbatch: int, shape, seed: int, device) -> torch.Tensor:
+    """Seeded conserved hydro blocks [nbatch, 6, X, Y, Z] f32: rho in [0.5,
+    1.5], |v| ~ 0.3 (x7 in a tenth of the cells), eint in [1, 2] (x30 in a
+    tenth), so that PPM's limiters and every HLLC branch run."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    full = (nbatch, *shape)
+
+    def rand():
+        return torch.rand(full, generator=g, device=device)
+
+    rho = 0.5 + rand()
+    v = 0.3 * torch.randn((3, *full), generator=g, device=device)
+    v[:, rand() < 0.1] *= 7.0
+    eint = 1.0 + rand()
+    eint[rand() < 0.1] *= 30.0
+    ke = 0.5 * rho * (v[0] ** 2 + v[1] ** 2 + v[2] ** 2)
+    return torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], rho * eint + ke,
+                        rho * eint], dim=1).contiguous()
+
+
+def _bytes_of(*tensors) -> int:
+    """Bytes of the tensors (views: their own elements), meta tensors too."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def k2_face_cost(U5: torch.Tensor, d: int, chi=None, dmins: dict | None = None,
+                 first_order: bool = False, wall: bool = False):
+    """(bytes, FP32 operations) of K2's face kernel along axis `d` over
+    blocks `U5` [B, 6, X, Y, Z]: the state read once, chi and the two
+    transverse dmin fields once (PPM), the faces [B, 6, ...] and face
+    velocities [B, ...] written once (and the hi-wall planes on a wall
+    axis); OPS_K2_FACE a face (OPS_FO_FACE in first order)."""
+    B, nv, X, Y, Z = U5.shape
+    dims = (X, Y, Z)
+    faces = B * X * Y * Z + (B * X * Y * Z // dims[d] if wall else 0)
+    fields = [] if first_order else [chi] + [m for t, m in (dmins or {}).items() if t != d]
+    nbytes = _bytes_of(U5, *fields) + (nv + 1) * faces * U5.element_size()
+    return nbytes, (OPS_FO_FACE if first_order else OPS_K2_FACE) * faces
+
+
+def face_plain(U5: torch.Tensor, d: int, opts, chi, dmins: dict, bc_axis=None,
+               first_order: bool = False, nslab: int = 1):
+    """The plain faces of axis `d` (`axis_flux_plain`, conserved input),
+    block by block, each in `nslab` slabs along another axis (its stencil
+    does not reach across them): (F [B, 6, ...], v [B, ...][, F_hi, v_hi])."""
+    out = []
+    for b in range(U5.shape[0]):
+        dm = {t: m[b] for t, m in dmins.items()}
+
+        def fn(U, c, dmn):
+            return sweep.axis_flux_plain(U, d, opts, c, dmn, first_order, bc_axis=bc_axis,
+                                         state_is_cons=True)
+
+        out.append(_slabbed(fn, (U5[b], None if chi is None else chi[b], dm), (d + 1) % 3,
+                            nslab))
+    return tuple(torch.stack([r[i] for r in out]) for i in range(len(out[0])))
+
+
+def face_cases(U5: torch.Tensor, opts, bc_kinds: dict | None = None, tag: str = "",
+               orders=(False, True), nslab: int = 1) -> Iterator[Case]:
+    """K2's face kernel (`sweep._axis_faces_cuda`, conserved input, one
+    launch an axis over the blocks `U5` [B, 6, X, Y, Z]) against the plain
+    faces block by block, per axis, in PPM (K1's fields from its plain
+    version) and first order (`orders`). `bc_kinds` {axis: (lo, hi)} puts
+    reflecting walls on a single block (B = 1)."""
+    from ._cuda import library
+
+    dmins, chi = {}, None
+    if False in orders:
+        fields = [sweep.precompute_transverse_plain(u, opts, bc_kinds, True)[:2] for u in U5]
+        dmins = {t: torch.stack([f[0][t] for f in fields]) for t in fields[0][0]}
+        chi = None if fields[0][1] is None else torch.stack([f[1] for f in fields])
+    for fo in orders:
+        for d in range(3):
+            vax, wax = sweep._transverse_axes(d, 3)
+            bc_axis = None if bc_kinds is None else bc_kinds.get(d)
+            c = None if fo else chi
+            dv = None if fo else dmins.get(vax)
+            dw = None if fo else dmins.get(wax)
+
+            def kernel(d=d, c=c, dv=dv, dw=dw, bc_axis=bc_axis, fo=fo):
+                F, v, Fh, vh = sweep._axis_faces_cuda(library(), U5, d, opts, c, dv, dw,
+                                                      bc_axis, True, fo)
+                return (F, v) if Fh is None else (F, v, Fh, vh)
+
+            def plain(d=d, bc_axis=bc_axis, fo=fo):
+                return face_plain(U5, d, opts, None if fo else chi, {} if fo else dmins,
+                                  bc_axis, fo, nslab)
+
+            cost = k2_face_cost(U5, d, c, None if fo else dmins, fo, bc_axis is not None)
+            what = "first order" if fo else "PPM"
+            yield Case("axis_flux", f"K2 faces {what} axis {d}{tag}", kernel, plain,
+                       lambda cost=cost: cost)
+
+
+def k1_batched_case(U5: torch.Tensor, opts, tag: str = "") -> Case:
+    """K1 over blocks `U5` [B, 6, X, Y, Z] (conserved, periodic, one launch
+    an axis) against its plain version block by block: it reads the state
+    once and writes dmin, chi's 3-point min and chi per axis."""
+    n = U5[:, 0].numel()
+    axes = len(opts.active_axes)
+    cost = (_bytes_of(U5) + 3 * _bytes_of(U5[:, 0]) * axes, OPS_K1_AXIS * n * axes)
+
+    def plain():
+        fields = [sweep.precompute_transverse_plain(u, opts, None, True)[:2] for u in U5]
+        return ({t: torch.stack([f[0][t] for f in fields]) for t in fields[0][0]},
+                torch.stack([f[1] for f in fields]))
+
+    return Case("transverse", f"K1 batched{tag}",
+                lambda: sweep._transverse_cuda(U5, opts, None, True), plain, lambda: cost)
+
+
+# (batch, extents, walls) of the face kernel's edge shapes: extents of 4 and
+# 5 (the halo wraps or mirrors more than once around a tile), extents that
+# are not multiples of a tile, a batch of 3 (periodic: a wall axis takes one
+# block), reflecting walls on every axis of single blocks
+FACE_EDGE_SHAPES = ((1, (4, 4, 4), True), (1, (5, 5, 5), False), (3, (5, 5, 5), False),
+                    (3, (37, 18, 33), False), (1, (37, 18, 33), True), (1, (4, 35, 17), True))
+
+
+def face_edge_cases(opts, device, seed: int = 4) -> Iterator[Case]:
+    """K2's face kernel on the edge shapes, every axis, PPM and first order,
+    against its plain version block by block."""
+    from .registry import BC_REFLECT
+
+    for i, (nb, shape, walls) in enumerate(FACE_EDGE_SHAPES):
+        U5 = hydro_blocks(nb, shape, seed + i, device)
+        bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
+        yield from face_cases(U5, opts, bc, f" B {nb} {shape}" + (" walls" if walls else ""))
+
+
+# ------------------------------------------------------------- K5, batched
+def k5_kept_counts(gas, rad, rad_src, keep, dt: float, stage: int, opts, eos,
+                   problem):
+    """(kept cells, the plain version's Newton and work-term counts over
+    them alone) of the batched K5's inputs: the work this data needs."""
+    U = torch.cat([gas, rad], dim=1).transpose(0, 1).reshape(gas.shape[1] + rad.shape[1], -1)
+    src = None if rad_src is None else rad_src.reshape(-1)
+    if keep is not None:
+        k = keep.reshape(-1)
+        U = U[:, k]
+        src = None if src is None else src[k]
+    n = U.shape[1]
+    counts = {"newton_resid": 0, "newton_iters": 0, "outer_iters": 0}
+    if n:
+        source.source_update_plain(U.reshape(U.shape[0], n, 1, 1),
+                                   None if src is None else src.reshape(n, 1, 1), dt, stage,
+                                   opts, eos, problem, source.RAD_START, counts)
+    return n, counts
+
+
+def k5_batched_cost(gas, rad, rad_src=None, keep=None, n_kept: int | None = None,
+                    counts: dict | None = None):
+    """(bytes, FP32 operations) of the batched K5 over views `gas` [B, 6,
+    ...] and `rad` [B, 4, ...]: both read once and written once (as many
+    values), the source and the keep mask read once; OPS_COUPLING_CELL for
+    each of the `n_kept` cells the Newton runs on (default: every cell) and
+    the iterations `counts` holds (`k5_kept_counts`; default: none)."""
+    n = gas[:, 0].numel() if n_kept is None else n_kept
+    ops = coupling_ops(n, counts or {"newton_resid": 0, "newton_iters": 0,
+                                     "outer_iters": 0})
+    return 2 * _bytes_of(gas, rad) + _bytes_of(rad_src, keep), ops
+
+
+def k5_batched_cases(gas, rad, rad_src, keep, dt: float, stage: int, opts, eos, problem,
+                     tag: str = "", out=None) -> Iterator[Case]:
+    """The batched K5 at one stage on views `gas`, `rad` (and `rad_src`,
+    `keep`), writing into `out` when given, against its plain version
+    (held within NEWTON_REL of each component's max)."""
+    cost = k5_batched_cost(gas, rad, rad_src, keep,
+                           *k5_kept_counts(gas, rad, rad_src, keep, dt, stage, opts, eos,
+                                           problem))
+
+    def run(fn, o):
+        res = fn(gas, rad, rad_src, dt, stage, opts, eos, problem, source.RAD_START,
+                 keep=keep, out=o)
+        return torch.cat([res[0], res[1]], dim=1)
+
+    yield Case("rad_source", f"K5 batched stage {stage}{tag}",
+               lambda: run(source.source_update_batched, out),
+               lambda: run(source.source_update_batched_plain, None),
+               lambda: cost, scaled=True,
+               run_timed=lambda: source.source_update_batched(
+                   gas, rad, rad_src, dt, stage, opts, eos, problem, source.RAD_START,
+                   keep=keep, out=out))

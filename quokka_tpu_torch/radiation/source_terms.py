@@ -61,7 +61,11 @@ def add_source_terms_single_group(U, rad_src, dt_radiation, stage: int,
     rad_src: the radiation energy source dE/dt [X, Y, Z], or None for none.
     `counts`, if given, accumulates the work this input needs, per cell as
     the kernel does it: ``newton_iters`` (Newton updates), ``newton_resid``
-    (residual evaluations) and ``outer_iters`` (work-term re-solves)."""
+    (residual evaluations) and ``outer_iters`` (work-term re-solves); where
+    it holds a list under ``cell_resid``, each Newton solve appends the
+    residual evaluations of every cell (int32 [X, Y, Z]; 0 for a cell that
+    the solve leaves frozen), the first solve, then each work-term
+    re-solve."""
     if opts.mixed_precision_coupling:
         raise NotImplementedError("radiation.mixed_precision_coupling is not ported yet")
     if opts.n_groups != 1:
@@ -212,11 +216,17 @@ def _newton_energy_exchange(Egas0, Erad0, rho, mom0, Frad0, Src, Etot0, dt,
 
     Egas, Erad, T = Egas0, Erad0, T0
     done = torch.zeros_like(rho, dtype=torch.bool)
+    per_cell = None
+    if cnt is not None and "cell_resid" in cnt:
+        per_cell = torch.zeros_like(rho, dtype=torch.int32)
+        cnt["cell_resid"].append(per_cell)
     n = 0
     while n < MAX_NEWTON_ITER and not bool(done.all()):
         if cnt is not None:
             live = ~done if active is None else ~done & active
             cnt["newton_resid"] += int(live.sum())
+            if per_cell is not None:
+                per_cell += live
         F_G = Egas - Egas0 + cscale * R
         F_D = Erad - Erad0 - (R + Src)
         F_D_abs = torch.where(tau > 0.0, torch.abs(F_D), torch.abs(F_D + R))

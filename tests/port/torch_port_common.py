@@ -15,12 +15,13 @@ from quokka_tpu_torch.interop import hydro_options_from_fields, state_from_numpy
 
 # the radiation kernel wrappers K4-K7, by the module attributes their callers
 # read: K4 `fused_substep`, K5 `source_update` (imported by the unigrid and
-# dense-level subcycles, looked up by the packed engine), K6, K7 and K7
-# batched
+# dense-level subcycles) and `source_update_batched` (looked up by the
+# packed engine), K6, K7 and K7 batched
 RAD_KERNEL_WRAPPERS = (
     ("quokka_tpu_torch.radiation.advance", "fused_substep"),
     ("quokka_tpu_torch.radiation.advance", "source_update"),
     ("quokka_tpu_torch.radiation.source", "source_update"),
+    ("quokka_tpu_torch.radiation.source", "source_update_batched"),
     ("quokka_tpu_torch.radiation.sweep", "compute_rad_div"),
     ("quokka_tpu_torch.radiation.sweep", "compute_rad_axis_flux"),
     ("quokka_tpu_torch.radiation.sweep", "compute_rad_axis_flux_batched"),
