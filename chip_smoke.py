@@ -34,7 +34,11 @@ pool levels.
 
 Phase 3 also holds K1 and K2's tiled face kernel over the main path's
 chunk of 512 level-1 hydro blocks (36^3; timed) and the face kernel at
-its edge shapes to their plain versions; phase 11 holds
+its edge shapes to their plain versions, K1 bit for bit everywhere (at
+the lean path's 512^3 timed too) and at the face kernel's edge shapes in
+its input variants (conserved and primitive input, reconstruct_eint,
+dmin alone), and both K4 stage kernels at small periodic extents (4^3,
+5^3, ragged tiles; PPM, PLM, donor cell; both opacity kinds); phase 11 holds
 the batched K5 to its plain version on main path 6's own first level-2
 chunk (captured in its warm-up step: stage 1 on the 2g-deep blocks with
 the ring mask, stage 2 on the crop, written into pool rows), and times
@@ -131,35 +135,13 @@ def rough_state(n, seed=7):
 
 
 def rough_rad_state(n, seed=9):
-    """Seeded [10, n, n, n] f32 radhydro state on the card: moving gas (the
-    work term is non-zero), |f| -> 1 and E near the floor beside E ~ 1, so
-    reconstructed faces go inadmissible and the donor-cell fallback fires."""
-    import torch
+    """Seeded [10, n, n, n] f32 radhydro state on the card
+    (`kernel_check.rough_rad_state`): moving gas (the work term is
+    non-zero), |f| -> 1 and E near the floor beside E ~ 1, so reconstructed
+    faces go inadmissible and the donor-cell fallback fires."""
+    from quokka_tpu_torch import kernel_check
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (n, n, n)
-
-    def rand(*s):
-        return torch.rand(s, generator=g, device="cuda", dtype=torch.float64)
-
-    def randn(*s):
-        return torch.randn(s, generator=g, device="cuda", dtype=torch.float64)
-
-    rho = 0.5 + rand(*shape)
-    v = 0.3 * randn(3, *shape)
-    T = 0.5 + rand(*shape)
-    Eint = rho * 1.5 * T
-    E = T**4 * (0.5 + rand(*shape))
-    nvec = randn(3, *shape)
-    nvec /= nvec.norm(dim=0)
-    fmag = 0.5 * rand(*shape)
-    fmag[rand(*shape) < 0.1] = 0.9999
-    E[rand(*shape) < 0.1] = 2e-10
-    F = nvec * fmag * 1.0e3 * E
-    ke = 0.5 * rho * (v * v).sum(dim=0)
-    U = torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], Eint + ke, Eint,
-                     E, F[0], F[1], F[2]])
-    return U.float().contiguous()
+    return kernel_check.rough_rad_state((n, n, n), seed, "cuda")
 
 
 def rough_padded_hydro(n, seed, fill):
@@ -385,15 +367,17 @@ def main() -> int:
                     "bytes": 0, "ops": 0, "library_ms": None} for k in KERNELS}
 
     def bitwise(case, got, ref):
-        """K7 and K9 equal their plain versions bit for bit."""
-        if case.kernel not in ("row_gather", "rad_axis_flux"):
+        """K1, K7 and K9 equal their plain versions bit for bit."""
+        if case.kernel not in ("row_gather", "rad_axis_flux", "transverse"):
             return ""
-        return " (bitwise)" if bool(torch.equal(got, ref)) else None
+        return " (bitwise)" if kernel_check.same_bits(got, ref) else None
 
     def ulps(case, got, ref):
         """K2's faces against the plain version in float32 ulps of each
         component's max (the one-thread-a-face kernel, whose bits the tile
-        keeps, read 0-3 on these inputs)."""
+        keeps, read 0-3 on these inputs); K1 beside them bit for bit."""
+        if case.kernel == "transverse":
+            return bitwise(case, got, ref)
         return f" ({kernel_check.ulps_of_max(got, ref):.2f} ulp of max)"
 
     summary = new_summary()
@@ -436,11 +420,15 @@ def main() -> int:
         nk, npl = int(got[1]), int(ref[1])
         return f" invalid cells kernel {nk} plain {npl}" if (nk > 0) == (npl > 0) else None
 
+    def k3_counts_k1_bits(case, got, ref):
+        return k3_counts(case, got, ref) if case.kernel == "apply_update" else bitwise(
+            case, got, ref)
+
     for title, U, U2, bc, dt_in, opts_in in inputs:
         timed = title.startswith("Sedov")
         run_cases(title, kernel_check.cases(U, U2, opts_in, bc, dt_in), lambda c, t=timed: (
             t and "first order" not in c.label and "avg" not in c.label),
-            summary, failed, k3_counts)
+            summary, failed, k3_counts_k1_bits)
     # K2c's stage-2 redo at or below 272 cells an axis: the sweep of U1
     # blended with U0's first-order fluxes and added onto the totals, on the
     # walls and on a periodic x axis
@@ -467,8 +455,13 @@ def main() -> int:
     k1_512 = kernel_check.Case(
         "transverse", "K1 all axes 512^3",
         lambda: sweep.precompute_transverse(L0, lopts, walls, True)[:2],
-        lambda: kernel_check.plain_transverse(L0, lopts, walls, nslab=4))
-    run_cases("Sedov 512^3 after 2 steps, K1", [k1_512], lambda c: False, summary, failed)
+        lambda: kernel_check.plain_transverse(L0, lopts, walls, nslab=4),
+        lambda: kernel_check.k1_cost_of(L0, lopts))
+    k1_aside = new_summary()  # the lean path's K1, beside the 256^3 row
+    run_cases("Sedov 512^3 after 2 steps, K1 (timed; the plain version in 4 slabs, 2 calls)",
+              [k1_512], lambda c: True, k1_aside, failed, bitwise, plain_reps=2)
+    summary["transverse"]["max_abs_err"] = max(summary["transverse"]["max_abs_err"],
+                                               k1_aside["transverse"]["max_abs_err"])
     lean_variants = ("clean", "acc", "fo_mask")
     run_cases("Sedov 512^3 after 2 steps, K2c, reflect x/y/z (timed: one clean stage)",
               kernel_check.lean_cases(L0, L1, lopts, walls, seed=11, variants=lean_variants,
@@ -507,6 +500,15 @@ def main() -> int:
         run_cases(title, kernel_check.rad_cases(U, None, dt_rad, rad.opts, rwarm.eos,
                                                 prob, rwarm.grid.dx),
                   lambda c, t=timed: t, summary, failed)
+    # K4 at small periodic extents: 4^3 and 5^3 (the halo wraps around its
+    # transport's tile) and ragged tiles, PPM (and PLM, donor cell on one shape),
+    # both opacity kinds
+    run_cases("K4 edge shapes (rough states)",
+              kernel_check.k4_edge_cases(rad.opts, rwarm.eos,
+                                         {"constant opacity": RadhydroBenchProblem(),
+                                          "T-dependent opacity": RoughOpacity()},
+                                         dt_rad, "cuda"),
+              lambda c: False, summary, failed)
     del rwarm, rad_inputs, U
     release()
 
@@ -730,6 +732,11 @@ def main() -> int:
     run_cases("K2 face kernel edge shapes, PPM and first order",
               kernel_check.face_edge_cases(psim.level_opts[1], "cuda"), lambda c: False,
               summary, failed, ulps)
+    # K1 at the same edge shapes, in its input variants (conserved and
+    # primitive input, reconstruct_eint, dmin alone), bitwise
+    run_cases("K1 edge shapes (extents 4 and 5, ragged tiles, a batch of 3, walls), "
+              "bitwise", kernel_check.k1_edge_cases(psim.level_opts[1], "cuda"),
+              lambda c: False, summary, failed, bitwise)
     summary["axis_flux"]["max_abs_err"] = max(summary["axis_flux"]["max_abs_err"],
                                               faces_aside["axis_flux"]["max_abs_err"])
     print("  K1 and K2's faces at the packed chunks: the rows above (K2 faces: PPM at "

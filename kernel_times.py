@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time kernels K5, K2's face kernel, K7 and K9 of one tree of
+"""Time kernels K1, K4, K5, K2's face kernel, K7 and K9 of one tree of
 quokka_tpu_torch on the card, at the main paths' shapes, so that two trees
 (a parent and a change) can be compared in one call on one card, in turns
 (parent, change, change, parent), each turn a process of its own:
 
-    python3 kernel_times.py [--tree DIR] [--check] [--only k5,k2,k7,k9]
+    python3 kernel_times.py [--tree DIR] [--check] [--only k1,k4,k5,k2,k7,k9]
                             [--shell FILE] [--tiles]
     python3 kernel_times.py --capture FILE
     python3 kernel_times.py --histogram --shell FILE
@@ -28,6 +28,14 @@ result), radiation and source at 16^3, dt and the radiation options. It
 works with the trees before and after K5 took strided views.
 
 Kernels and inputs, made on the card from fixed seeds where not captured:
+- K1 (`hydro.sweep._transverse_cuda`, every axis, conserved input; `--only
+  k1`): 256^3 with reflecting walls (Sedov), the packed chunk of 512
+  level-1 blocks of 36^3, and 512^3 with walls (the lean path), as the
+  tree's wrapper launches it; a tree with one launch an axis also its two
+  `torch.minimum` folds alone; --check holds each bitwise to the plain
+  version;
+- K4 (`radiation.substep.fused_stage1/2`; `--only k4`): both stages on
+  RadhydroBench 256^3 after 2 steps, stage 2 on stage 1's output;
 - K5: RadhydroBench 256^3 after 2 steps (`DECK_256`), stage 1 and stage
   2 on that state, as `chip_smoke.py` phase 3 runs them; with --shell, the
   captured level-2 chunk: the launch alone (the tree's form: the parent
@@ -56,12 +64,16 @@ Kernels and inputs, made on the card from fixed seeds where not captured:
 
 --dump FILE saves the face kernel's outputs (PPM and first order, every
 axis, with and without viscosity and reconstruct_eint) on seeded blocks at
-its edge shapes and slices of the main shapes; --compare A B says whether
-two trees' dumps are the same bits.
+its edge shapes and slices of the main shapes; with `--only k1,k4` instead
+K1's outputs (PPM, reconstruct_eint, PLM; walls and periodic) and both K4
+stages' (orders 1-3, opacities with and without a T exponent) on seeded
+states at K4's edge shapes and 64^3; --compare A B says whether two trees'
+dumps are the same bits.
 
 --tiles times the face kernel at the three shapes with each tile of
 `TILE_VARIANTS` (faces along the axis x lines across), where the tree's
-`hydro.sweep._face_tile` chooses them.
+`hydro.sweep._face_tile` chooses them; with `--only k1`, K1 at its three
+shapes with each of K1_MARCH_VARIANTS planes a block.
 
 --histogram counts the Newton residual evaluations of every cell with the
 plain version (`counts["cell_resid"]`; the kernel runs the same
@@ -472,16 +484,20 @@ DUMP_SHAPES = ((1, (4, 4, 4), True), (1, (5, 5, 5), False), (3, (5, 5, 5), False
                (1, (64, 64, 64), True), (64, 36, False), (64, 28, False))
 
 
-def dump_faces(torch, path):
+def dump_faces(torch, path, only=("k2",)):
     """Save the face kernel's outputs (PPM and first order, every axis) on
-    seeded blocks at DUMP_SHAPES, for --compare against another tree's."""
+    seeded blocks at DUMP_SHAPES (with "k2" in `only`), and K1's and K4's
+    (`dump_k1_k4`, with "k1" or "k4"), for --compare against another
+    tree's."""
     from quokka_tpu_torch import _cuda
     from quokka_tpu_torch.hydro import sweep
     from quokka_tpu_torch.registry import BC_REFLECT
 
     lib = _cuda.library()
     out = {}
-    for i, (nb, shape, walls) in enumerate(DUMP_SHAPES):
+    if "k1" in only or "k4" in only:
+        dump_k1_k4(torch, out)
+    for i, (nb, shape, walls) in enumerate(DUMP_SHAPES if "k2" in only else ()):
         shape = (shape,) * 3 if isinstance(shape, int) else shape
         U5 = hydro_blocks(torch, nb, shape, 60 + i)
         bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
@@ -499,7 +515,7 @@ def dump_faces(torch, path):
                            f"{'first order' if fo else 'PPM'} axis {d}")
                     out[key] = [r.cpu() for r in res if r is not None]
     torch.save(out, path)
-    print(f"saved {len(out)} face outputs to {path}", flush=True)
+    print(f"saved {len(out)} outputs to {path}", flush=True)
 
 
 def compare_dumps(torch, a, b):
@@ -512,8 +528,183 @@ def compare_dumps(torch, a, b):
         same += eq
         if not eq:
             print(f"  differs: {key}: max |diff| {diff:.3e}")
-    print(f"face outputs bitwise equal: {same} of {len(da)}", flush=True)
+    print(f"outputs bitwise equal: {same} of {len(da)}", flush=True)
     return same == len(da)
+
+
+def k1_shapes(torch):
+    """(label, blocks [B, 6, X, Y, Z], bc_kinds or None) of K1's main-path
+    shapes: Sedov 256^3 with reflecting walls, the packed chunk of 512
+    level-1 blocks of 36^3, and the lean path's 512^3 with walls."""
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    walls = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)}
+    return (("K1 256^3 walls", lambda: hydro_blocks(torch, 1, (256,) * 3, 41), walls),
+            ("K1 512 x 36^3", lambda: hydro_blocks(torch, 512, (36,) * 3, 42), None),
+            ("K1 512^3 walls", lambda: hydro_blocks(torch, 1, (512,) * 3, 43), walls))
+
+
+def time_k1(torch, args, times, checks, errors):
+    """K1 over every axis at its main-path shapes as the tree's wrapper
+    launches it (a tree with one launch an axis: also its two
+    `torch.minimum` folds alone) and, with --check, bitwise against the
+    plain version."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+
+    for label, make, bc in k1_shapes(torch):
+        U5 = make()
+        opts = hydro_opts(U5.shape[-1])
+        times[label] = kernel_check.time_ms(lambda: sweep._transverse_cuda(U5, opts, bc, True))
+        if args.check:
+            got = sweep._transverse_cuda(U5, opts, bc, True)
+            if U5.shape[0] == 1:
+                ref = kernel_check.plain_transverse(U5[0], opts, bc or {},
+                                                    nslab=4 if U5.shape[-1] > 300 else 1)
+                ref = ({t: m[None] for t, m in ref[0].items()}, ref[1][None])
+            else:
+                ref = sweep.precompute_transverse_batched_plain(U5, opts, None, True)
+            checks[label] = kernel_check.same_bits(got, ref)
+            errors[label] = max(float((g - r).abs().max()) for g, r in zip(
+                kernel_check._flat(got), kernel_check._flat(ref)))
+            del got, ref
+        print(f"  {label}: {times[label]:.3f} ms"
+              + (f", bitwise {checks[label]} (max_abs {errors[label]:.3e})"
+                 if args.check else ""), flush=True)
+        if not hasattr(sweep, "k1_tile"):  # one launch an axis: the two folds alone
+            a, b = (torch.rand(U5[:, 0].shape, device="cuda") for _ in range(2))
+            times[f"{label} folds"] = kernel_check.time_ms(
+                lambda: torch.minimum(torch.minimum(a, b), a))
+            print(f"  {label} folds: {times[label + ' folds']:.3f} ms", flush=True)
+            del a, b
+        del U5
+        torch.cuda.empty_cache()
+
+
+# the march's planes a block tried by --tiles (`hydro.sweep.K1_MARCH_PLANES`)
+K1_MARCH_VARIANTS = (16, 32, 64, 128)
+
+
+def time_k1_tiles(torch, times):
+    """K1 at each of K1_MARCH_VARIANTS planes a block, at its three
+    shapes."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+
+    chosen = sweep.K1_MARCH_PLANES
+    try:
+        for label, make, bc in k1_shapes(torch):
+            U5 = make()
+            opts = hydro_opts(U5.shape[-1])
+            for planes in K1_MARCH_VARIANTS:
+                sweep.K1_MARCH_PLANES = planes
+                key = f"{label} march {sweep.k1_tile(*U5.shape[2:])}"
+                times[key] = kernel_check.time_ms(
+                    lambda: sweep._transverse_cuda(U5, opts, bc, True))
+                print(f"  {key}: {times[key]:.3f} ms", flush=True)
+            del U5
+            torch.cuda.empty_cache()
+    finally:
+        sweep.K1_MARCH_PLANES = chosen
+
+
+def time_k4(torch, args, times, checks, errors):
+    """Both K4 stage kernels on RadhydroBench 256^3 after 2 steps (stage 2
+    on stage 1's kernel output), with --check against the plain versions
+    (within 2e-5 of each component's max)."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.problems.radhydro_bench import RadhydroBenchProblem
+    from quokka_tpu_torch.radiation import substep
+
+    U, dt_rad, sim = radbench_state(torch)
+    args4 = (dt_rad, sim._radiation.opts, sim.eos, RadhydroBenchProblem(), sim.grid.dx)
+    U1, div0 = substep.fused_stage1(U, None, *args4)
+    rs = 6
+    runs = {"K4 RadhydroBench 256^3 stage 1": (
+                lambda: substep.fused_stage1(U, None, *args4),
+                lambda: substep.stage1_plain(U, None, *args4)),
+            "K4 RadhydroBench 256^3 stage 2": (
+                lambda: substep.fused_stage2(U1, U[rs:], div0, None, *args4),
+                lambda: substep.stage2_plain(U1, U[rs:], div0, None, *args4))}
+    for key, (kernel, plain) in runs.items():
+        times[key] = kernel_check.time_ms(kernel)
+        if args.check:
+            checks[key], errors[key], _ = kernel_check.compare_scaled(kernel(), plain())
+        print(f"  {key}: {times[key]:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+              flush=True)
+    del U, U1, div0, sim
+    torch.cuda.empty_cache()
+
+
+# K4's dump shapes: its edge shapes (extents 4 and 5, ragged tiles) and a
+# slice of the main shape
+K4_DUMP_SHAPES = ((4, 4, 4), (5, 5, 5), (37, 18, 33), (4, 35, 17), (64, 64, 64))
+
+
+def rough_rad(torch, shape, seed):
+    """Seeded [10, X, Y, Z] f32 radhydro state on the card (c = 1e3): moving
+    gas, |f| up to 0.9999 and E at 2e-10 in a tenth of the cells each, so the
+    donor-cell fallback and the work term run (`kernel_check.rough_rad_state`
+    of this tree; kept here, as a parent tree's kernel_check lacks it)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*s):
+        return torch.rand(s, generator=g, device="cuda", dtype=torch.float64)
+
+    rho = 0.5 + rand(*shape)
+    v = 0.3 * torch.randn((3, *shape), generator=g, device="cuda", dtype=torch.float64)
+    T = 0.5 + rand(*shape)
+    Eint = rho * 1.5 * T
+    E = T**4 * (0.5 + rand(*shape))
+    nvec = torch.randn((3, *shape), generator=g, device="cuda", dtype=torch.float64)
+    nvec /= nvec.norm(dim=0)
+    fmag = 0.5 * rand(*shape)
+    fmag[rand(*shape) < 0.1] = 0.9999
+    E[rand(*shape) < 0.1] = 2e-10
+    F = nvec * fmag * 1.0e3 * E
+    ke = 0.5 * rho * (v * v).sum(dim=0)
+    return torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], Eint + ke, Eint,
+                        E, F[0], F[1], F[2]]).float().contiguous()
+
+
+def dump_k1_k4(torch, out):
+    """Add to `out` K1's outputs (every variant of its edge cases, both
+    wall kinds) and both K4 stages' outputs (PPM, PLM, donor cell; opacities
+    with and without a T exponent) on seeded inputs at K4_DUMP_SHAPES."""
+    from quokka_tpu_torch.eos import IdealGasEOS
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.problems.radhydro_bench import RadhydroBenchProblem
+    from quokka_tpu_torch.radiation import substep
+    from quokka_tpu_torch.radiation.system import RadOptions
+    from quokka_tpu_torch.registry import BC_REFLECT, PowerLawOpacity
+
+    class TDependent(RadhydroBenchProblem):
+        planck_opacity = PowerLawOpacity(10.0, -1.0, -1.5)
+        energy_mean_opacity = PowerLawOpacity(8.0, -1.0, -1.0)
+        flux_mean_opacity = PowerLawOpacity(12.0, -1.0, 0.5)
+
+    for i, (nb, shape, walls) in enumerate(DUMP_SHAPES[:7]):
+        U5 = hydro_blocks(torch, nb, shape, 80 + i)
+        bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
+        for extra in ({}, {"reconstruct_eint": True}, {"reconstruction_order": 2}):
+            opts = dataclasses.replace(hydro_opts(8), **extra)
+            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)
+            out[f"K1 B {nb} {shape}{' walls' if walls else ''} {extra or ''}"] = [
+                dmins[t].cpu() for t in sorted(dmins)] + ([] if chi is None else [chi.cpu()])
+    eos = IdealGasEOS(gamma=5.0 / 3.0, mean_molecular_weight=1.0, boltzmann_constant=1.0)
+    for i, shape in enumerate(K4_DUMP_SHAPES):
+        U = rough_rad(torch, shape, 90 + i)
+        dx = tuple(1.0 / n for n in shape)
+        for order in (1, 2, 3):
+            opts = RadOptions(c=1.0e3, chat=1.0e2, arad=1.0, erad_floor=1e-10, beta_order=1,
+                              include_work_term=True, reconstruction_order=order)
+            for name, prob in (("bench", RadhydroBenchProblem()), ("T-dependent",
+                                                                   TDependent())):
+                a = (0.3 * dx[0] / 1.0e2, opts, eos, prob, dx)
+                U1, div0 = substep.fused_stage1(U, None, *a)
+                U2 = substep.fused_stage2(U1, U[6:], div0, None, *a)
+                out[f"K4 {shape} order {order} {name}"] = [U1.cpu(), div0.cpu(), U2.cpu()]
 
 
 def time_k7(torch, args, times, checks):
@@ -667,7 +858,7 @@ def main():
         capture(args.capture)
         return 0
     if args.dump:
-        dump_faces(torch, args.dump)
+        dump_faces(torch, args.dump, set(args.only.split(",")))
         return 0
     if args.compare:
         return 0 if compare_dumps(torch, *args.compare) else 1
@@ -677,7 +868,7 @@ def main():
                                                                                    shell)}))
         return 0
     names = ("rad_source", "face_tile_kernel", "face_kernel", "rad_stage", "rad_axis_flux",
-             "row_gather")
+             "row_gather", "transverse", "rad_transport")
     for line in _cuda.build_info["log"].splitlines():
         if any(k in line for k in names) or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -686,11 +877,18 @@ def main():
     if args.tiles:
         from quokka_tpu_torch.hydro import sweep
 
-        if not hasattr(sweep, "_face_tile"):
+        if "k1" in only:
+            time_k1_tiles(torch, times)
+        elif not hasattr(sweep, "_face_tile"):
             print("error: this tree's face kernel takes no tile", file=sys.stderr)
             return 2
-        time_faces(torch, args, times, checks, errors, TILE_VARIANTS)
+        else:
+            time_faces(torch, args, times, checks, errors, TILE_VARIANTS)
         only = set()
+    if "k1" in only:
+        time_k1(torch, args, times, checks, errors)
+    if "k4" in only:
+        time_k4(torch, args, times, checks, errors)
     if "k5" in only:
         time_k5(torch, args, shell, times, checks, errors)
     if "k2" in only:

@@ -35,8 +35,9 @@ build_info: dict = {}
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "qk_transverse": [_P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I, _I,
-                      _F, _F, _F, _F, _I, _P],
+    "qk_transverse": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I,
+                      _F, _F, _F, _F, _I, _I, _I, _I, _P],
+    "qk_transverse_smem": [_I, _I],
     "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
     "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
@@ -51,7 +52,8 @@ _SIGNATURES = {
     "qk_rad_axis_flux": [_P, _P, _L, _L, _L, _L, _I, _P, _P],
     "qk_rad_source": [_P, _F, _I, _P, _P],  # a host `SourceViews` (radiation/source.py)
     "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
-    "qk_rad_stage2": [_P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
+    "qk_rad_stage2": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
+    "qk_rad_stage_smem": [],
     "qk_mhd_axis": [_P, _P, _P, _L, _L, _L, _I, _I, _F, _F, _F, _F, _F, _P],
     "qk_row_gather": [_P, _P, _P, _L, _L, _L, _P, _P, _P],
 }

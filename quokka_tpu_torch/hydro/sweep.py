@@ -442,47 +442,86 @@ def _bc_codes(bc_axis):
     return (0, 0) if bc_axis is None else (1, 1)
 
 
-def _transverse_axis_cuda(U5, t: int, opts, bc_axis, state_is_cons: bool):
-    """Launch K1 along `t` over a batch of states [B, 6, X, Y, Z] (B = 1 for
-    one state): dmin, chi's 3-point min and chi, each [B, X, Y, Z] (the
-    last two None without flattening)."""
+K1_THREADS = 256
+K1_SMEM_MAX = 48 * 1024  # bytes of shared memory a K1 block takes at most
+K1_MARCH_PLANES = 64  # K1's planes a block, at most
+
+
+def _split(n: int, most: int) -> int:
+    """The smallest tile extent that covers n in as few tiles of at most
+    `most` cells as possible."""
+    return -(-n // -(-n // most))
+
+
+def k1_tile(X: int, Y: int, Z: int) -> Tuple[int, int, int]:
+    """K1's tile for extents (X, Y, Z): (SX, TY, TZ), SX planes of TY x TZ
+    columns a block, at most K1_THREADS columns (TY at most 64, so that a
+    plane's halo of 6 (TY + TZ) cells is at most two a thread)."""
+    tz = _split(Z, 32)
+    return _split(X, K1_MARCH_PLANES), _split(Y, min(64, K1_THREADS // tz)), tz
+
+
+def k1_smem_bytes(tile) -> int:
+    """Shared-memory bytes of a K1 block (`k1_smem_bytes` of
+    csrc/transverse.cu): two buffers of a plane's y and z stencils [3][(TY +
+    6) TZ], [3][TY (TZ + 6)] and their chi [(TY + 2) TZ], [TY (TZ + 2)]."""
+    _, ty, tz = tile
+    return 8 * (3 * (ty + 6) * tz + 3 * ty * (tz + 6) + (ty + 2) * tz + ty * (tz + 2))
+
+
+def _transverse_cuda(U5, opts, bc_kinds: dict | None, state_is_cons: bool):
+    """K1 over all active axes of a batch [B, 6, X, Y, Z] in one launch:
+    (dmins, chi_cell), dmins[t] [B, X, Y, Z] and chi_cell the min over axes
+    of each axis's 3-point min of chi, folded in the kernel (None without
+    PPM flattening)."""
     from .._cuda import check, library
 
     lib = library()
     if U5.dim() != 5:
         raise ValueError(f"expected [B, 6, X, Y, Z] states, got {tuple(U5.shape)}")
     _check_kernel_inputs(opts, U5[0], U5)
-    lo, hi = _bc_codes(bc_axis)
     B, _, X, Y, Z = U5.shape
+    axes = tuple(opts.active_axes)
     do_chi = opts.use_flattening and opts.reconstruction_order == 3
-    dmin = torch.empty((B, X, Y, Z), dtype=U5.dtype, device=U5.device)
-    m3 = torch.empty_like(dmin) if do_chi else None
-    chi = torch.empty_like(dmin) if do_chi else None
-    err = lib.qk_transverse(U5.data_ptr(), dmin.data_ptr(), _ptr(m3), _ptr(chi),
-                            X, Y, Z, B, t, lo, hi, int(state_is_cons), int(do_chi),
-                            *_eos_args(opts), _stream(U5))
+    dmin = torch.empty((len(axes), B, X, Y, Z), dtype=U5.dtype, device=U5.device)
+    chi = torch.empty((B, X, Y, Z), dtype=U5.dtype, device=U5.device) if do_chi else None
+    ptrs, mask, walls = [None] * 3, 0, 0
+    for i, t in enumerate(axes):
+        lo, hi = _bc_codes(None if bc_kinds is None else bc_kinds.get(t))
+        ptrs[t] = dmin[i].data_ptr()
+        mask |= 1 << t
+        walls |= lo << (2 * t) | hi << (2 * t + 1)
+    err = lib.qk_transverse(U5.data_ptr(), *ptrs, _ptr(chi), X, Y, Z, B, mask, walls,
+                            int(state_is_cons), int(do_chi), *_eos_args(opts),
+                            *k1_tile(X, Y, Z), _stream(U5))
     check(err, "transverse")
     launch_counts["transverse"] += 1
-    return dmin, m3, chi
+    return {t: dmin[i] for i, t in enumerate(axes)}, chi
 
 
-def _transverse_cuda(U5, opts, bc_kinds: dict | None, state_is_cons: bool):
-    """K1 over all active axes of a batch [B, 6, X, Y, Z]: (dmins, chi_cell),
-    chi_cell the min over axes of each axis's 3-point min of chi."""
-    dmins, chi_cell = {}, None
-    for t in opts.active_axes:
-        bc_axis = None if bc_kinds is None else bc_kinds.get(t)
-        dmins[t], m3, _ = _transverse_axis_cuda(U5, t, opts, bc_axis, state_is_cons)
-        if m3 is not None:
-            chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
-    return dmins, chi_cell
+def precompute_transverse_batched(U5, opts, bc_kinds: dict | None,
+                                  state_is_cons: bool = False):
+    """K1 over a batch of states [B, 6, X, Y, Z]: (dmins [B, X, Y, Z] by
+    axis, chi_cell [B, X, Y, Z] or None); one launch on the card, the plain
+    version block by block on the CPU."""
+    if _on_cuda(U5):
+        return _transverse_cuda(U5, opts, bc_kinds, state_is_cons)
+    return precompute_transverse_batched_plain(U5, opts, bc_kinds, state_is_cons)
+
+
+def precompute_transverse_batched_plain(U5, opts, bc_kinds: dict | None,
+                                        state_is_cons: bool = False):
+    """The plain version of `precompute_transverse_batched`, block by block."""
+    fields = [precompute_transverse_plain(u, opts, bc_kinds, state_is_cons)[:2] for u in U5]
+    dmins = {t: torch.stack([f[0][t] for f in fields]) for t in fields[0][0]}
+    return dmins, None if fields[0][1] is None else torch.stack([f[1] for f in fields])
 
 
 def precompute_transverse(U, opts, bc_kinds: dict | None,
                           state_is_cons: bool = False):
     """K1 over all active axes (`pallas_sweep.precompute_transverse_pallas`):
     returns (dmins, chi_cell, chi_ghost); chi_cell = min over axes of each
-    axis's 3-point min of chi, folded in PyTorch."""
+    axis's 3-point min of chi."""
     if not _on_cuda(U):
         return precompute_transverse_plain(U, opts, bc_kinds, state_is_cons)
     dmins, chi_cell = _transverse_cuda(U[None], opts, bc_kinds, state_is_cons)

@@ -199,9 +199,7 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
     divergences. K2 and K3 take inputs from the plain versions, so each
     kernel is compared on identical inputs."""
     n = U[0].numel()
-    # K1 reads U and writes dmin, chi's 3-point min and chi per axis
-    k1_cost = (_nbytes(U) + 3 * _nbytes(U[0]) * len(opts.active_axes),
-               OPS_K1_AXIS * n * len(opts.active_axes))
+    k1_cost = k1_cost_of(U, opts)
     yield Case("transverse", "K1 all axes",
                lambda: sweep.precompute_transverse(U, opts, bc_kinds, True)[:2],
                lambda: sweep.precompute_transverse_plain(U, opts, bc_kinds, True)[:2],
@@ -239,6 +237,34 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
                lambda: sweep.apply_update(U, U, divs, dvels, dt, opts),
                lambda: sweep.apply_update_plain(U, U, divs, dvels, dt, opts),
                lambda: k3_cost)
+
+
+def k1_cost_of(U: torch.Tensor, opts):
+    """(bytes, FP32 operations) of K1 over a state [6, X, Y, Z] or a batch
+    [B, 6, X, Y, Z]: the state read once, and what K1 returns written once:
+    dmin an active axis and, with PPM flattening, chi_cell (40 B a cell with
+    three axes); OPS_K1_AXIS a cell and axis."""
+    cell = U.select(-4, 0)
+    axes = len(opts.active_axes)
+    chi = opts.use_flattening and opts.reconstruction_order == 3
+    return (_bytes_of(U) + _bytes_of(cell) * (axes + chi), OPS_K1_AXIS * cell.numel() * axes)
+
+
+def same_bits(got, ref) -> bool:
+    """`got` and `ref` (tensors, or tuples / dicts of them) hold the same
+    bits, a NaN matching any NaN."""
+    g_list, r_list = _flat(got), _flat(ref)
+    if len(g_list) != len(r_list):
+        return False
+    for g, r in zip(g_list, r_list):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            return False
+        nan = torch.isnan(r)
+        if not torch.equal(torch.isnan(g), nan):
+            return False
+        if not torch.equal(g[~nan].view(torch.int32), r[~nan].view(torch.int32)):
+            return False
+    return True
 
 
 def coupling_ops(n: int, counts: dict) -> int:
@@ -856,9 +882,7 @@ def face_cases(U5: torch.Tensor, opts, bc_kinds: dict | None = None, tag: str = 
 
     dmins, chi = {}, None
     if False in orders:
-        fields = [sweep.precompute_transverse_plain(u, opts, bc_kinds, True)[:2] for u in U5]
-        dmins = {t: torch.stack([f[0][t] for f in fields]) for t in fields[0][0]}
-        chi = None if fields[0][1] is None else torch.stack([f[1] for f in fields])
+        dmins, chi = sweep.precompute_transverse_batched_plain(U5, opts, bc_kinds, True)
     for fo in orders:
         for d in range(3):
             vax, wax = sweep._transverse_axes(d, 3)
@@ -883,20 +907,13 @@ def face_cases(U5: torch.Tensor, opts, bc_kinds: dict | None = None, tag: str = 
 
 
 def k1_batched_case(U5: torch.Tensor, opts, tag: str = "") -> Case:
-    """K1 over blocks `U5` [B, 6, X, Y, Z] (conserved, periodic, one launch
-    an axis) against its plain version block by block: it reads the state
-    once and writes dmin, chi's 3-point min and chi per axis."""
-    n = U5[:, 0].numel()
-    axes = len(opts.active_axes)
-    cost = (_bytes_of(U5) + 3 * _bytes_of(U5[:, 0]) * axes, OPS_K1_AXIS * n * axes)
-
-    def plain():
-        fields = [sweep.precompute_transverse_plain(u, opts, None, True)[:2] for u in U5]
-        return ({t: torch.stack([f[0][t] for f in fields]) for t in fields[0][0]},
-                torch.stack([f[1] for f in fields]))
-
+    """K1 over blocks `U5` [B, 6, X, Y, Z] (conserved, periodic, one launch)
+    against its plain version block by block (`k1_cost_of`)."""
+    cost = k1_cost_of(U5, opts)
     return Case("transverse", f"K1 batched{tag}",
-                lambda: sweep._transverse_cuda(U5, opts, None, True), plain, lambda: cost)
+                lambda: sweep.precompute_transverse_batched(U5, opts, None, True),
+                lambda: sweep.precompute_transverse_batched_plain(U5, opts, None, True),
+                lambda: cost)
 
 
 # (batch, extents, walls) of the face kernel's edge shapes: extents of 4 and
@@ -916,6 +933,104 @@ def face_edge_cases(opts, device, seed: int = 4) -> Iterator[Case]:
         U5 = hydro_blocks(nb, shape, seed + i, device)
         bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
         yield from face_cases(U5, opts, bc, f" B {nb} {shape}" + (" walls" if walls else ""))
+
+
+# K1's input variants on its edge shapes: (label, options changed, conserved
+# input): PPM with flattening (chi_cell), the pressure from the specific
+# internal energy, primitive input, and dmin alone (PLM; no flattening)
+K1_EDGE_VARIANTS = (("PPM", {}, True), ("reconstruct_eint", {"reconstruct_eint": True}, True),
+                    ("primitive input", {}, False),
+                    ("PLM, dmin only", {"reconstruction_order": 2}, True),
+                    ("no flattening, dmin only", {"use_flattening": False}, True))
+
+
+def k1_edge_cases(opts, device, seed: int = 6) -> Iterator[Case]:
+    """K1 (`precompute_transverse_batched`) on the face kernel's edge shapes
+    (extents 4 and 5, ragged tiles, a batch of 3, reflecting walls on every
+    axis) in each of K1_EDGE_VARIANTS, against its plain version block by
+    block."""
+    import dataclasses
+
+    from .registry import BC_REFLECT
+
+    for i, (nb, shape, walls) in enumerate(FACE_EDGE_SHAPES):
+        U5 = hydro_blocks(nb, shape, seed + i, device)
+        bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
+        for label, changes, is_cons in K1_EDGE_VARIANTS:
+            o = dataclasses.replace(opts, **changes)
+            W5 = U5 if is_cons else torch.stack(
+                [euler.cons_to_prim(u, o.eos, o.reconstruct_eint) for u in U5]).contiguous()
+            yield Case("transverse", f"K1 B {nb} {shape}{' walls' if walls else ''} {label}",
+                       lambda W5=W5, o=o, c=is_cons, bc=bc:
+                           sweep.precompute_transverse_batched(W5, o, bc, c),
+                       lambda W5=W5, o=o, c=is_cons, bc=bc:
+                           sweep.precompute_transverse_batched_plain(W5, o, bc, c),
+                       lambda W5=W5, o=o: k1_cost_of(W5, o))
+
+
+def rough_rad_state(shape, seed: int, device, c: float = 1.0e3) -> torch.Tensor:
+    """Seeded [10, X, Y, Z] f32 radhydro state: moving gas (the work term is
+    non-zero), |f| -> 1 and E near the floor beside E ~ 1 (|F| = f c E), so
+    reconstructed faces go inadmissible and the donor-cell fallback fires."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = tuple(shape)
+
+    def rand(*s):
+        return torch.rand(s, generator=g, device=device, dtype=torch.float64)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=device, dtype=torch.float64)
+
+    rho = 0.5 + rand(*shape)
+    v = 0.3 * randn(3, *shape)
+    T = 0.5 + rand(*shape)
+    Eint = rho * 1.5 * T
+    E = T**4 * (0.5 + rand(*shape))
+    nvec = randn(3, *shape)
+    nvec /= nvec.norm(dim=0)
+    fmag = 0.5 * rand(*shape)
+    fmag[rand(*shape) < 0.1] = 0.9999
+    E[rand(*shape) < 0.1] = 2e-10
+    F = nvec * fmag * c * E
+    ke = 0.5 * rho * (v * v).sum(dim=0)
+    U = torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], Eint + ke, Eint,
+                     E, F[0], F[1], F[2]])
+    return U.float().contiguous()
+
+
+# K4's edge shapes: extents of 4 and 5 (the periodic halo wraps around the
+# transport's tile), extents that are not multiples of it (32 along, 16
+# across)
+K4_EDGE_SHAPES = ((4, 4, 4), (5, 5, 5), (37, 18, 33), (4, 35, 17))
+
+
+def k4_edge_cases(opts, eos, problems: dict, dt: float, device,
+                  seed: int = 5) -> Iterator[Case]:
+    """Both K4 stage kernels on rough states (`rough_rad_state`) at
+    K4_EDGE_SHAPES, for each of `problems` {name: problem} (opacity laws
+    with and without a T exponent), PPM everywhere and PLM and donor cell on
+    the third shape, against their plain versions (within NEWTON_REL of
+    each component's max); stage 2 on stage 1's plain output."""
+    import dataclasses
+
+    rs = source.RAD_START
+    for i, shape in enumerate(K4_EDGE_SHAPES):
+        U = rough_rad_state(shape, seed + i, device, opts.c)
+        dx = tuple(1.0 / n for n in shape)
+        for order in ((1, 2, 3) if i == 2 else (3,)):
+            o = dataclasses.replace(opts, reconstruction_order=order)
+            for name, prob in problems.items():
+                tag = f" {shape} order {order} {name}"
+                args = (dt, o, eos, prob, dx)
+                U1, div0 = substep.stage1_plain(U, None, *args)
+                yield Case("rad_stage1", f"K4 stage 1{tag}",
+                           lambda a=args, U=U: substep.fused_stage1(U, None, *a),
+                           lambda a=args, U=U: substep.stage1_plain(U, None, *a), scaled=True)
+                yield Case("rad_stage2", f"K4 stage 2{tag}",
+                           lambda a=args, U=U, U1=U1, d0=div0:
+                               substep.fused_stage2(U1, U[rs:], d0, None, *a),
+                           lambda a=args, U=U, U1=U1, d0=div0:
+                               substep.stage2_plain(U1, U[rs:], d0, None, *a), scaled=True)
 
 
 # ------------------------------------------------------------- K5, batched

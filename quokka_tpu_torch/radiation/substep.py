@@ -2,11 +2,13 @@
 
 Counterpart of `quokka_tpu.radiation.pallas_substep.fused_substep_pallas`:
 one IMEX PD-ARS radiation substep of the periodic single-group f32 state
-as two stage kernels (``csrc/rad_substep.cu``), each the three-axis
-transport divergence, the predict (stage 1) or combine (stage 2) with
-`amend_rad_state`, and the implicit matter coupling. The plain version is
-the composition of plain K6 over three axes, `predict_step` /
-`add_fluxes_rk2` and plain K5, in the JAX kernels' order.
+as two stages (``csrc/rad_substep.cu``), each the three-axis transport
+divergence (one tiled pass an axis: each face solved once, from a
+shared-memory tile), then, one thread a cell, the predict (stage 1) or
+combine (stage 2) with `amend_rad_state` and the implicit matter
+coupling. The plain version is the composition of plain K6 over three
+axes, `predict_step` / `add_fluxes_rk2` and plain K5, in the JAX kernels'
+order.
 """
 
 from __future__ import annotations
@@ -19,6 +21,23 @@ from ..hydro.sweep import _on_cuda, _stream
 from .source import RAD_START, check_coupling, source_update_plain
 from .sweep import check_kernel_inputs, launch_counts, rad_div_plain, rad_params
 from .system import RadOptions, add_fluxes_rk2, predict_step
+
+
+# csrc/rad_substep.cu: a block of K4's transport, K4_THREADS threads, owns a
+# tile of K4_TILE_ALONG cells along the axis by K4_TILE_ACROSS lines
+K4_TILE_ALONG = 32
+K4_TILE_ACROSS = 16
+K4_THREADS = 256
+K4_SMEM_MAX = 48 * 1024  # the static shared memory a block can take
+
+
+def k4_smem_bytes() -> int:
+    """Shared-memory bytes of a block of K4's transport (`qk_rad_stage_smem`
+    of csrc/rad_substep.cu): the conserved values and the primitives (then
+    the fluxes) of the staged cells [2][4][(TA + 6) TW], and the face states
+    of the reconstructed cells [2][4][(TA + 2) TW]."""
+    ta, tw = K4_TILE_ALONG, K4_TILE_ACROSS
+    return 4 * (2 * 4 * (ta + 6) * tw + 2 * 4 * (ta + 2) * tw)
 
 
 def _div3_plain(R, opts, dx):
@@ -89,7 +108,8 @@ def fused_stage2(U1, R0, div0, rad_src, dt: float, opts: RadOptions, eos,
     params = rad_params(opts, dx, eos, problem.opacity_laws())
     X, Y, Z = U1.shape[1:]
     U2 = torch.empty_like(U1)
-    err = lib.qk_rad_stage2(U1.data_ptr(), R0.data_ptr(), div0.data_ptr(),
+    div1 = torch.empty_like(R0)  # the transport's output, read by the cell kernel
+    err = lib.qk_rad_stage2(U1.data_ptr(), R0.data_ptr(), div0.data_ptr(), div1.data_ptr(),
                             None if rad_src is None else rad_src.data_ptr(),
                             U2.data_ptr(), X, Y, Z, dt, ctypes.addressof(params),
                             _stream(U1))

@@ -1,5 +1,6 @@
-"""The bounds of K7 and K9 at the packed main path's chunk shapes, and the
-two kernels at their edges on the card.
+"""The bounds of K1 (at Sedov 256^3 and the packed chunk), K4 (its bytes at
+256^3), K7 and K9 at the packed main path's chunk shapes, and K7 and K9 at
+their edges on the card.
 
 `kernel_check.k7_cost` and `k9_cost` give the bytes and operations from
 which `chip_smoke.py` reckons each kernel's least time. Held here on the
@@ -45,6 +46,41 @@ def test_k7_cost_of_a_packed_chunk():
     assert ops == kernel_check.OPS_K7_AXIS * cells
     ms, by = kernel_check.bound_ms(nbytes, ops)
     assert by == "bytes" and ms == pytest.approx(2 * 4 * cells * 4 / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("shape, bound", [((6, 256, 256, 256), 0.200),
+                                          ((512, 6, 36, 36, 36), 0.285)])
+def test_k1_cost_counts_what_it_returns(shape, bound):
+    """K1 at Sedov 256^3 and at the packed chunk of 512 x 36^3: the state
+    read once (24 B a cell) and dmin of each of the three axes and chi_cell
+    written once (16 B): 40 B a cell; dmin alone without flattening."""
+    from quokka_tpu_torch.eos import IdealGasEOS
+    from quokka_tpu_torch.hydro.advance import HydroOptions
+
+    U = torch.empty(shape, dtype=torch.float32, device="meta")
+    opts = HydroOptions(eos=IdealGasEOS(gamma=1.4), active_axes=(0, 1, 2), dx=(1.0,) * 3)
+    cells = U.numel() // 6
+    nbytes, ops = kernel_check.k1_cost_of(U, opts)
+    assert (nbytes, ops) == (40 * cells, 3 * kernel_check.OPS_K1_AXIS * cells)
+    ms, by = kernel_check.bound_ms(nbytes, ops)
+    assert by == "bytes" and round(ms, 3) == bound
+    if len(shape) == 5:
+        assert kernel_check.k1_batched_case(U, opts).cost() == (nbytes, ops)
+    plm = HydroOptions(eos=IdealGasEOS(gamma=1.4), active_axes=(0, 1, 2), dx=(1.0,) * 3,
+                       reconstruction_order=2)
+    assert kernel_check.k1_cost_of(U, plm)[0] == 36 * cells
+
+
+def test_k4_bytes_at_256():
+    """K4's stages at RadhydroBench 256^3: stage 1 reads U and writes U1
+    and divF0 (96 B a cell, 1.61 GB), stage 2 reads U1, R0 and divF0 and
+    writes U2 (112 B a cell, 1.88 GB)."""
+    n = 256
+    U = torch.empty((10, n, n, n), dtype=torch.float32, device="meta")
+    div = torch.empty((1, 4, n, n, n), dtype=torch.float32, device="meta")
+    one = kernel_check._bytes_of
+    assert round(one(U, U, div) / 1e9, 2) == 1.61
+    assert round(one(U, U[6:], div, U) / 1e9, 2) == 1.88
 
 
 def test_k9_cost_counts_distinct_rows_once():
