@@ -32,7 +32,10 @@ the plain versions of K4-K7, as the JAX package takes XLA) against the
 CPU, with no kernel launched, and the packed engine at 32^3 + 1 and + 2
 pool levels.
 
-Phase 3 also holds K1 and K2's tiled face kernel over the main path's
+Phase 3 also holds K2c/K2e's and K8's shared-memory tiles at their edge
+shapes (extents 4 and 5, ragged tiles, walls and periodic axes, every lean
+variant; orders 1-3 and the floors for K8), and K1 and K2's tiled face
+kernel over the main path's
 chunk of 512 level-1 hydro blocks (36^3; timed) and the face kernel at
 its edge shapes to their plain versions, K1 bit for bit everywhere (at
 the lean path's 512^3 timed too) and at the face kernel's edge shapes in
@@ -373,9 +376,10 @@ def main() -> int:
         return " (bitwise)" if kernel_check.same_bits(got, ref) else None
 
     def ulps(case, got, ref):
-        """K2's faces against the plain version in float32 ulps of each
-        component's max (the one-thread-a-face kernel, whose bits the tile
-        keeps, read 0-3 on these inputs); K1 beside them bit for bit."""
+        """K2's faces, K2c, K2e and K8 against the plain version in float32
+        ulps of each component's max (the one-thread-a-face and one-thread-
+        a-cell kernels, whose bits the tiles keep, read 0-3 on the faces'
+        inputs); K1 beside them bit for bit."""
         if case.kernel == "transverse":
             return bitwise(case, got, ref)
         return f" ({kernel_check.ulps_of_max(got, ref):.2f} ulp of max)"
@@ -473,6 +477,13 @@ def main() -> int:
               lambda c: False, summary, failed)
     del L0, L1, k1_512
     release()
+    # K2c's and K2e's tile at its edge shapes: extents 4 and 5, ragged tiles
+    # along and across, walls and periodic axes, every variant (clean, acc,
+    # fo_mask, the fo_from redo, first order, the seed fresh and
+    # accumulated), mask flags on every tile's first and last cells
+    run_cases("K2c / K2e edge shapes (extents 4 and 5, ragged tiles, walls, every variant)",
+              kernel_check.lean_edge_cases(lopts, "cuda"), lambda c: False, summary, failed,
+              ulps)
 
     # radiation: RadhydroBench after 2 steps, and a rough state with
     # T-dependent opacities
@@ -541,6 +552,11 @@ def main() -> int:
         if min(counts.values()) == 0:
             failed.append(f"rough MHD state{tag}: an HLLD region or branch not taken")
     del rprim, rbxf
+    # K8's tile at its edge shapes: extents 4 and 5, ragged tiles, orders
+    # 1-3, the floors off and on
+    run_cases("K8 edge shapes (extents 4 and 5, ragged tiles, orders 1-3, floors)",
+              kernel_check.mhd_edge_cases(mopts, "cuda"), lambda c: False, summary, failed,
+              ulps)
     # on the card mhd_rhs launches K8 or raises: `mhd.use_pallas = 0` still
     # launches it, fewer than three active axes raise (float64 takes the
     # plain form, as the JAX package takes XLA: phase 4 runs it)

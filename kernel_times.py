@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time kernels K1, K4, K5, K2's face kernel, K7 and K9 of one tree of
-quokka_tpu_torch on the card, at the main paths' shapes, so that two trees
-(a parent and a change) can be compared in one call on one card, in turns
-(parent, change, change, parent), each turn a process of its own:
+"""Time kernels K1, K4, K5, K2's face kernel, K2c, K2e, K7, K8 and K9 of one
+tree of quokka_tpu_torch on the card, at the main paths' shapes, so that two
+trees (a parent and a change) can be compared in one call on one card, in
+turns (parent, change, change, parent), each turn a process of its own:
 
-    python3 kernel_times.py [--tree DIR] [--check] [--only k1,k4,k5,k2,k7,k9]
+    python3 kernel_times.py [--tree DIR] [--check]
+                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8]
                             [--shell FILE] [--tiles]
     python3 kernel_times.py --capture FILE
     python3 kernel_times.py --histogram --shell FILE
@@ -62,18 +63,37 @@ Kernels and inputs, made on the card from fixed seeds where not captured:
   beside each, one `torch.index_select` with its int64 index built
   beforehand.
 
+- K2c (`compute_axis_flux(div_only=True)`; `--only k2c`): seeded blocks at
+  512^3 with reflecting walls and with x periodic, each axis clean, onto
+  running totals (acc) and with a seeded FOFC mask (fo_mask), and a clean
+  stage (x clean, y and z onto its totals) with its peak memory;
+- K2e (`--only k2e`): a seeded stage at 256^3, periodic, with the
+  boundary-face masks of a box (`box_masks`), stage 1 and stage 2 blended
+  with stage 1's first-order fluxes (fo_from); --check holds each stage to
+  the plain version;
+- K8 (`compute_mhd_axis`; `--only k8`): Orszag-Tang 256^3 after 3 steps,
+  each axis, PLM (its deck) and PPM; --check against the plain version.
+
 --dump FILE saves the face kernel's outputs (PPM and first order, every
 axis, with and without viscosity and reconstruct_eint) on seeded blocks at
 its edge shapes and slices of the main shapes; with `--only k1,k4` instead
 K1's outputs (PPM, reconstruct_eint, PLM; walls and periodic) and both K4
 stages' (orders 1-3, opacities with and without a T exponent) on seeded
-states at K4's edge shapes and 64^3; --compare A B says whether two trees'
-dumps are the same bits.
+states at K4's edge shapes and 64^3; with `--only k2c,k2e,k8` K2c's and
+K2e's outputs in every variant at LEAN_DUMP_SHAPES (extents 4 and 5,
+ragged tiles, walls, periodic and mixed axes; with and without viscosity
+and reconstruct_eint), K2c at 512^3 (walls and x periodic) and at 256^3
+with fo_from, K2e's two seeded stages at 256^3, and K8's (orders 1-3,
+floors off and on) on rough states at the same extents and on Orszag-Tang
+256^3, large outputs as SHA-256 digests of their bits; --compare A B says
+whether two trees' dumps are the same bits.
 
 --tiles times the face kernel at the three shapes with each tile of
 `TILE_VARIANTS` (faces along the axis x lines across), where the tree's
 `hydro.sweep._face_tile` chooses them; with `--only k1`, K1 at its three
-shapes with each of K1_MARCH_VARIANTS planes a block.
+shapes with each of K1_MARCH_VARIANTS planes a block; with `--only
+k2c,k8`, K2c's clean 512^3 stage and K8's three PLM axes with each tile
+bound of LEAN_TILE_VARIANTS and K8_TILE_VARIANTS.
 
 --histogram counts the Newton residual evaluations of every cell with the
 plain version (`counts["cell_resid"]`; the kernel runs the same
@@ -497,6 +517,8 @@ def dump_faces(torch, path, only=("k2",)):
     out = {}
     if "k1" in only or "k4" in only:
         dump_k1_k4(torch, out)
+    if only & {"k2c", "k2e", "k8"}:
+        dump_lean_mhd(torch, out, only)
     for i, (nb, shape, walls) in enumerate(DUMP_SHAPES if "k2" in only else ()):
         shape = (shape,) * 3 if isinstance(shape, int) else shape
         U5 = hydro_blocks(torch, nb, shape, 60 + i)
@@ -523,11 +545,20 @@ def compare_dumps(torch, a, b):
     da, db = torch.load(a), torch.load(b)
     same = 0
     for key in da:
-        eq = all(torch.equal(x, y) for x, y in zip(da[key], db[key]))
-        diff = max(float((x - y).abs().max()) for x, y in zip(da[key], db[key]))
+        pairs = list(zip(da[key], db[key]))
+        eq = len(da[key]) == len(db.get(key, ())) and all(
+            x == y if isinstance(x, str) else torch.equal(x, y) for x, y in pairs)
         same += eq
         if not eq:
-            print(f"  differs: {key}: max |diff| {diff:.3e}")
+            diff = max((float((x - y).abs().max()) for x, y in pairs
+                        if not isinstance(x, str) and x.shape == y.shape),
+                       default=float("nan"))
+            where = [(tuple(x.shape), int((x != y).sum()),
+                      [tuple(i.tolist()) for i in (x != y).nonzero()[:4]])
+                     for x, y in pairs if not isinstance(x, str) and x.shape == y.shape
+                     and not torch.equal(x, y)]
+            print(f"  differs: {key}: max |diff| {diff:.3e} (nan: digests or shapes); "
+                  f"(shape, elements that differ, the first) {where}")
     print(f"outputs bitwise equal: {same} of {len(da)}", flush=True)
     return same == len(da)
 
@@ -762,6 +793,412 @@ def time_k9(torch, args, times, checks):
         times[f"K9 {count} x 26 distinct rows"] = int(torch.unique(rows).numel())
 
 
+# ------------------------------------------------- K2c, K2e and K8 (lean, MHD)
+# (cells along at most, faces a tile at most) tried by --tiles --only k2c
+LEAN_TILE_VARIANTS = ((40, 512), (31, 512), (15, 512), (32, 256), (64, 256))
+# (lines across at most, faces a tile at most) tried by --tiles --only k8
+K8_TILE_VARIANTS = ((16, 512), (8, 512), (32, 512), (16, 256), (16, 1024))
+
+
+def time_tile_variants(torch, only, times):
+    """K2c's clean stage at 512^3 with walls and K8's three PLM axes on
+    Orszag-Tang 256^3 with each tile bound of LEAN_TILE_VARIANTS and
+    K8_TILE_VARIANTS (`hydro.sweep.LEAN_ALONG` / `LEAN_FACES`,
+    `mhd.sweep.K8_LINES` / `K8_FACES`), the tree's own first."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.mhd import sweep as msweep
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    if "k2c" in only:
+        wall = (BC_REFLECT, BC_REFLECT)
+        bc = {0: wall, 1: wall, 2: wall}
+        U, opts, dmins, chi = lean_setup(torch, (512,) * 3, 51, bc)
+
+        def stage():
+            a = lean_call(sweep, U, 0, opts, chi, dmins, bc)
+            for d in (1, 2):
+                a = lean_call(sweep, U, d, opts, chi, dmins, bc, acc=a)
+            return a
+
+        chosen = (sweep.LEAN_ALONG, sweep.LEAN_FACES)
+        try:
+            acc = (torch.zeros_like(U), torch.zeros_like(U[0]))
+            for along, faces in (chosen,) + LEAN_TILE_VARIANTS:
+                sweep.LEAN_ALONG, sweep.LEAN_FACES = along, faces
+                tile = sweep.lean_tile(512, 512)
+                key = f"K2c 512^3 walls clean stage tile {tile}"
+                times[key] = kernel_check.time_ms(stage)
+                for d in range(3):
+                    times[f"K2c 512^3 walls acc axis {d} tile {tile}"] = kernel_check.time_ms(
+                        lambda d=d: lean_call(sweep, U, d, opts, chi, dmins, bc, acc=acc))
+                print(f"  {key}: {times[key]:.3f} ms; acc axes 0-2 " + " / ".join(
+                    f"{times[f'K2c 512^3 walls acc axis {d} tile {tile}']:.3f}"
+                    for d in range(3)), flush=True)
+        finally:
+            sweep.LEAN_ALONG, sweep.LEAN_FACES = chosen
+        del U, dmins, chi
+        torch.cuda.empty_cache()
+    if "k8" in only:
+        prim, Bf, opts = mhd_state(torch)
+        chosen = (msweep.K8_LINES, msweep.K8_FACES)
+        try:
+            for lines, faces in (chosen,) + K8_TILE_VARIANTS:
+                msweep.K8_LINES, msweep.K8_FACES = lines, faces
+                key = f"K8 Orszag-Tang 256^3 PLM 3 axes tile {msweep.k8_tile(256, 256)}"
+                times[key] = kernel_check.time_ms(lambda: [
+                    msweep.compute_mhd_axis(prim, Bf[d], d, opts) for d in range(3)])
+                print(f"  {key}: {times[key]:.3f} ms", flush=True)
+        finally:
+            msweep.K8_LINES, msweep.K8_FACES = chosen
+def flag_mask(torch, shape, seed, frac=0.01):
+    """A seeded 0/1 f32 FOFC mask on the card flagging `frac` of the cells,
+    every axis's first and last cell on a line of each, and the cells of
+    every 8th plane along each axis (the first and last cells of tiles).
+    Kept here, as a parent tree's kernel_check lacks `tile_edge_mask`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = torch.rand(shape, generator=g, device="cuda") < frac
+    X, Y, Z = shape
+    m[0, Y // 3, :] = True
+    m[X - 1, :, Z // 2] = True
+    m[:, 0, Z // 4] = True
+    m[X // 2, Y - 1, :] = True
+    m[:, Y // 5, 0] = True
+    m[X // 3, :, Z - 1] = True
+    for d in range(3):
+        sl = [slice(None)] * 3
+        sl[d] = slice(7, None, 8)
+        sub = [slice(None)] * 3
+        sub[(d + 1) % 3] = slice(0, None, 5)
+        view = m[tuple(sl)]
+        view[tuple(sub)] = True
+    return m.float()
+
+
+def box_masks(torch, shape):
+    """The per-axis coarse-fine boundary-face masks (f32, slot c = the lo
+    face of cell c) of a box [n/4, 3n/4) along every axis: K2e's input
+    (`kernel_check.box_face_masks`, which a parent tree lacks)."""
+    lo = [n // 4 for n in shape]
+    hi = [3 * n // 4 for n in shape]
+    out = {}
+    for d in range(3):
+        m = torch.zeros(shape, device="cuda")
+        for c in (lo[d], hi[d]):
+            sl = [slice(lo[a], hi[a]) for a in range(3)]
+            sl[d] = c
+            m[tuple(sl)] = 1.0
+        out[d] = m
+    return out
+
+
+def lean_setup(torch, shape, seed, bc):
+    """(U [6, ...] seeded, opts, dmins, chi) with K1's fields from the
+    tree's own K1 (conserved input)."""
+    from quokka_tpu_torch.hydro import sweep
+
+    U = hydro_blocks(torch, 1, shape, seed)[0]
+    opts = dataclasses.replace(hydro_opts(shape[0]), dx=tuple(1.0 / n for n in shape))
+    dmins, chi, _ = sweep.precompute_transverse(U, opts, bc, True)
+    return U, opts, dmins, chi
+
+
+def lean_call(sweep, U, d, opts, chi, dmins, bc, **kw):
+    """One K2c / K2e launch along axis d through the public wrapper."""
+    return sweep.compute_axis_flux(U, d, opts, chi, dmins, bc_axis=bc.get(d),
+                                   dx_axis=opts.dx[d], state_is_cons=True, div_only=True, **kw)
+
+
+def time_lean(torch, args, times, checks, errors):
+    """K2c per launch (clean, acc, fo_mask) and per clean stage (axis 0
+    clean, axes 1 and 2 onto its totals) at 512^3 with walls and with x
+    periodic; K2e per launch and per seeded stage at 256^3 (periodic, the
+    box masks of `box_masks`; stage 2 blended with the stage-1 state's
+    first-order fluxes, fo_from). With --check each 256^3 launch is held to
+    its plain version."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    wall = (BC_REFLECT, BC_REFLECT)
+    kinds = (("walls", {0: wall, 1: wall, 2: wall}), ("periodic x", {0: None, 1: wall, 2: wall}))
+    for tag, bc in kinds if "k2c" in args.only_set else ():
+        U, opts, dmins, chi = lean_setup(torch, (512,) * 3, 51, bc)
+        mask = flag_mask(torch, U.shape[1:], 52)
+        acc = (torch.zeros_like(U), torch.zeros_like(U[0]))
+        for d in range(3):
+            for v, kw in (("clean", {}), ("acc", {"acc": acc}), ("fo_mask", {"fo_mask": mask})):
+                key = f"K2c 512^3 {tag} {v} axis {d}"
+                times[key] = kernel_check.time_ms(
+                    lambda d=d, kw=kw: lean_call(sweep, U, d, opts, chi, dmins, bc, **kw))
+                print(f"  {key}: {times[key]:.3f} ms", flush=True)
+
+        def stage():
+            a = lean_call(sweep, U, 0, opts, chi, dmins, bc)
+            for d in (1, 2):
+                a = lean_call(sweep, U, d, opts, chi, dmins, bc, acc=a)
+            return a
+
+        key = f"K2c 512^3 {tag} clean stage"
+        times[key] = kernel_check.time_ms(stage)
+        torch.cuda.synchronize()
+        times[key + " peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {key}: {times[key]:.3f} ms", flush=True)
+        del U, dmins, chi, mask, acc
+        torch.cuda.empty_cache()
+    if "k2e" not in args.only_set:
+        return
+    per = {0: None, 1: None, 2: None}
+    U0, opts, dmins0, chi0 = lean_setup(torch, (256,) * 3, 53, per)
+    U1, _, dmins1, chi1 = lean_setup(torch, (256,) * 3, 54, per)
+    cm = box_masks(torch, U0.shape[1:])
+    mask = flag_mask(torch, U0.shape[1:], 55)
+    runs = {}
+    for s, (U, dm, c, kw) in {1: (U0, dmins0, chi0, {}),
+                              2: (U1, dmins1, chi1, {"fo_mask": mask, "fo_from": U0})}.items():
+        def stage(U=U, dm=dm, c=c, kw=kw):
+            a0, a1, corr = lean_call(sweep, U, 0, opts, c, dm, per, corr_mask=cm[0], **kw)
+            for d in (1, 2):
+                a0, a1, corr = lean_call(sweep, U, d, opts, c, dm, per, acc=(a0, a1),
+                                         corr_mask=cm[d], corr_acc=corr, **kw)
+            return a0, a1, corr
+
+        runs[f"K2e 256^3 seeded stage {s}"] = stage
+    for key, fn in runs.items():
+        times[key] = kernel_check.time_ms(fn)
+        if args.check:
+            s2 = key.endswith("2")
+            U, dm, c = (U1, dmins1, chi1) if s2 else (U0, dmins0, chi0)
+            kw = {"fo_mask": mask, "fo_from": U0} if s2 else {}
+            ref = None
+            for d in range(3):
+                ref = sweep.axis_flux_plain(
+                    U, d, opts, c, dm, dx_axis=opts.dx[d], state_is_cons=True, div_only=True,
+                    corr_mask=cm[d], acc=None if ref is None else ref[:2],
+                    corr_acc=None if ref is None else ref[2], **kw)
+            checks[key], errors[key], _ = kernel_check.compare(fn(), ref)
+            del ref
+        print(f"  {key}: {times[key]:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+              flush=True)
+    del U0, U1, dmins0, dmins1, chi0, chi1, cm, mask
+    torch.cuda.empty_cache()
+
+
+def mhd_state(torch, nsteps=3):
+    """Orszag-Tang 256^3 f32 after `nsteps` windowed steps: (prim [8, ...],
+    Bf, opts)."""
+    from quokka_tpu_torch import MHDSimulation, ParmParse
+    from quokka_tpu_torch.mhd.advance import b_cell_from_faces, cons_to_prim_mhd
+    from quokka_tpu_torch.problems import mhd
+
+    sim = MHDSimulation(mhd.OrszagTangProblem(), ParmParse.from_string(
+        mhd.DECK_256, [f"max_timesteps={nsteps}", "verbose=0"]), precision="single",
+        device="cuda")
+    sim.set_initial_conditions()
+    sim.evolve()
+    prim = cons_to_prim_mhd(sim.U, b_cell_from_faces(sim.Bf), sim.opts).contiguous()
+    return prim, [b.contiguous() for b in sim.Bf], sim.opts
+
+
+def time_k8(torch, args, times, checks, errors):
+    """K8 per axis on Orszag-Tang 256^3 after 3 steps, PLM (its deck) and
+    PPM; with --check against the plain version."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.mhd import sweep as msweep
+
+    prim, Bf, opts = mhd_state(torch)
+    for order in (2, 3):
+        o = dataclasses.replace(opts, reconstruction_order=order)
+        for d in range(3):
+            key = f"K8 Orszag-Tang 256^3 order {order} axis {d}"
+            times[key] = kernel_check.time_ms(lambda d=d: msweep.compute_mhd_axis(
+                prim, Bf[d], d, o))
+            if args.check:
+                checks[key], errors[key], _ = kernel_check.compare(
+                    msweep.compute_mhd_axis(prim, Bf[d], d, o),
+                    msweep.mhd_axis_plain(prim, Bf[d], d, o))
+            print(f"  {key}: {times[key]:.3f} ms"
+                  + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+                  flush=True)
+        key = f"K8 Orszag-Tang 256^3 order {order} 3 axes"
+        times[key] = sum(times[f"K8 Orszag-Tang 256^3 order {order} axis {d}"]
+                         for d in range(3))
+        print(f"  {key}: {times[key]:.3f} ms", flush=True)
+    del prim, Bf
+    torch.cuda.empty_cache()
+
+
+# (extents, walls) of the lean sweep's dump shapes: extents 4 and 5, extents
+# that are not multiples of a tile along or across, walls, periodic axes and
+# both together (x periodic); the MHD dump takes the same extents, periodic
+LEAN_DUMP_SHAPES = (((4, 4, 4), "walls"), ((5, 5, 5), "periodic"),
+                    ((37, 18, 33), "periodic x"), ((4, 35, 17), "walls"),
+                    ((83, 6, 45), "periodic"), ((64, 64, 64), "walls"))
+
+
+def _digest(t):
+    """An output's bits as a SHA-256 digest (kept whole if small)."""
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    if t.numel() <= 1 << 18:
+        return t
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def dump_lean_mhd(torch, out, only):
+    """Add to `out` K2c's and K2e's outputs (every variant: clean, acc,
+    fo_mask, fo_mask + acc + fo_from, first order, the register seed fresh
+    and accumulated) on seeded states at LEAN_DUMP_SHAPES, K2c at 512^3
+    (walls and x periodic; digests) and at 256^3 with fo_from, K2e's seeded
+    stages at 256^3, and K8's (orders 1-3, floors off and on) at the same
+    small extents and on Orszag-Tang 256^3 (PLM and PPM)."""
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.mhd import sweep as msweep
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    wall = (BC_REFLECT, BC_REFLECT)
+    kinds = {"walls": {0: wall, 1: wall, 2: wall}, "periodic": {0: None, 1: None, 2: None},
+             "periodic x": {0: None, 1: wall, 2: wall}}
+    if "k2c" in only or "k2e" in only:
+        for i, (shape, kind) in enumerate(LEAN_DUMP_SHAPES):
+            bc = kinds[kind]
+            U0, opts, dm0, chi0 = lean_setup(torch, shape, 100 + i, bc)
+            U1, _, dm1, chi1 = lean_setup(torch, shape, 120 + i, bc)
+            mask = flag_mask(torch, shape, 140 + i, frac=0.1)
+            cm = box_masks(torch, shape)
+            g = torch.Generator(device="cuda").manual_seed(180 + i)
+            for extra in ({}, {"K_visc": 0.1, "reconstruct_eint": True}):
+                o = dataclasses.replace(opts, **extra)
+                for d in range(3):
+                    acc = (torch.rand(U0.shape, generator=g, device="cuda"),
+                           torch.rand(shape, generator=g, device="cuda"))
+                    variants = {
+                        "clean": (U0, dm0, chi0, {}),
+                        "acc": (U0, dm0, chi0, {"acc": "acc"}),
+                        "fo_mask": (U0, dm0, chi0, {"fo_mask": mask}),
+                        "fo_mask+acc+fo_from": (U1, dm1, chi1, {"fo_mask": mask, "fo_from": U0,
+                                                                "acc": "acc"}),
+                        "first order": (U0, {}, None, {"first_order": True}),
+                    }
+                    if bc[d] is None:
+                        variants["corr"] = (U0, dm0, chi0, {"corr_mask": cm[d]})
+                        variants["corr acc fo_from"] = (
+                            U1, dm1, chi1, {"corr_mask": cm[d], "acc": "acc", "corr_acc": "corr",
+                                            "fo_mask": mask, "fo_from": U0})
+                    for v, (U, dm, c, kw) in variants.items():
+                        kw = dict(kw)
+                        if kw.get("acc") == "acc":
+                            kw["acc"] = tuple(a.clone() for a in acc)
+                        if kw.get("corr_acc") == "corr":
+                            kw["corr_acc"] = acc[0].clone()
+                        res = lean_call(sweep, U, d, o, c, dm, bc, **kw)
+                        out[f"lean {shape} {kind} {extra or ''} {v} axis {d}"] = [
+                            _digest(r) for r in res]
+            del U0, U1, dm0, dm1, chi0, chi1, mask, cm
+    if "k2c" in only:
+        for tag, bc in (("walls", kinds["walls"]), ("periodic x", kinds["periodic x"])):
+            U, opts, dmins, chi = lean_setup(torch, (512,) * 3, 51, bc)
+            mask = flag_mask(torch, U.shape[1:], 52)
+            for d in range(3):
+                for v, kw in (("clean", {}), ("fo_mask", {"fo_mask": mask})):
+                    res = lean_call(sweep, U, d, opts, chi, dmins, bc, **kw)
+                    out[f"K2c 512^3 {tag} {v} axis {d}"] = [_digest(r) for r in res]
+                    del res
+            a = lean_call(sweep, U, 0, opts, chi, dmins, bc)
+            for d in (1, 2):
+                a = lean_call(sweep, U, d, opts, chi, dmins, bc, acc=a)
+            out[f"K2c 512^3 {tag} clean stage"] = [_digest(r) for r in a]
+            del U, dmins, chi, mask, a
+            torch.cuda.empty_cache()
+        bc = kinds["walls"]
+        U0, opts, dm0, chi0 = lean_setup(torch, (256,) * 3, 56, bc)
+        U1, _, dm1, chi1 = lean_setup(torch, (256,) * 3, 57, bc)
+        mask = flag_mask(torch, U0.shape[1:], 58)
+        a = lean_call(sweep, U0, 0, opts, chi0, dm0, bc)
+        for d in range(3):
+            acc = tuple(x.clone() for x in a)
+            res = lean_call(sweep, U1, d, opts, chi1, dm1, bc, acc=acc, fo_mask=mask, fo_from=U0)
+            out[f"K2c 256^3 walls fo_mask+acc+fo_from axis {d}"] = [_digest(r) for r in res]
+        del U0, U1, dm0, dm1, chi0, chi1, mask, a, acc, res
+        torch.cuda.empty_cache()
+    if "k2e" in only:
+        per = kinds["periodic"]
+        U0, opts, dm0, chi0 = lean_setup(torch, (256,) * 3, 53, per)
+        U1, _, dm1, chi1 = lean_setup(torch, (256,) * 3, 54, per)
+        cm = box_masks(torch, U0.shape[1:])
+        mask = flag_mask(torch, U0.shape[1:], 55)
+        for s, (U, dm, c, kw) in {1: (U0, dm0, chi0, {}),
+                                  2: (U1, dm1, chi1, {"fo_mask": mask, "fo_from": U0})}.items():
+            r = lean_call(sweep, U, 0, opts, c, dm, per, corr_mask=cm[0], **kw)
+            for d in (1, 2):
+                r = lean_call(sweep, U, d, opts, c, dm, per, acc=r[:2], corr_mask=cm[d],
+                              corr_acc=r[2], **kw)
+            out[f"K2e 256^3 seeded stage {s}"] = [_digest(x) for x in r]
+        del U0, U1, dm0, dm1, chi0, chi1, cm, mask, r
+        torch.cuda.empty_cache()
+    if "k8" in only:
+        for i, (shape, _) in enumerate(LEAN_DUMP_SHAPES):
+            prim, bxf = rough_mhd(torch, shape, 160 + i)
+            for order in (1, 2, 3):
+                for floors in ((0.0, 0.0), (0.6, 0.1)):
+                    o = small_mhd_opts(order, shape, floors)
+                    for d in range(3):
+                        out[f"K8 {shape} order {order} floors {floors} axis {d}"] = [
+                            _digest(msweep.compute_mhd_axis(prim, bxf[d], d, o))]
+        prim, Bf, opts = mhd_state(torch)
+        for order in (2, 3):
+            o = dataclasses.replace(opts, reconstruction_order=order)
+            for d in range(3):
+                out[f"K8 Orszag-Tang 256^3 order {order} axis {d}"] = [
+                    _digest(msweep.compute_mhd_axis(prim, Bf[d], d, o))]
+        del prim, Bf
+        torch.cuda.empty_cache()
+
+
+def small_mhd_opts(order, shape, floors):
+    from quokka_tpu_torch.mhd.advance import MHDOptions
+
+    return MHDOptions(gamma=5.0 / 3.0, dx=tuple(1.0 / n for n in shape),
+                      reconstruction_order=order, density_floor=floors[0],
+                      pressure_floor=floors[1])
+
+
+def rough_mhd(torch, shape, seed):
+    """Seeded (prim [8, ...], [Bf_x, Bf_y, Bf_z]) f32 on the card: strong
+    random fields, slabs at +-30 along each axis, faces with bx = 0 and
+    |bx| = 1e-7, and a block at rest with the field along x only
+    (degenerate star denominators), so every HLLD region and branch runs
+    (made on the card, where `kernel_check.rough_mhd_state` is numpy)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*s):
+        return torch.rand(s, generator=g, device="cuda")
+
+    rho = 0.5 + rand(*shape)
+    v = torch.randn((3, *shape), generator=g, device="cuda")
+    P = 0.05 + rand(*shape)
+    B = 2.0 * torch.randn((3, *shape), generator=g, device="cuda")
+    for d in range(3):
+        v[d][rand(*shape) < 0.1] = 30.0
+        v[d][rand(*shape) < 0.1] = -30.0
+    bxf = [B[d].clone() for d in range(3)]
+    for d in range(3):
+        bxf[d][rand(*shape) < 0.1] = 0.0
+        sel = rand(*shape) < 0.1
+        bxf[d][sel] = 1e-7 * torch.sign(bxf[d][sel])
+    h = [n // 2 for n in shape]
+    rest = (slice(h[0], None), slice(h[1], None), slice(h[2], None))
+    rho[rest], P[rest] = 1.0, 0.01
+    v[(slice(None),) + rest] = 0.0
+    for k in range(3):
+        B[k][rest] = 1.0 if k == 0 else 0.0
+        bxf[k][rest] = 1.0 if k == 0 else 0.0
+    prim = torch.cat([rho[None], v, P[None], B]).contiguous()
+    return prim, [b.contiguous() for b in bxf]
+
+
 # ------------------------------------------------------------------ histogram
 def warp_stats(per_solve):
     """(mean residual evaluations a cell, mean over warps of the sum over
@@ -868,17 +1305,20 @@ def main():
                                                                                    shell)}))
         return 0
     names = ("rad_source", "face_tile_kernel", "face_kernel", "rad_stage", "rad_axis_flux",
-             "row_gather", "transverse", "rad_transport")
+             "row_gather", "transverse", "rad_transport", "lean_", "mhd_")
     for line in _cuda.build_info["log"].splitlines():
         if any(k in line for k in names) or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     times, checks, errors = {}, {}, {}
     only = set(args.only.split(","))
+    args.only_set = only
     if args.tiles:
         from quokka_tpu_torch.hydro import sweep
 
         if "k1" in only:
             time_k1_tiles(torch, times)
+        elif only & {"k2c", "k8"}:
+            time_tile_variants(torch, only, times)
         elif not hasattr(sweep, "_face_tile"):
             print("error: this tree's face kernel takes no tile", file=sys.stderr)
             return 2
@@ -897,6 +1337,10 @@ def main():
         time_k7(torch, args, times, checks)
     if "k9" in only:
         time_k9(torch, args, times, checks)
+    if only & {"k2c", "k2e"}:
+        time_lean(torch, args, times, checks, errors)
+    if "k8" in only:
+        time_k8(torch, args, times, checks, errors)
     print(json.dumps({"tree": str(tree), "device": smi, "times": times, "checks": checks,
                       "errors": errors}))
     if args.check and not all(checks.values()):

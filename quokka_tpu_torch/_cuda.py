@@ -41,7 +41,8 @@ _SIGNATURES = {
     "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
     "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _F, _F, _I, _I, _F, _F, _F, _F, _I, _P],
+                     _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    "qk_lean_smem": [_I, _I],
     "qk_axis_div": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                     _I, _I, _F, _P],
     "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
@@ -54,7 +55,8 @@ _SIGNATURES = {
     "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_rad_stage2": [_P, _P, _P, _P, _P, _P, _L, _L, _L, _F, _P, _P],
     "qk_rad_stage_smem": [],
-    "qk_mhd_axis": [_P, _P, _P, _L, _L, _L, _I, _I, _F, _F, _F, _F, _F, _P],
+    "qk_mhd_axis": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    "qk_mhd_smem": [_I, _I, _I],
     "qk_row_gather": [_P, _P, _P, _L, _L, _L, _P, _P, _P],
 }
 

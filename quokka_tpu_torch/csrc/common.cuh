@@ -1,7 +1,8 @@
 // Shared device helpers for the hydro kernels (K1 transverse.cu, K2 sweep.cu,
-// K3 apply.cu); the radiation kernels (K4-K6, rad_common.cuh) and the MHD
-// sweep (K8, mhd_sweep.cu) take the index map, the NaN-propagating min/max,
-// PPM and the 7-cell line faces (`line_faces`) from here.
+// K3 apply.cu); the radiation kernels (K4-K6, rad_common.cuh) take the index
+// map, the NaN-propagating min/max, PPM and the 7-cell line faces
+// (`line_faces`) from here, the MHD sweep (K8, mhd_sweep.cu) the min/max,
+// PPM, minmod and, with K2, the shared-memory tile index (`tix`, `tpos`).
 //
 // Layout: the state is [6, X, Y, Z] f32, contiguous, z fastest, exactly as
 // the JAX package keeps it. All offsets are 64-bit: 6 x 1024^3 elements
@@ -181,6 +182,32 @@ __device__ __forceinline__ float load_field(const float* __restrict__ A,
                                             int hi) {
   bool flip;
   return A[base + map_cell(c, n, lo, hi, flip) * stride];
+}
+
+// Shared-memory index of (along j, line i) in a tile with n_along entries
+// a line: the contiguous global axis is the fastest one in shared memory
+// too, and element e of a phase maps to (j, i) so that neighbouring e sit
+// on neighbouring global and shared addresses.
+template <int axis>
+__device__ __forceinline__ int tix(int j, int i, int n_along, int lines) {
+  return axis == 2 ? i * n_along + j : j * lines + i;
+}
+template <int axis>
+__device__ __forceinline__ void tpos(int e, int n_along, int lines, int& j,
+                                     int& i) {
+  if (axis == 2) {
+    j = e % n_along;
+    i = e / n_along;
+  } else {
+    j = e / lines;
+    i = e % lines;
+  }
+}
+
+// Ask for the 128 B line holding *p to be brought into L2, ahead of a
+// load that comes later in the kernel (no register is held meanwhile).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 // Decompose a linear index over extents (E0, E1, E2), z fastest.

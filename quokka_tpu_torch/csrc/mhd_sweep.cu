@@ -13,23 +13,38 @@
 //   rows 6-7  the lo-face canonical induction fluxes F[by'], F[bz']
 // (the caller maps row 6 to -E_wax and row 7 to +E_vax, mhd/advance.py).
 //
-// Design: one thread per cell, z fastest, as K6. The thread reads cells
-// i-3..i+3 of the 7 primitives the faces need (the one along the axis is
-// the staggered bxf instead) through the periodic index map, builds the
-// states of its lo and hi faces, and solves HLLD at both: each face is
-// solved twice, once by each neighbour. The other design, a face kernel and
-// a divergence kernel as K2, solves each face once but moves ~100 B a cell
-// (faces written and read back) against this one's 64 B; at ~315 FP32
-// operations of HLLD a face, doing them twice still keeps the arithmetic
-// below the byte bound, so the single kernel is the simpler and the smaller
-// bound.
+// Design: a shared-memory tile, as K7 and K2's face kernel. A block owns
+// ta cells along the axis by tw lines across it (`mhd.sweep.k8_tile`: up
+// to 16 lines, 64 B of a row, and up to 512 faces, 29 x 16 at 256^3; the
+// lines run along z, the contiguous axis, for the x and y sweeps and along
+// y for the z sweep) and, in four
+// phases separated by __syncthreads, 1. stages the 7 canonical primitives
+// of the cells its faces read (g = 2, 1, 0 cells beyond the faces' two for
+// PPM, PLM, donor cell; the one along the axis is the staggered bxf
+// instead, staged at the ta + 1 faces), each loaded once through the
+// periodic index map with neighbouring threads on neighbouring addresses;
+// 2. forms both face states (minus, plus) of each of the ta + 2 cells the
+// faces touch once per component (`line_faces` split cell-wise, as K7);
+// 3. solves HLLD once at each of the ta + 1 faces, qL = plus(f-1), qR =
+// minus(f), with the floors on both states, into shared memory over the
+// staged primitives (only the tile's hi face is solved again, by the next
+// tile); 4. writes each cell's 8 rows, one thread a cell. The form this
+// replaces, one thread a cell, solved every face twice (HLLD, ~315 FP32
+// operations and 6 IEEE divisions and square roots a face, is the most
+// expensive Riemann solver in the repository) and made 49 strided loads a
+// cell; its note argued that solving twice beat a face round trip through
+// device memory, but the tile keeps the faces in shared memory and so
+// avoids both. __launch_bounds__(256, 4) holds a thread to 64 registers
+// (a few bytes spill), so 32 warps fit a multiprocessor where 80
+// registers gave 24: 12% faster on Orszag-Tang (PERF.md).
 //
-// Bound on the H100 at 256^3: bytes. 32 B read a cell (7 primitives and
-// bxf; the neighbours' reads hit L1/L2) and 32 B written, 1.07 GB an axis:
-// 0.320 ms at 3.35 TB/s, 1.92 ms for the 6 launches of a step. The FP32
-// operations, counted once a face (kernel_check.k8_ops_per_cell: 427 a cell
-// with PLM), take 0.107 ms at 67 TFLOP/s; solving each face twice doubles
-// that, still below the byte bound.
+// Bound on the H100 at 256^3: bytes on paper. 32 B read a cell (7
+// primitives and bxf) and 32 B written, 1.07 GB an axis: 0.320 ms at 3.35
+// TB/s, 1.92 ms for the 6 launches of a step. The FP32 operations, counted
+// once a face (kernel_check.k8_ops_per_cell: 427 a cell with PLM), take
+// 0.107 ms at 67 TFLOP/s; in practice HLLD's dependent divisions and
+// square roots under -fmad=false bound it by instruction latency, which
+// the tile halves by solving each face once.
 //
 // Rounding: every expression keeps the grouping of the JAX package's hlld
 // and of the plain version (mhd/sweep.py, hydro/riemann.py); squares are
@@ -100,6 +115,17 @@ __device__ __forceinline__ MVec star_state(const MSide& s, const MVec& U, float 
   return {rho_star, mxs, my, mz, E, by, bz};
 }
 
+// Field-wise selects: a reference bound to one of two structs (`c ? a :
+// b`) puts both in local memory; these keep them in registers.
+__device__ __forceinline__ MSide pick(bool c, const MSide& a, const MSide& b) {
+  return {c ? a.rho : b.rho, c ? a.u : b.u, c ? a.v : b.v, c ? a.w : b.w,
+          c ? a.P : b.P,     c ? a.by : b.by, c ? a.bz : b.bz};
+}
+__device__ __forceinline__ MVec pick(bool c, const MVec& a, const MVec& b) {
+  return {c ? a.rho : b.rho, c ? a.mx : b.mx, c ? a.my : b.my, c ? a.mz : b.mz,
+          c ? a.E : b.E,     c ? a.by : b.by, c ? a.bz : b.bz};
+}
+
 __device__ __forceinline__ float get(const MVec& a, int k) {
   switch (k) {
     case 0: return a.rho;
@@ -127,8 +153,9 @@ __device__ __forceinline__ void hlld(const MSide& L, const MSide& R, float bx, f
   const float ptot_R = R.P + pb_R;
 
   if (S0 >= 0.0f || S4 <= 0.0f) {
-    const MVec f = S0 >= 0.0f ? phys_flux(L, U_L, ptot_L, bx, bx_sq)
-                              : phys_flux(R, U_R, ptot_R, bx, bx_sq);
+    const bool left = S0 >= 0.0f;
+    const MVec f = phys_flux(pick(left, L, R), pick(left, U_L, U_R),
+                             left ? ptot_L : ptot_R, bx, bx_sq);
 #pragma unroll
     for (int k = 0; k < 7; ++k) F[k] = get(f, k);
     return;
@@ -153,8 +180,8 @@ __device__ __forceinline__ void hlld(const MSide& L, const MSide& R, float bx, f
     // outer star regions: F*_L = F_L + S0 (U*_L - U_L), F*_R likewise
     const bool left = S1 >= 0.0f;
     float vb_unused;
-    const MSide& s = left ? L : R;
-    const MVec& U = left ? U_L : U_R;
+    const MSide s = pick(left, L, R);
+    const MVec U = pick(left, U_L, U_R);
     const MVec us = left ? star_state(L, U_L, siui_L, sism_L, rho_star_L, ptot_L,
                                       ptot_star, S2, bx, bx_sq, vb_unused)
                          : star_state(R, U_R, siui_R, sism_R, rho_star_R, ptot_R,
@@ -187,9 +214,9 @@ __device__ __forceinline__ void hlld(const MSide& L, const MSide& R, float bx, f
   const float vb_d = S2 * bx + (vdm * byd + wdm * bzd);
 
   const bool left = S2 >= 0.0f;
-  const MSide& s = left ? L : R;
-  const MVec& U = left ? U_L : U_R;
-  const MVec& us = left ? us_L : us_R;
+  const MSide s = pick(left, L, R);
+  const MVec U = pick(left, U_L, U_R);
+  const MVec us = pick(left, us_L, us_R);
   // E** = E* + sgn_rs sign(bx) (vb** - vb*), sgn_rs = +rs_L / -rs_R
   const float sgn_rs = left ? rs_L : -rs_R;
   const float vb_star = left ? vb_star_L : vb_star_R;
@@ -215,65 +242,170 @@ __device__ __forceinline__ MSide face_side(const float q[7], const MhdParams& p)
           p.p_floor > 0.0f ? mx(q[4], p.p_floor) : q[4], q[5], q[6]};
 }
 
+constexpr int K8_THREADS = 256;
+
+// Shared-memory floats of a K8 tile of ta cells by tw lines at
+// reconstruction order `order`: the 7 staged primitives of ta + 2 + 2g
+// cells a line (g = 2, 1, 0 for PPM, PLM, donor cell), both face states of
+// the ta + 2 reconstructed cells, and bxf at the ta + 1 faces. The face
+// fluxes (7 a face) overwrite the staged primitives after phase 2.
+__host__ __device__ __forceinline__ int mhd_smem_floats(int ta, int tw, int order) {
+  const int g = order == 3 ? 2 : (order == 2 ? 1 : 0);
+  return 7 * (ta + 2 + 2 * g) * tw + 14 * (ta + 2) * tw + (ta + 1) * tw;
+}
+
+// K8 (see the header): a block owns ta cells by tw lines of the periodic
+// state; 1. stages the 7 canonical primitives of the cells its faces read
+// and bxf at its ta + 1 faces; 2. forms both face states of each cell the
+// faces touch once; 3. solves each face once (HLLD, the floors on both
+// states) into shared memory; 4. one thread a cell writes its 8 rows.
 template <int axis>
-__global__ void __launch_bounds__(THREADS)
-    mhd_axis_kernel(const float* __restrict__ prim, const float* __restrict__ bxf,
-                    float* __restrict__ out, int64_t X, int64_t Y, int64_t Z,
-                    MhdParams p) {
+__global__ void __launch_bounds__(K8_THREADS, 4)
+    mhd_tile_kernel(const float* __restrict__ prim, const float* __restrict__ bxf,
+                    float* __restrict__ out, int64_t X, int64_t Y, int64_t Z, int ta,
+                    int tw, MhdParams p) {
   constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
   constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
+  extern __shared__ float smem[];
   const int64_t ncell = X * Y * Z;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  int64_t co[3];
-  unravel(idx, Y, Z, co);
   const int64_t n = axis == 0 ? X : (axis == 1 ? Y : Z);
-  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
-  const int64_t base = idx - co[axis] * stride;
-  int64_t off[7];
-#pragma unroll
-  for (int o = 0; o < 7; ++o) {
-    bool flip;
-    off[o] = base + map_cell(co[axis] - 3 + o, n, BC_PERIODIC, BC_PERIODIC, flip) * stride;
-  }
+  const int64_t n_across = axis == 2 ? Y : Z;
+  const int64_t stride_a = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  const int64_t stride_c = axis == 2 ? Z : 1;
+  const int64_t stride_f = axis == 1 ? Y * Z : (axis == 0 ? Z : Y * Z);
+  const int64_t tiles_a = (n + ta - 1) / ta;
+  const int64_t tiles_c = (n_across + tw - 1) / tw;
+  int64_t b = blockIdx.x;
+  const int64_t a0 = (b % tiles_a) * ta;
+  b /= tiles_a;
+  const int64_t c0 = (b % tiles_c) * tw;
+  const int64_t base = (b / tiles_c) * stride_f + c0 * stride_c;
+  const int cells = (int)min((int64_t)ta, n - a0);
+  const int lines = (int)min((int64_t)tw, n_across - c0);
+  const int g = p.order == 3 ? 2 : (p.order == 2 ? 1 : 0);
+  const int nf = cells + 1, nr = cells + 2, ns = cells + 2 + 2 * g;
+  const int cap_s = (ta + 2 + 2 * g) * tw, cap_r = (ta + 2) * tw, cap_f = (ta + 1) * tw;
+  float* prim_s = smem;                // [7][cap_s]; then the face fluxes [7][cap_f]
+  float* qm_s = prim_s + 7 * cap_s;    // [7][cap_r]
+  float* qp_s = qm_s + 7 * cap_r;      // [7][cap_r]
+  float* bx_s = qp_s + 7 * cap_r;      // [cap_f]
   // the canonical face-state components: rho, u, v, w, P, by, bz
   const int comp[7] = {0, 1 + axis, 1 + vax, 1 + wax, 4, 5 + vax, 5 + wax};
-  float qL_lo[7], qR_lo[7], qL_hi[7], qR_hi[7];
+
+  // 1. cells a0-1-g .. a0+cells+g (the periodic wrap resolved once a cell),
+  // and bxf at faces a0 .. a0+cells (the lo faces of cells a0 .. a0+cells)
+  for (int el = threadIdx.x; el < ns * lines; el += K8_THREADS) {
+    int j, i;
+    tpos<axis>(el, ns, lines, j, i);
+    int64_t a = a0 - 1 - g + j;  // |wrap| < n: n >= 4
+    a = a < 0 ? a + n : (a >= n ? a - n : a);
+    const int64_t off = base + i * stride_c + a * stride_a;
+    const int s = tix<axis>(j, i, ns, lines);
 #pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    const float* c = prim + comp[k] * ncell;
-    const float w[7] = {c[off[0]], c[off[1]], c[off[2]], c[off[3]],
-                        c[off[4]], c[off[5]], c[off[6]]};
-    line_faces(w, p.order, qL_lo[k], qR_lo[k], qL_hi[k], qR_hi[k]);
+    for (int k = 0; k < 7; ++k) prim_s[k * cap_s + s] = prim[comp[k] * ncell + off];
   }
-  float F_lo[7], F_hi[7];
-  hlld(face_side(qL_lo, p), face_side(qR_lo, p), bxf[idx], p.gamma, p.gm1, F_lo);
-  hlld(face_side(qL_hi, p), face_side(qR_hi, p), bxf[off[4]], p.gamma, p.gm1, F_hi);
-  // canonical [rho, m_ax, m_vax, m_wax, E] -> state rows
-  int row[5];
-  row[0] = 0;
-  row[1] = 1 + axis;
-  row[2] = 1 + vax;
-  row[3] = 1 + wax;
-  row[4] = 4;
+  for (int el = threadIdx.x; el < nf * lines; el += K8_THREADS) {
+    int j, i;
+    tpos<axis>(el, nf, lines, j, i);
+    int64_t a = a0 + j;
+    a = a >= n ? a - n : a;
+    bx_s[tix<axis>(j, i, nf, lines)] = bxf[base + i * stride_c + a * stride_a];
+  }
+  __syncthreads();
+
+  // 2. (minus, plus) of cells a0-1 .. a0+cells (staged r + g)
+  for (int el = threadIdx.x; el < nr * lines; el += K8_THREADS) {
+    int r, i;
+    tpos<axis>(el, nr, lines, r, i);
+    const int o = tix<axis>(r, i, nr, lines);
+    const int s = tix<axis>(r + g, i, ns, lines);
+    const int sa = axis == 2 ? 1 : lines;  // staged neighbour along the axis
 #pragma unroll
-  for (int k = 0; k < 5; ++k) out[row[k] * ncell + idx] = (F_lo[k] - F_hi[k]) * p.inv_dx;
-  out[5 * ncell + idx] = F_lo[0];
-  out[6 * ncell + idx] = F_lo[5];
-  out[7 * ncell + idx] = F_lo[6];
+    for (int k = 0; k < 7; ++k) {
+      const float* w = prim_s + k * cap_s + s;
+      float m, pl;
+      if (p.order == 3) {
+        ppm_cell(w[-2 * sa], w[-sa], w[0], w[sa], w[2 * sa], m, pl);
+      } else if (p.order == 2) {
+        const float slope = minmod(w[sa] - w[0], w[0] - w[-sa]);
+        pl = w[0] + 0.5f * slope;
+        m = w[0] - 0.5f * slope;
+      } else {
+        m = w[0];
+        pl = w[0];
+      }
+      qm_s[k * cap_r + o] = m;
+      qp_s[k * cap_r + o] = pl;
+    }
+  }
+  __syncthreads();
+
+  // 3. HLLD at faces a0 .. a0+cells: face fa lies between reconstructed
+  // cells fa (its plus state) and fa+1 (its minus state); the fluxes go
+  // where the staged primitives were (nothing reads them after phase 2)
+  float* F_s = prim_s;
+  for (int el = threadIdx.x; el < nf * lines; el += K8_THREADS) {
+    int fa, i;
+    tpos<axis>(el, nf, lines, fa, i);
+    const int oL = tix<axis>(fa, i, nr, lines);
+    const int oR = tix<axis>(fa + 1, i, nr, lines);
+    float qL[7], qR[7], F[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      qL[k] = qp_s[k * cap_r + oL];
+      qR[k] = qm_s[k * cap_r + oR];
+    }
+    const int o = tix<axis>(fa, i, nf, lines);
+    hlld(face_side(qL, p), face_side(qR, p), bx_s[o], p.gamma, p.gm1, F);
+#pragma unroll
+    for (int k = 0; k < 7; ++k) F_s[k * cap_f + o] = F[k];
+  }
+  __syncthreads();
+
+  // 4. one thread a cell: canonical [rho, m_ax, m_vax, m_wax, E] -> state
+  // rows (F_lo - F_hi) * inv_dx, then the lo face's mass and induction
+  // fluxes
+  const int row[5] = {0, 1 + axis, 1 + vax, 1 + wax, 4};
+  for (int el = threadIdx.x; el < cells * lines; el += K8_THREADS) {
+    int r, i;
+    tpos<axis>(el, cells, lines, r, i);
+    const int64_t idx = base + i * stride_c + (a0 + r) * stride_a;
+    const int oL = tix<axis>(r, i, nf, lines);
+    const int oH = tix<axis>(r + 1, i, nf, lines);
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      out[row[k] * ncell + idx] = (F_s[k * cap_f + oL] - F_s[k * cap_f + oH]) * p.inv_dx;
+    out[5 * ncell + idx] = F_s[oL];
+    out[6 * ncell + idx] = F_s[5 * cap_f + oL];
+    out[7 * ncell + idx] = F_s[6 * cap_f + oL];
+  }
 }
 
 }  // namespace qk
 
+extern "C" int qk_mhd_smem(int ta, int tw, int order) {
+  return (int)sizeof(float) * qk::mhd_smem_floats(ta, tw, order);
+}
+
 extern "C" int qk_mhd_axis(const float* prim, const float* bxf, float* out, long long X,
-                           long long Y, long long Z, int axis, int order, float gamma,
-                           float gm1, float inv_dx, float rho_floor, float p_floor,
-                           void* stream) {
-  const int64_t ncell = (int64_t)X * Y * Z;
-  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
+                           long long Y, long long Z, int axis, int order, int ta, int tw,
+                           float gamma, float gm1, float inv_dx, float rho_floor,
+                           float p_floor, void* stream) {
+  const long long n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const long long n_across = axis == 2 ? Y : Z;
+  const long long fixed = axis == 0 ? Y : X;
+  const long long tiles = ((n + ta - 1) / ta) * ((n_across + tw - 1) / tw) * fixed;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const qk::MhdParams p{gamma, gm1, inv_dx, rho_floor, p_floor, order};
-  auto kernel = axis == 0 ? qk::mhd_axis_kernel<0>
-                : (axis == 1 ? qk::mhd_axis_kernel<1> : qk::mhd_axis_kernel<2>);
-  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(prim, bxf, out, X, Y, Z, p);
+  auto kernel = axis == 0 ? qk::mhd_tile_kernel<0>
+                : (axis == 1 ? qk::mhd_tile_kernel<1> : qk::mhd_tile_kernel<2>);
+  const int smem = qk_mhd_smem(ta, tw, order);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)tiles, qk::K8_THREADS, smem, (cudaStream_t)stream>>>(
+      prim, bxf, out, X, Y, Z, ta, tw, p);
   return (int)cudaGetLastError();
 }

@@ -27,10 +27,11 @@
 //        written coalesced.
 //   Face slot f lies between cells f-1 and f; on a wall axis slot n (the hi
 //   wall) goes to the separate flux_hi / vel_hi planes. The expressions and
-//   their order of operations are those of the one-thread-a-face form this
-//   replaces (`sweep_face`, which K2c and K2e keep), which computed each
-//   cell's primitives six times and its reconstruction twice; with
-//   -fmad=false the fluxes are the same bits (kernel_times.py --compare).
+//   their order of operations are those of the one-thread-a-face form the
+//   tile replaced, which computed each cell's primitives six times
+//   and its reconstruction twice; with -fmad=false the fluxes are the same
+//   bits (kernel_times.py --compare). Phases 1 and 2 are `stage_prims` and
+//   `reconstruct_cells`, which K2c's tile shares.
 //   `hydro.sweep._face_tile` picks (ta, tw) for the axis's face count and
 //   line count: up to 40 faces along, up to 512 faces a tile, ~40 KB of
 //   shared memory. __launch_bounds__(256, 4) holds a thread to 64
@@ -55,26 +56,46 @@
 //
 // K2c (div_only, the lean large-domain step, pallas_sweep.py:695-718,
 // :786-810, :924-1009, the blend of _window_flux :543-561): one kernel,
-// `lean_kernel`, one thread per cell computing both of its faces in
-// registers, so no face array reaches global memory. It takes the optional
-// in-place accumulators (acc, the JAX kernel's aliased outputs) and the
-// in-kernel FOFC blend (fo_mask, fo_from). Its bound at 512^3 is bytes, at
-// 3.35 TB/s with one f32 row 0.537 GB: a clean first axis reads U, chi and
-// two dmin fields (9 rows) and writes div and dvel (7 rows), 8.6 GB, 2.6 ms;
-// with acc it reads the 7 accumulator rows too, 12.3 GB, 3.7 ms; fo_mask
-// adds one row and fo_from six (kernel_check.lean_cases computes each
-// launch's bytes from its inputs). Solving each face twice doubles the
-// arithmetic of the K2 face kernel, ~1200 FP32 operations a cell, which at
-// 67 TFLOP/s is 2.4 ms at 512^3: still below the byte bound.
+// `lean_tile_kernel`, that writes no face array to global memory. It takes
+// the face kernel's tile of `ta` cells by `tw` lines (`hydro.sweep.
+// lean_tile`: up to 40 cells along, up to 512 faces a tile) and its phases
+// 1-2, then
+//   3. solves each of the ta + 1 faces its cells touch once, into shared
+//      memory (7 floats a face: the flux in state order and the face
+//      velocity; only the tile's hi face is solved again, by the next
+//      tile). A face next to a flagged cell of the FOFC mask (cells f-1 or
+//      f; wall ghosts unflagged) takes the first-order donor-cell + LLF
+//      flux instead, from `fo` in global memory or, without it, from the
+//      staged primitives; first_order takes LLF at every face and skips
+//      phase 2;
+//   4. one thread a cell writes div = (F_lo - F_hi) / dx and dvel = (v_hi -
+//      v_lo) / dx, or adds them onto the accumulators in place (acc, the
+//      JAX kernel's aliased outputs: each cell is read and written by the
+//      one thread that owns it, nothing of them is staged).
+// Every global offset is 64-bit, so every extent the one-thread-a-cell
+// form took is taken. Its bound at 512^3 is bytes, at 3.35 TB/s with one
+// f32 row 0.537 GB: a clean first axis reads U, chi and two dmin fields (9
+// rows) and writes div and dvel (7 rows), 8.6 GB, 2.6 ms; with acc it reads
+// the 7 accumulator rows too, 12.3 GB, 3.7 ms; fo_mask adds one row and
+// fo_from six (kernel_check.lean_cases computes each launch's bytes from
+// its inputs). The FP32 work, one HLLC a face and one PPM a cell
+// (OPS_K2_SWEEP, 620 a cell), is 1.24 ms at 67 TFLOP/s. The form this
+// replaces, one thread a cell solving both of its faces, did every HLLC
+// twice, converted each cell to primitives 12 times and reconstructed it 4
+// times an axis; the tile does each once, at the face kernel's cost
+// (latency-bound IEEE divisions and square roots, PERF.md), plus a 28 B
+// shared-memory round trip a face. Bits: qL = plus(f-1), qR = minus(f) and
+// the same expressions in the same order, so the outputs are the
+// per-cell form's bits (kernel_times.py --compare).
 //
 // K2e (corr_mask / corr_acc, the AMR root's in-kernel flux-register seed,
 // pallas_sweep.py:811-880, corr formula :623-633 and :1085-1090, output
-// alias :1146-1147): the lean kernel also writes
+// alias :1146-1147): phase 4 of the lean kernel also writes
 //   corr[c] (+)= (m_lo F_lo - m_hi F_hi) / dx,
 // m the per-axis coarse-fine boundary-face mask (slot f = the lo face of
-// cell f, as the JAX kernel's bnd_blk), from the very blended faces that
-// feed div, so the register stays consistent with the update in every FOFC
-// branch; with corr_accumulate the thread adds onto its own cell of the
+// cell f, as the JAX kernel's bnd_blk), from the very blended faces in
+// shared memory that feed div, so the register stays consistent with the
+// update in every FOFC branch; with corr_accumulate the thread adds onto its own cell of the
 // accumulator in place (the aliased output). Ghost-free periodic axes only,
 // as the JAX kernel refuses walls (:811-814). Its bound is bytes: one more
 // [X, Y, Z] mask row read and six corr rows written (and read with the
@@ -86,10 +107,11 @@
 // function over them); blockIdx.y picks the block, so a chunk is one launch
 // an axis, not one a tile. Periodic (padded, roll semantics) blocks only.
 //
-// Why two kernels and not one thread computing faces i and i+1: that would
-// solve every Riemann problem twice, and HLLC is most of the FP32 work; the
-// face-array round trip costs (6+1) x 4 B written and read per cell, which
-// the stage-1 caller needs in DRAM anyway (the FOFC fallback re-blends it).
+// Why K2 keeps its faces in global memory and K2c does not: the stage-1
+// caller needs K2's faces in DRAM anyway (the FOFC fallback re-blends
+// them), so writing them costs nothing extra there; K2c exists for the
+// boxes too large to hold them, and keeps them in its tile's shared
+// memory.
 //
 // Bound on the H100: bytes on paper. A face of the tile kernel reads its
 // cell's 6 values, chi and two dmin fields once (plus the 5 staged halo
@@ -257,6 +279,20 @@ __device__ __forceinline__ void state_order(const float out[NV], float rinv_L,
   fv = Fs[0] * (Fs[0] >= 0.0f ? rinv_R : rinv_L);
 }
 
+// LLF between the donor-cell primitive states qL (cell f-1) and qR (cell
+// f), in state component order.
+template <int axis>
+__device__ __forceinline__ void llf_states(const float qL[NV], const float qR[NV],
+                                           const Eos& e, float Fs[NV], float& fv) {
+  constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
+  constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
+  float out[NV];
+  const Face L = face_state(qL, axis, vax, wax, e);
+  const Face R = face_state(qR, axis, vax, wax, e);
+  llf(L, R, out);
+  state_order<axis>(out, L.rinv, R.rinv, Fs, fv);
+}
+
 // The first-order face f: donor-cell states of cells f-1 and f (through
 // the wall map) and LLF, in state component order.
 template <int axis>
@@ -266,15 +302,10 @@ __device__ __forceinline__ void llf_face(const float* __restrict__ Q,
                                          int lo, int hi, int is_cons,
                                          const Eos& e, float Fs[NV],
                                          float& fv) {
-  constexpr int vax = axis == 0 ? 1 : (axis == 1 ? 2 : 0);
-  constexpr int wax = axis == 0 ? 2 : (axis == 1 ? 0 : 1);
-  float qL[NV], qR[NV], out[NV];
+  float qL[NV], qR[NV];
   load_prim(Q, ncell, base, stride, f - 1, n, lo, hi, axis, is_cons, e, qL);
   load_prim(Q, ncell, base, stride, f, n, lo, hi, axis, is_cons, e, qR);
-  const Face L = face_state(qL, axis, vax, wax, e);
-  const Face R = face_state(qR, axis, vax, wax, e);
-  llf(L, R, out);
-  state_order<axis>(out, L.rinv, R.rinv, Fs, fv);
+  llf_states<axis>(qL, qR, e, Fs, fv);
 }
 
 // HLLC at one face from its reconstructed states qL, qR (primitives), the
@@ -314,66 +345,6 @@ __device__ __forceinline__ void hllc_face(const float qL[NV],
   state_order<axis>(out, L.rinv, R.rinv, Fs, fv);
 }
 
-// One face of the sweep, one thread (K2c and K2e: each cell solves its two
-// faces): slot f lies between cells f-1 and f (through the wall index map,
-// so f = n is the hi wall, or face 0 again on a periodic axis). Reads
-// cells f-3..f+2, converts them to primitives in registers, builds the PPM
-// states of cells f-1 and f, blends them with chi, and solves HLLC
-// (`hllc_face`); first_order reads only cells f-1, f and solves LLF.
-// Returns the flux in state component order and the face velocity. The
-// sweep axis is a template parameter: the canonical-frame component
-// indices become compile-time constants, which keeps the 6 x 6 stencil
-// and the face states in registers.
-template <int axis>
-__device__ __forceinline__ void sweep_face(
-    const float* __restrict__ Q, const float* __restrict__ chi,
-    const float* __restrict__ dminv, const float* __restrict__ dminw,
-    int64_t ncell, int64_t base, int64_t stride, int64_t f, int64_t n, int lo,
-    int hi, int is_cons, int first_order, float K_visc, const Eos& e,
-    float Fs[NV], float& fv) {
-  if (first_order) {
-    llf_face<axis>(Q, ncell, base, stride, f, n, lo, hi, is_cons, e, Fs, fv);
-    return;
-  }
-  float qL[NV], qR[NV];
-  float w[6][NV];  // cells f-3 .. f+2
-#pragma unroll
-  for (int o = 0; o < 6; ++o)
-    load_prim(Q, ncell, base, stride, f - 3 + o, n, lo, hi, axis, is_cons, e,
-              w[o]);
-  float chi_m1 = 1.0f, chi_0 = 1.0f;
-  if (chi != nullptr) {
-    chi_m1 = load_field(chi, base, stride, f - 1, n, lo, hi);
-    chi_0 = load_field(chi, base, stride, f, n, lo, hi);
-  }
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float m_unused, p_unused;
-    float plus_m1, minus_0;
-    ppm_cell(w[0][c], w[1][c], w[2][c], w[3][c], w[4][c], m_unused, plus_m1);
-    ppm_cell(w[1][c], w[2][c], w[3][c], w[4][c], w[5][c], minus_0, p_unused);
-    if (chi != nullptr) {
-      qL[c] = chi_m1 * plus_m1 + (1.0f - chi_m1) * w[2][c];
-      qR[c] = chi_0 * minus_0 + (1.0f - chi_0) * w[3][c];
-    } else {
-      qL[c] = plus_m1;
-      qR[c] = minus_0;
-    }
-  }
-  const float du = w[3][1 + axis] - w[2][1 + axis];
-  float dvl = 0.0f, dvr = 0.0f, dwl = 0.0f, dwr = 0.0f;
-  if (dminv != nullptr) {
-    dvl = load_field(dminv, base, stride, f - 1, n, lo, hi);
-    dvr = load_field(dminv, base, stride, f, n, lo, hi);
-  }
-  if (dminw != nullptr) {
-    dwl = load_field(dminw, base, stride, f - 1, n, lo, hi);
-    dwr = load_field(dminw, base, stride, f, n, lo, hi);
-  }
-  hllc_face<axis>(qL, qR, du, dminv != nullptr, dvl, dvr, dminw != nullptr, dwl,
-                  dwr, K_visc, e, Fs, fv);
-}
-
 // Where face slot f of the line at (fixed, across) goes: the face arrays
 // [6, X, Y, Z] / [X, Y, Z] below n, the hi-wall planes [6, plane] /
 // [plane] at f = n (the plane over the two other axes in order: its offset
@@ -395,92 +366,52 @@ __device__ __forceinline__ void store_face(
 
 constexpr int FACE_THREADS = 256;
 
-// The geometry of one tile of the face kernels: the axis, the lines across
-// it and the fixed third coordinate, and this block's tile.
-struct FaceTile {
-  int n, n_across, stride_a, stride_c, stride_f, nf;
-  int a0, c0, fixed, faces, lines, base;
+// The geometry of one tile of the face kernels and of K2c: the axis, the
+// lines across it and the fixed third coordinate, and this block's tile of
+// `count` slots along the axis (faces of the face kernel, cells of K2c).
+// Offsets are of type I: int for the face kernel (the wrapper holds a
+// block below 2^31 cells), int64_t for K2c.
+template <typename I>
+struct Tile {
+  I n, n_across, stride_a, stride_c, stride_f, fixed, base;
+  int a0, c0, count, lines;
   int64_t nplane;
 };
 
-template <int axis>
-__device__ __forceinline__ FaceTile face_tile(int X, int Y, int Z, bool wall,
-                                              int ta, int tw) {
-  FaceTile t;
+template <int axis, typename I>
+__device__ __forceinline__ Tile<I> tile_of(I X, I Y, I Z, I along, int ta, int tw) {
+  Tile<I> t;
   t.n = axis == 0 ? X : (axis == 1 ? Y : Z);
   t.n_across = axis == 2 ? Y : Z;
   t.stride_a = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
   t.stride_c = axis == 2 ? Z : 1;
   t.stride_f = axis == 1 ? Y * Z : (axis == 0 ? Z : Y * Z);
-  t.nf = wall ? t.n + 1 : t.n;
   t.nplane = axis == 0 ? (int64_t)Y * Z : (axis == 1 ? (int64_t)X * Z : (int64_t)X * Y);
-  const int tiles_a = (t.nf + ta - 1) / ta;
-  const int tiles_c = (t.n_across + tw - 1) / tw;
-  int b = blockIdx.x;
-  const int tA = b % tiles_a;
+  const I tiles_a = (along + ta - 1) / ta;
+  const I tiles_c = (t.n_across + tw - 1) / tw;
+  I b = blockIdx.x;
+  const I tA = b % tiles_a;
   b /= tiles_a;
-  const int tC = b % tiles_c;
+  const I tC = b % tiles_c;
   t.fixed = b / tiles_c;
-  t.a0 = tA * ta;
-  t.c0 = tC * tw;
-  t.faces = min(ta, t.nf - t.a0);
-  t.lines = min(tw, t.n_across - t.c0);
+  t.a0 = (int)(tA * ta);
+  t.c0 = (int)(tC * tw);
+  t.count = (int)min((I)ta, along - t.a0);
+  t.lines = (int)min((I)tw, t.n_across - t.c0);
   t.base = t.fixed * t.stride_f + t.c0 * t.stride_c;
   return t;
 }
 
-// Shared-memory index of (along j, line i) in a tile with n_along entries
-// a line: the contiguous global axis is the fastest one in shared memory
-// too, and element e of a phase maps to (j, i) so that neighbouring e sit
-// on neighbouring global and shared addresses.
-template <int axis>
-__device__ __forceinline__ int tix(int j, int i, int n_along, int lines) {
-  return axis == 2 ? i * n_along + j : j * lines + i;
-}
-template <int axis>
-__device__ __forceinline__ void tpos(int e, int n_along, int lines, int& j,
-                                     int& i) {
-  if (axis == 2) {
-    j = e % n_along;
-    i = e / n_along;
-  } else {
-    j = e / lines;
-    i = e % lines;
-  }
-}
-
-// The PPM face kernel, a shared-memory tile (see the header). Blocks of a
-// batch [B, 6, X, Y, Z] are blockIdx.y; offsets inside one component of one
-// block are 32-bit (the wrapper holds X Y Z below 2^31).
-template <int axis>
-__global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
-    const float* __restrict__ Q, const float* __restrict__ chi,
-    const float* __restrict__ dminv, const float* __restrict__ dminw,
-    float* __restrict__ F, float* __restrict__ vel, float* __restrict__ F_hi,
-    float* __restrict__ vel_hi, int X, int Y, int Z, int lo, int hi,
-    int is_cons, float K_visc, int ta, int tw, Eos e) {
-  extern __shared__ float smem[];
-  const int64_t ncell = (int64_t)X * Y * Z;
-  {  // batch index: block b of a [B, 6, X, Y, Z] chunk (B = 1 unbatched)
-    const int64_t b = blockIdx.y;
-    Q += b * NV * ncell;
-    F += b * NV * ncell;
-    vel += b * ncell;
-    if (chi != nullptr) chi += b * ncell;
-    if (dminv != nullptr) dminv += b * ncell;
-    if (dminw != nullptr) dminw += b * ncell;
-  }
-  const FaceTile t = face_tile<axis>(X, Y, Z, lo != BC_PERIODIC, ta, tw);
-  const int ns = t.faces + 5;  // staged cells a line: a0-3 .. a0+faces+1
-  const int nr = t.faces + 1;  // reconstructed cells: a0-1 .. a0+faces-1
-  const int cap_s = (ta + 5) * tw, cap_r = (ta + 1) * tw;
-  float* prim_s = smem;                  // [NV][cap_s]
-  float* qm_s = prim_s + NV * cap_s;     // [NV][cap_r] blended minus states
-  float* qp_s = qm_s + NV * cap_r;       // [NV][cap_r] blended plus states
-  float* dv_s = qp_s + NV * cap_r;       // [cap_r]
-  float* dw_s = dv_s + cap_r;            // [cap_r]
-
-  // 1. primitives of the staged cells
+// Phase 1 of a tile with `nfaces` faces a line (slots a0 .. a0+nfaces-1):
+// the primitives of the nfaces + 5 cells a line they read (a0-3 ..
+// a0+nfaces+1) into prim_s [NV][cap_s], each loaded once through the wall
+// index map and converted once.
+template <int axis, typename I>
+__device__ __forceinline__ void stage_prims(const Tile<I>& t, int nfaces,
+                                            const float* __restrict__ Q, int64_t ncell,
+                                            int lo, int hi, int is_cons, const Eos& e,
+                                            float* prim_s, int cap_s) {
+  const int ns = nfaces + 5;
   for (int el = threadIdx.x; el < ns * t.lines; el += FACE_THREADS) {
     int j, i;
     tpos<axis>(el, ns, t.lines, j, i);
@@ -491,9 +422,18 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
 #pragma unroll
     for (int c = 0; c < NV; ++c) prim_s[c * cap_s + s] = q[c];
   }
-  __syncthreads();
+}
 
-  // 2. blended face states of the reconstructed cells, and their dmins
+// Phase 2: the chi-blended PPM face states (minus, plus) of the nfaces + 1
+// cells the faces touch (a0-1 .. a0+nfaces-1), each reconstructed once,
+// into qm_s / qp_s [NV][cap_r], and their dmin values into dv_s / dw_s.
+template <int axis, typename I>
+__device__ __forceinline__ void reconstruct_cells(
+    const Tile<I>& t, int nfaces, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw, int lo, int hi,
+    const float* prim_s, int cap_s, float* qm_s, float* qp_s, float* dv_s, float* dw_s,
+    int cap_r) {
+  const int ns = nfaces + 5, nr = nfaces + 1;
   for (int el = threadIdx.x; el < nr * t.lines; el += FACE_THREADS) {
     int r, i;
     tpos<axis>(el, nr, t.lines, r, i);
@@ -519,29 +459,77 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
     if (dminv != nullptr) dv_s[o] = load_field(dminv, lbase, t.stride_a, a, t.n, lo, hi);
     if (dminw != nullptr) dw_s[o] = load_field(dminw, lbase, t.stride_a, a, t.n, lo, hi);
   }
+}
+
+// Phase 3 at face fa of line i (between reconstructed cells fa and fa+1,
+// staged fa+2 and fa+3): HLLC from qL = plus(f-1), qR = minus(f).
+template <int axis>
+__device__ __forceinline__ void tile_hllc(int fa, int i, int nfaces, int lines,
+                                          const float* prim_s, int cap_s,
+                                          const float* qm_s, const float* qp_s,
+                                          const float* dv_s, const float* dw_s, int cap_r,
+                                          bool has_v, bool has_w, float K_visc,
+                                          const Eos& e, float Fs[NV], float& fv) {
+  const int ns = nfaces + 5, nr = nfaces + 1;
+  const int oL = tix<axis>(fa, i, nr, lines);
+  const int oR = tix<axis>(fa + 1, i, nr, lines);
+  const int sL = tix<axis>(fa + 2, i, ns, lines);
+  const int sR = tix<axis>(fa + 3, i, ns, lines);
+  float qL[NV], qR[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    qL[c] = qp_s[c * cap_r + oL];
+    qR[c] = qm_s[c * cap_r + oR];
+  }
+  const float du = prim_s[(1 + axis) * cap_s + sR] - prim_s[(1 + axis) * cap_s + sL];
+  hllc_face<axis>(qL, qR, du, has_v, has_v ? dv_s[oL] : 0.0f, has_v ? dv_s[oR] : 0.0f,
+                  has_w, has_w ? dw_s[oL] : 0.0f, has_w ? dw_s[oR] : 0.0f, K_visc, e, Fs,
+                  fv);
+}
+
+// The PPM face kernel, a shared-memory tile (see the header). Blocks of a
+// batch [B, 6, X, Y, Z] are blockIdx.y; offsets inside one component of one
+// block are 32-bit (the wrapper holds X Y Z below 2^31).
+template <int axis>
+__global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw,
+    float* __restrict__ F, float* __restrict__ vel, float* __restrict__ F_hi,
+    float* __restrict__ vel_hi, int X, int Y, int Z, int lo, int hi,
+    int is_cons, float K_visc, int ta, int tw, Eos e) {
+  extern __shared__ float smem[];
+  const int64_t ncell = (int64_t)X * Y * Z;
+  {  // batch index: block b of a [B, 6, X, Y, Z] chunk (B = 1 unbatched)
+    const int64_t b = blockIdx.y;
+    Q += b * NV * ncell;
+    F += b * NV * ncell;
+    vel += b * ncell;
+    if (chi != nullptr) chi += b * ncell;
+    if (dminv != nullptr) dminv += b * ncell;
+    if (dminw != nullptr) dminw += b * ncell;
+  }
+  const int n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const Tile<int> t = tile_of<axis, int>(X, Y, Z, lo != BC_PERIODIC ? n + 1 : n, ta, tw);
+  const int cap_s = (ta + 5) * tw, cap_r = (ta + 1) * tw;
+  float* prim_s = smem;                  // [NV][cap_s]
+  float* qm_s = prim_s + NV * cap_s;     // [NV][cap_r] blended minus states
+  float* qp_s = qm_s + NV * cap_r;       // [NV][cap_r] blended plus states
+  float* dv_s = qp_s + NV * cap_r;       // [cap_r]
+  float* dw_s = dv_s + cap_r;            // [cap_r]
+
+  stage_prims<axis>(t, t.count, Q, ncell, lo, hi, is_cons, e, prim_s, cap_s);
+  __syncthreads();
+  reconstruct_cells<axis>(t, t.count, chi, dminv, dminw, lo, hi, prim_s, cap_s, qm_s, qp_s,
+                          dv_s, dw_s, cap_r);
   __syncthreads();
 
-  // 3. HLLC at faces a0 .. a0+faces-1: face fa lies between reconstructed
-  // cells fa and fa+1 (staged fa+2 and fa+3)
-  for (int el = threadIdx.x; el < t.faces * t.lines; el += FACE_THREADS) {
+  // 3. HLLC at faces a0 .. a0+faces-1
+  for (int el = threadIdx.x; el < t.count * t.lines; el += FACE_THREADS) {
     int fa, i;
-    tpos<axis>(el, t.faces, t.lines, fa, i);
-    const int oL = tix<axis>(fa, i, nr, t.lines);
-    const int oR = tix<axis>(fa + 1, i, nr, t.lines);
-    const int sL = tix<axis>(fa + 2, i, ns, t.lines);
-    const int sR = tix<axis>(fa + 3, i, ns, t.lines);
-    float qL[NV], qR[NV];
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      qL[c] = qp_s[c * cap_r + oL];
-      qR[c] = qm_s[c * cap_r + oR];
-    }
-    const float du = prim_s[(1 + axis) * cap_s + sR] - prim_s[(1 + axis) * cap_s + sL];
-    const bool has_v = dminv != nullptr, has_w = dminw != nullptr;
+    tpos<axis>(el, t.count, t.lines, fa, i);
     float Fs[NV], fv;
-    hllc_face<axis>(qL, qR, du, has_v, has_v ? dv_s[oL] : 0.0f,
-                    has_v ? dv_s[oR] : 0.0f, has_w, has_w ? dw_s[oL] : 0.0f,
-                    has_w ? dw_s[oR] : 0.0f, K_visc, e, Fs, fv);
+    tile_hllc<axis>(fa, i, t.count, t.lines, prim_s, cap_s, qm_s, qp_s, dv_s, dw_s, cap_r,
+                    dminv != nullptr, dminw != nullptr, K_visc, e, Fs, fv);
     const int f = t.a0 + fa;
     const int across = t.c0 + i;
     store_face(F, vel, F_hi, vel_hi, ncell, t.nplane,
@@ -653,79 +641,154 @@ __device__ __forceinline__ float mask_at(const float* __restrict__ m,
   return load_field(m, base, stride, c, n, lo, hi);
 }
 
-// K2c: one thread per cell solves the cell's lo face (slot c) and hi face
-// (slot c+1, the hi wall itself for the last cell of a wall axis) with
-// `sweep_face`, each face solved once by each of its two cells, and writes
-// only div = (F_lo - F_hi) / dx and dvel = (v_hi - v_lo) / dx, or adds them
-// onto the running totals in place (accumulate; div and dvel are then the
-// accumulators, read and written by the same thread). With a mask, a face
-// next to a flagged cell (face c flags on cells c-1 and c) takes the
-// first-order donor-cell + LLF flux and face velocity of `fo` (the state
-// itself when null), as the JAX blend selects them.
-template <int axis>
-__global__ void lean_kernel(const float* __restrict__ Q,
-                            const float* __restrict__ chi,
-                            const float* __restrict__ dminv,
-                            const float* __restrict__ dminw,
-                            const float* __restrict__ mask,
-                            const float* __restrict__ fo, float* div,
-                            float* dvel, const float* __restrict__ cmask,
-                            float* corr, int64_t X, int64_t Y, int64_t Z,
-                            int lo, int hi, int is_cons, int first_order,
-                            float K_visc, float dx, int accumulate,
-                            int corr_accumulate, Eos e) {
-  const int64_t ncell = X * Y * Z;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  int64_t co[3];
-  unravel(idx, Y, Z, co);
-  const int64_t dims[3] = {X, Y, Z};
-  const int64_t n = dims[axis];
-  const int64_t c = co[axis];
-  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
-  const int64_t base = idx - c * stride;
+// Shared-memory floats of a K2c tile of ta cells by tw lines: the face
+// kernel's staged primitives, face states and dmins for its ta + 1 faces,
+// and the 7 results (flux in state order, face velocity) of each face.
+__host__ __device__ __forceinline__ int lean_smem_floats(int ta, int tw) {
+  return NV * (ta + 6) * tw + (2 * NV + 2) * (ta + 2) * tw + (NV + 1) * (ta + 1) * tw;
+}
 
-  float F[2][NV], v[2];
-#pragma unroll 1
-  for (int s = 0; s < 2; ++s)
-    sweep_face<axis>(Q, chi, dminv, dminw, ncell, base, stride, c + s, n, lo,
-                     hi, is_cons, first_order, K_visc, e, F[s], v[s]);
-  if (mask != nullptr) {
-    const float m[3] = {mask_at(mask, base, stride, c - 1, n, lo, hi),
-                        mask_at(mask, base, stride, c, n, lo, hi),
-                        mask_at(mask, base, stride, c + 1, n, lo, hi)};
-    const float* src = fo != nullptr ? fo : Q;
-#pragma unroll 1
-    for (int s = 0; s < 2; ++s)
-      if (m[s] > 0.0f || m[s + 1] > 0.0f)
-        sweep_face<axis>(src, nullptr, nullptr, nullptr, ncell, base, stride,
-                         c + s, n, lo, hi, is_cons, 1, K_visc, e, F[s], v[s]);
-  }
+// K2c / K2e (see the header): a block owns ta cells by tw lines, stages and
+// reconstructs them as the face kernel does (phases 1-2), solves each of
+// the ta + 1 faces those cells touch once into shared memory (phase 3: a
+// face next to a flagged cell takes LLF, of `fo` from global memory or of
+// the staged state; first_order takes LLF at every face and skips phase 2),
+// and then one thread a cell writes div = (F_lo - F_hi) / dx and dvel =
+// (v_hi - v_lo) / dx, or adds them onto the accumulators in place, and
+// with a boundary mask the register seed corr (phase 4). Slot ta of the
+// last tile of a line is the hi wall on a wall axis, face 0 through the
+// index map on a periodic one. Every global offset is 64-bit.
+template <int axis>
+__global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw,
+    const float* __restrict__ mask, const float* __restrict__ fo, float* div, float* dvel,
+    const float* __restrict__ cmask, float* corr, int64_t X, int64_t Y, int64_t Z, int lo,
+    int hi, int is_cons, int first_order, float K_visc, float dx, int accumulate,
+    int corr_accumulate, int ta, int tw, Eos e) {
+  extern __shared__ float smem[];
+  const int64_t ncell = X * Y * Z;
+  const Tile<int64_t> t =
+      tile_of<axis, int64_t>(X, Y, Z, axis == 0 ? X : (axis == 1 ? Y : Z), ta, tw);
+  const int nf = t.count + 1;  // faces a0 .. a0+cells
+  const int cap_s = (ta + 6) * tw, cap_r = (ta + 2) * tw, cap_f = (ta + 1) * tw;
+  float* prim_s = smem;                  // [NV][cap_s]
+  float* qm_s = prim_s + NV * cap_s;     // [NV][cap_r]
+  float* qp_s = qm_s + NV * cap_r;       // [NV][cap_r]
+  float* dv_s = qp_s + NV * cap_r;       // [cap_r]
+  float* dw_s = dv_s + cap_r;            // [cap_r]
+  float* res_s = dw_s + cap_r;           // [NV + 1][cap_f]: flux, face velocity
+
+  // the accumulators this block's cells add onto, into L2 now, so that
+  // phase 4 finds them there
+  if (accumulate || corr_accumulate) {
+    for (int el = threadIdx.x; el < t.count * t.lines; el += FACE_THREADS) {
+      int r, i;
+      tpos<axis>(el, t.count, t.lines, r, i);
+      const int64_t idx = t.base + i * t.stride_c + (t.a0 + r) * t.stride_a;
 #pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float d = (F[0][k] - F[1][k]) / dx;
-    if (accumulate) d = div[k * ncell + idx] + d;
-    div[k * ncell + idx] = d;
+      for (int k = 0; k < NV; ++k) {
+        if (accumulate) prefetch_l2(div + k * ncell + idx);
+        if (corr_accumulate) prefetch_l2(corr + k * ncell + idx);
+      }
+      if (accumulate) prefetch_l2(dvel + idx);
+    }
   }
-  float dv = (v[1] - v[0]) / dx;
-  if (accumulate) dv = dvel[idx] + dv;
-  dvel[idx] = dv;
-  if (corr != nullptr) {  // K2e: the boundary-masked divergence
-    const bool m_lo = load_field(cmask, base, stride, c, n, lo, hi) > 0.5f;
-    const bool m_hi = load_field(cmask, base, stride, c + 1, n, lo, hi) > 0.5f;
+  stage_prims<axis>(t, nf, Q, ncell, lo, hi, is_cons, e, prim_s, cap_s);
+  __syncthreads();
+  if (!first_order)
+    reconstruct_cells<axis>(t, nf, chi, dminv, dminw, lo, hi, prim_s, cap_s, qm_s, qp_s,
+                            dv_s, dw_s, cap_r);
+  __syncthreads();
+
+  // 3. each face once: HLLC, or LLF next to a flagged cell
+  const int ns = nf + 5;
+  for (int el = threadIdx.x; el < nf * t.lines; el += FACE_THREADS) {
+    int fa, i;
+    tpos<axis>(el, nf, t.lines, fa, i);
+    const int64_t lbase = t.base + i * t.stride_c;
+    const int64_t f = t.a0 + fa;
+    const bool flagged = mask != nullptr && (mask_at(mask, lbase, t.stride_a, f - 1, t.n,
+                                                     lo, hi) > 0.0f ||
+                                             mask_at(mask, lbase, t.stride_a, f, t.n, lo,
+                                                     hi) > 0.0f);
+    float Fs[NV], fv;
+    if (flagged && fo != nullptr) {
+      llf_face<axis>(fo, ncell, lbase, t.stride_a, f, t.n, lo, hi, is_cons, e, Fs, fv);
+    } else if (flagged || first_order) {
+      const int sL = tix<axis>(fa + 2, i, ns, t.lines);
+      const int sR = tix<axis>(fa + 3, i, ns, t.lines);
+      float qL[NV], qR[NV];
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        qL[c] = prim_s[c * cap_s + sL];
+        qR[c] = prim_s[c * cap_s + sR];
+      }
+      llf_states<axis>(qL, qR, e, Fs, fv);
+    } else {
+      tile_hllc<axis>(fa, i, nf, t.lines, prim_s, cap_s, qm_s, qp_s, dv_s, dw_s, cap_r,
+                      dminv != nullptr, dminw != nullptr, K_visc, e, Fs, fv);
+    }
+    const int o = tix<axis>(fa, i, nf, t.lines);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) res_s[c * cap_f + o] = Fs[c];
+    res_s[NV * cap_f + o] = fv;
+  }
+  __syncthreads();
+
+  // 4. one thread a cell: the divergences (and the seed) from its two faces
+  for (int el = threadIdx.x; el < t.count * t.lines; el += FACE_THREADS) {
+    int r, i;
+    tpos<axis>(el, t.count, t.lines, r, i);
+    const int64_t lbase = t.base + i * t.stride_c;
+    const int64_t c = t.a0 + r;
+    const int64_t idx = lbase + c * t.stride_a;
+    const int oL = tix<axis>(r, i, nf, t.lines);
+    const int oH = tix<axis>(r + 1, i, nf, t.lines);
+    // the accumulators' values are all loaded before the first store (the
+    // stores may alias them as far as the compiler knows, which would
+    // otherwise serialise seven load-store round trips to device memory)
+    float old[NV + 1];
+    if (accumulate) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) old[k] = div[k * ncell + idx];
+      old[NV] = dvel[idx];
+    }
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
-      const float a = m_lo ? F[0][k] : 0.0f;
-      const float b = m_hi ? F[1][k] : 0.0f;
-      float d = (a - b) / dx;
-      if (corr_accumulate) d = corr[k * ncell + idx] + d;
-      corr[k * ncell + idx] = d;
+      float d = (res_s[k * cap_f + oL] - res_s[k * cap_f + oH]) / dx;
+      if (accumulate) d = old[k] + d;
+      div[k * ncell + idx] = d;
+    }
+    float dv = (res_s[NV * cap_f + oH] - res_s[NV * cap_f + oL]) / dx;
+    if (accumulate) dv = old[NV] + dv;
+    dvel[idx] = dv;
+    if (corr != nullptr) {  // K2e: the boundary-masked divergence
+      const bool m_lo = load_field(cmask, lbase, t.stride_a, c, t.n, lo, hi) > 0.5f;
+      const bool m_hi = load_field(cmask, lbase, t.stride_a, c + 1, t.n, lo, hi) > 0.5f;
+      if (corr_accumulate) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) old[k] = corr[k * ncell + idx];
+      }
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const float a = m_lo ? res_s[k * cap_f + oL] : 0.0f;
+        const float b = m_hi ? res_s[k * cap_f + oH] : 0.0f;
+        float d = (a - b) / dx;
+        if (corr_accumulate) d = old[k] + d;
+        corr[k * ncell + idx] = d;
+      }
     }
   }
 }
 
 }  // namespace qk
 
+extern "C" int qk_lean_smem(int ta, int tw) {
+  return (int)sizeof(float) * qk::lean_smem_floats(ta, tw);
+}
+
+// K2c / K2e along one axis in tiles of ta cells by tw lines.
 extern "C" int qk_axis_lean(const float* Q, const float* chi,
                             const float* dminv, const float* dminw,
                             const float* mask, const float* fo, float* div,
@@ -733,17 +796,26 @@ extern "C" int qk_axis_lean(const float* Q, const float* chi,
                             long long X, long long Y, long long Z,
                             int axis, int lo, int hi, int is_cons,
                             int first_order, float K_visc, float dx,
-                            int accumulate, int corr_accumulate, float gamma,
-                            float gm1, float inv_gm1, float s_n,
+                            int accumulate, int corr_accumulate, int ta, int tw,
+                            float gamma, float gm1, float inv_gm1, float s_n,
                             int reconstruct_eint, void* stream) {
   const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
-  const int64_t ncell = (int64_t)X * Y * Z;
-  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
-  auto kernel = axis == 0 ? qk::lean_kernel<0>
-                : (axis == 1 ? qk::lean_kernel<1> : qk::lean_kernel<2>);
-  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      Q, chi, dminv, dminw, mask, fo, div, dvel, cmask, corr, X, Y, Z, lo, hi,
-      is_cons, first_order, K_visc, dx, accumulate, corr_accumulate, e);
+  const long long n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const long long n_across = axis == 2 ? Y : Z;
+  const long long fixed = axis == 0 ? Y : X;
+  const long long tiles = ((n + ta - 1) / ta) * ((n_across + tw - 1) / tw) * fixed;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = axis == 0 ? qk::lean_tile_kernel<0>
+                : (axis == 1 ? qk::lean_tile_kernel<1> : qk::lean_tile_kernel<2>);
+  const int smem = qk_lean_smem(ta, tw);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)tiles, qk::FACE_THREADS, smem, (cudaStream_t)stream>>>(
+      Q, chi, dminv, dminw, mask, fo, div, dvel, cmask, corr, X, Y, Z, lo, hi, is_cons,
+      first_order, K_visc, dx, accumulate, corr_accumulate, ta, tw, e);
   return (int)cudaGetLastError();
 }
 

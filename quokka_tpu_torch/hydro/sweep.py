@@ -667,13 +667,39 @@ def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
     return F, v, Fh, vh
 
 
+LEAN_SMEM_MAX = 56 * 1024  # bytes of shared memory a K2c block takes at most
+LEAN_ALONG = 40  # cells of a K2c tile along the axis, at most
+LEAN_FACES = 512  # faces of a K2c tile, at most (two a thread)
+
+
+def lean_tile(n_cells: int, n_across: int) -> Tuple[int, int]:
+    """(cells along the axis, lines across) of one tile of K2c
+    (``csrc/sweep.cu`` `lean_tile_kernel`): at most LEAN_ALONG cells along,
+    split evenly, and as many lines as keep the tile's ta + 1 faces at or
+    below LEAN_FACES, split evenly across."""
+    ta = _split(n_cells, LEAN_ALONG)
+    return ta, _split(n_across, max(1, min(n_across, LEAN_FACES // (ta + 1))))
+
+
+def lean_smem_bytes(tile) -> int:
+    """Shared-memory bytes of a K2c block (`qk_lean_smem`): the face
+    kernel's staged primitives [6][(ta + 6) tw], face states and dmins
+    [14][(ta + 2) tw], and the faces' fluxes and velocities [7][(ta + 1)
+    tw]."""
+    ta, tw = tile
+    return 4 * (6 * (ta + 6) * tw + 14 * (ta + 2) * tw + 7 * (ta + 1) * tw)
+
+
 def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order,
                          bc_axis, dx_axis, state_is_cons, acc, fo_mask, fo_from,
                          corr_mask=None, corr_acc=None):
-    """Launch K2c (csrc/sweep.cu `lean_kernel`): one thread a cell solves
-    both of its faces in registers and writes only (div, dvel), or adds
-    them onto `acc` in place; with `corr_mask` (K2e) also the register
-    seed corr, or adds it onto `corr_acc` in place."""
+    """Launch K2c (csrc/sweep.cu `lean_tile_kernel`): a block stages and
+    reconstructs a tile of `lean_tile` cells by lines, solves each face
+    those cells touch once into shared memory (LLF next to a flagged cell of
+    `fo_mask`), and writes only (div, dvel) a cell, or adds them onto `acc`
+    in place; with `corr_mask` (K2e) also the register seed corr, or adds it
+    onto `corr_acc` in place. No face array reaches device memory, and every
+    offset is 64-bit, so any extent >= 4 is taken."""
     from .._cuda import check
 
     accs = tuple(acc) if acc is not None else ()
@@ -699,7 +725,9 @@ def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order
                            _ptr(corr_mask), _ptr(corr), X, Y, Z, axis, lo, hi,
                            int(state_is_cons), int(first_order),
                            float(opts.K_visc), float(dx_axis), int(acc is not None),
-                           int(corr_acc is not None), *_eos_args(opts), _stream(U))
+                           int(corr_acc is not None), *lean_tile((X, Y, Z)[axis],
+                                                                 Y if axis == 2 else Z),
+                           *_eos_args(opts), _stream(U))
     check(err, "axis_flux_lean")
     if corr is None:
         launch_counts["axis_flux_lean"] += 1

@@ -968,6 +968,155 @@ def k1_edge_cases(opts, device, seed: int = 6) -> Iterator[Case]:
                        lambda W5=W5, o=o: k1_cost_of(W5, o))
 
 
+# (extents, walls) of K2c's and K8's edge shapes: extents of 4 and 5 (the
+# halo wraps or mirrors more than once around a tile), extents that are not
+# multiples of the chosen tile along or across (83 and 47 cells: tiles of
+# 28 and 24 along, lines of 16 across), reflecting walls, periodic axes,
+# and both in one state (x periodic)
+LEAN_EDGE_SHAPES = (((4, 4, 4), "walls"), ((5, 5, 5), "periodic"),
+                    ((37, 18, 33), "periodic x"), ((4, 35, 17), "walls"),
+                    ((83, 6, 47), "periodic"))
+# K2c's variants on them: the clean sweep, onto running totals, the FOFC
+# blend, the stage-2 redo (the blend from another state's first-order
+# fluxes, onto the totals), first order, and K2e's register seed fresh and
+# added onto a running seed (periodic axes only)
+LEAN_EDGE_VARIANTS = ("clean", "acc", "fo_mask", "fo_mask+acc+fo_from", "first order",
+                      "corr", "corr acc fo_from")
+
+
+def _bc_of(kind: str) -> dict:
+    from .registry import BC_REFLECT
+
+    wall = (BC_REFLECT, BC_REFLECT)
+    return {"walls": {0: wall, 1: wall, 2: wall},
+            "periodic": {0: None, 1: None, 2: None},
+            "periodic x": {0: None, 1: wall, 2: wall}}[kind]
+
+
+def tile_edge_mask(shape, d: int, ta: int, seed: int, device) -> torch.Tensor:
+    """A seeded 0/1 f32 FOFC mask flagging 5% of the cells and, along axis
+    d, the first and last cell of every tile of `ta` cells (the first and
+    last cells of the axis, next to its walls, among them) on every other
+    line."""
+    rng = np.random.default_rng(seed)
+    m = rng.random(shape) < 0.05
+    n = shape[d]
+    idx = sorted({c for t0 in range(0, n, ta) for c in (t0, min(t0 + ta, n) - 1)})
+    sl = [slice(None)] * 3
+    sl[(d + 1) % 3] = slice(0, None, 2)
+    sl[d] = idx
+    m[tuple(sl)] = True
+    return torch.from_numpy(m).to(device=device, dtype=torch.float32)
+
+
+def box_face_masks(shape, device) -> dict:
+    """Per-axis coarse-fine boundary-face masks (slot c = the lo face of
+    cell c) of the box [n/4, 3n/4) along every axis: K2e's input."""
+    lo = [n // 4 for n in shape]
+    hi = [max(3 * n // 4, lo_ + 1) for n, lo_ in zip(shape, lo)]
+    out = {}
+    for d in range(3):
+        m = np.zeros(shape, np.float32)
+        for c in (lo[d], hi[d]):
+            if c < shape[d]:
+                sl = [slice(lo[a], hi[a]) for a in range(3)]
+                sl[d] = c
+                m[tuple(sl)] = 1.0
+        out[d] = torch.from_numpy(m).to(device)
+    return out
+
+
+def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
+    """K2c and K2e (the div_only sweep, `compute_axis_flux`) on seeded
+    conserved states at LEAN_EDGE_SHAPES, every axis, in each of
+    LEAN_EDGE_VARIANTS (K2e's on periodic axes only), with K1's fields from
+    its plain version and a mask from `tile_edge_mask` at the tile
+    `hydro.sweep.lean_tile` chooses; the third shape also with CW84
+    viscosity and reconstruct_eint. Against `axis_flux_plain`; the
+    accumulators are copied for each call."""
+    import dataclasses
+
+    for i, (shape, kind) in enumerate(LEAN_EDGE_SHAPES):
+        bc = _bc_of(kind)
+        U0 = hydro_blocks(1, shape, seed + i, device)[0]
+        U1 = hydro_blocks(1, shape, seed + 20 + i, device)[0]
+        g = torch.Generator(device=device).manual_seed(seed + 40 + i)
+        acc = (torch.rand(U0.shape, generator=g, device=device),
+               torch.rand(shape, generator=g, device=device))
+        corr0 = torch.rand(U0.shape, generator=g, device=device)
+        cmasks = box_face_masks(shape, device)
+        extras = [("", opts)]
+        if i == 2:
+            extras.append((" visc eint", dataclasses.replace(opts, K_visc=0.1,
+                                                             reconstruct_eint=True)))
+        for etag, o in extras:
+            k1 = {"0": plain_transverse(U0, o, bc), "1": plain_transverse(U1, o, bc)}
+            for d in range(3):
+                ta, _ = sweep.lean_tile(shape[d], shape[1] if d == 2 else shape[2])
+                mask = tile_edge_mask(shape, d, ta, seed + 60 + 3 * i + d, device)
+                for v in LEAN_EDGE_VARIANTS:
+                    if v.startswith("corr") and bc[d] is not None:
+                        continue
+                    stage2 = "fo_from" in v
+                    U = U1 if stage2 else U0
+                    dmins, chi = k1["1" if stage2 else "0"]
+                    kw = dict(bc_axis=bc[d], dx_axis=o.dx[d], state_is_cons=True,
+                              div_only=True, first_order=v == "first order")
+                    if "fo_mask" in v or stage2:
+                        kw["fo_mask"] = mask
+                    if stage2:
+                        kw["fo_from"] = U0
+                    if v.startswith("corr"):
+                        kw["corr_mask"] = cmasks[d]
+                    with_acc = "acc" in v
+
+                    def copies(w=with_acc, c=v == "corr acc fo_from", acc=acc, corr0=corr0):
+                        return (tuple(a.clone() for a in acc) if w else None,
+                                corr0.clone() if c else None)
+
+                    def kernel(U=U, d=d, dmins=dmins, chi=chi, kw=kw, o=o, copies=copies):
+                        a, c = copies()
+                        return sweep.compute_axis_flux(U, d, o, chi, dmins, acc=a,
+                                                       corr_acc=c, **kw)
+
+                    def plain(U=U, d=d, dmins=dmins, chi=chi, kw=kw, o=o, copies=copies):
+                        a, c = copies()
+                        return sweep.axis_flux_plain(U, d, o, chi, dmins, acc=a, corr_acc=c,
+                                                     **kw)
+
+                    name = "axis_flux_corr" if v.startswith("corr") else "axis_flux_lean"
+                    yield Case(name, f"K2c {shape} {kind}{etag} {v} axis {d}", kernel, plain)
+
+
+# K8's edge shapes: LEAN_EDGE_SHAPES' extents (every axis periodic)
+MHD_EDGE_FLOORS = ((0.0, 0.0), (0.6, 0.1))
+
+
+def mhd_edge_cases(opts, device, seed: int = 12) -> Iterator[Case]:
+    """K8 on rough MHD states (`rough_mhd_state` of the largest extent,
+    cropped) at LEAN_EDGE_SHAPES' extents, every axis, orders 1-3, with the
+    floors off and on (MHD_EDGE_FLOORS), against `mhd_axis_plain`."""
+    import dataclasses
+
+    for i, (shape, _) in enumerate(LEAN_EDGE_SHAPES):
+        prim, bxf = rough_mhd_state(max(shape), seed + i)
+        crop = (slice(None),) + tuple(slice(0, n) for n in shape)
+        prim = torch.tensor(prim[crop], dtype=torch.float32, device=device).contiguous()
+        bxf = [torch.tensor(b[crop[1:]], dtype=torch.float32, device=device).contiguous()
+               for b in bxf]
+        for order in (1, 2, 3):
+            for floors in MHD_EDGE_FLOORS:
+                o = dataclasses.replace(opts, reconstruction_order=order,
+                                        density_floor=floors[0], pressure_floor=floors[1])
+                tag = f" {shape} order {order}" + (" floors" if floors[0] > 0 else "")
+                for d in range(3):
+                    yield Case("mhd_axis", f"K8{tag} axis {d}",
+                               lambda d=d, o=o, p=prim, b=bxf: msweep.compute_mhd_axis(
+                                   p, b[d], d, o),
+                               lambda d=d, o=o, p=prim, b=bxf: msweep.mhd_axis_plain(
+                                   p, b[d], d, o))
+
+
 def rough_rad_state(shape, seed: int, device, c: float = 1.0e3) -> torch.Tensor:
     """Seeded [10, X, Y, Z] f32 radhydro state: moving gas (the work term is
     non-zero), |f| -> 1 and E near the floor beside E ~ 1 (|F| = f c E), so

@@ -26,13 +26,35 @@ import torch
 
 from ..hydro import reconstruct
 from ..hydro.riemann import FaceState, hlld
-from ..hydro.sweep import _on_cuda, _stream
+from ..hydro.sweep import _on_cuda, _split, _stream
 from ..stencil import sh
 
 # canonical frames (axis -> (v_axis, w_axis)), as quokka_tpu.mhd.advance._FRAMES
 _FRAMES = {0: (1, 2), 1: (2, 0), 2: (0, 1)}
 
 launch_counts = {"mhd_axis": 0}
+
+K8_LINES = 16  # lines of a K8 tile across the axis, at most (64 B of a row)
+K8_FACES = 512  # faces of a K8 tile, at most (two a thread)
+K8_SMEM_MAX = 48 * 1024  # bytes of shared memory a K8 block takes at most
+
+
+def k8_tile(n: int, n_across: int):
+    """(cells along the axis, lines across) of one tile of K8
+    (``csrc/mhd_sweep.cu`` `mhd_tile_kernel`): at most K8_LINES lines
+    across, split evenly, and as many cells along as keep the tile's ta + 1
+    faces at or below K8_FACES, split evenly (29 x 16 at 256^3)."""
+    tw = _split(n_across, min(n_across, K8_LINES))
+    return _split(n, max(1, K8_FACES // tw - 1)), tw
+
+
+def k8_smem_bytes(tile, order: int) -> int:
+    """Shared-memory bytes of a K8 block (`qk_mhd_smem`): the 7 staged
+    primitives of ta + 2 + 2g cells a line (g = 2, 1, 0 for PPM, PLM, donor
+    cell), both face states of ta + 2 cells, and bxf at ta + 1 faces."""
+    ta, tw = tile
+    g = {3: 2, 2: 1, 1: 0}[order]
+    return 4 * (7 * (ta + 2 + 2 * g) * tw + 14 * (ta + 2) * tw + (ta + 1) * tw)
 
 
 def reset_launch_counts() -> None:
@@ -97,8 +119,9 @@ def compute_mhd_axis(prim: torch.Tensor, bxf: torch.Tensor, axis: int,
     X, Y, Z = prim.shape[1:]
     out = torch.empty_like(prim)
     gamma = opts.gamma
+    ta, tw = k8_tile((X, Y, Z)[axis], Y if axis == 2 else Z)
     err = lib.qk_mhd_axis(prim.data_ptr(), bxf.data_ptr(), out.data_ptr(), X, Y, Z,
-                          axis, opts.reconstruction_order, gamma, gamma - 1.0,
+                          axis, opts.reconstruction_order, ta, tw, gamma, gamma - 1.0,
                           1.0 / opts.dx[axis], opts.density_floor, opts.pressure_floor,
                           _stream(prim))
     check(err, "mhd_axis")

@@ -77,11 +77,11 @@ SEDOV_DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 # first: "rad_div_kernel" also contains "div_kernel"; K2e is the lean
 # kernel with the register seed, counted under K2c)
 KERNEL_OF = (
-    ("mhd_axis_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
+    ("mhd_tile_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
     ("rad_transport_axis_kernel", "K4 transport"),
     ("rad_stage1_kernel", "K4 stage 1"), ("rad_stage2_kernel", "K4 stage 2"),
     ("rad_source_kernel", "K5"), ("rad_div_kernel", "K6"),
-    ("transverse_kernel", "K1"), ("lean_kernel", "K2c"), ("face_tile_kernel", "K2 faces"),
+    ("transverse_kernel", "K1"), ("lean_tile_kernel", "K2c"), ("face_tile_kernel", "K2 faces"),
     ("fo_face_kernel", "K2 faces"),
     ("div_kernel", "K2 divergence"), ("apply_kernel", "K3"),
     ("row_gather_kernel", "K9"),

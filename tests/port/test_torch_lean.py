@@ -380,7 +380,7 @@ def test_lean_step_profiler_regions(monkeypatch):
         assert set(advance.LEAN_STAGES) <= set(prof._acc)
     finally:
         prof.reset(enabled=False)
-    assert step_profile.kernel_of("void qk::lean_kernel<2>(float const*)") == "K2c"
+    assert step_profile.kernel_of("void qk::lean_tile_kernel<2>(float const*)") == "K2c"
 
 
 def test_compare_holds_nonfinite_values_exactly():

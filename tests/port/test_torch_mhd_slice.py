@@ -160,7 +160,7 @@ def test_bench_mhd_and_profile_parts():
     assert sim.istep == 3 + step_profile.MHD_WINDOW and not torch.equal(sim.U, U3)
     restore()
     assert sim.istep == 3 and torch.equal(sim.U, U3)
-    assert step_profile.kernel_of("void qk::mhd_axis_kernel<1>(float const*)") == "K8"
+    assert step_profile.kernel_of("void qk::mhd_tile_kernel<1>(float const*)") == "K8"
 
 
 def test_mhd_options_round_trip():
