@@ -32,9 +32,15 @@ the plain versions of K4-K7, as the JAX package takes XLA) against the
 CPU, with no kernel launched, and the packed engine at 32^3 + 1 and + 2
 pool levels.
 
-Phase 3 also holds K2c/K2e's and K8's shared-memory tiles at their edge
-shapes (extents 4 and 5, ragged tiles, walls and periodic axes, every lean
-variant; orders 1-3 and the floors for K8), and K1 and K2's tiled face
+Phase 3 also holds K2c/K2e's, K2's sweeps' (stage 1, first order, stage
+2, K2d: one tile kernel, `sweep_tile_kernel`) and K8's shared-memory tiles
+at their edge shapes (extents 4 and 5, ragged tiles, walls and periodic
+axes, every lean variant; orders 1-3 and the floors for K8), K6 per axis
+and accumulated over three axes (as `rad_transport_div` launches it: x
+into a fresh output, y and z added on; timed at RadhydroBench 256^3, and
+at K4's edge shapes), checks that the built library holds no
+one-thread-a-cell divergence kernel (`div_kernel`, `rad_div_kernel`), and
+holds K1 and K2's tiled face
 kernel over the main path's
 chunk of 512 level-1 hydro blocks (36^3; timed) and the face kernel at
 its edge shapes to their plain versions, K1 bit for bit everywhere (at
@@ -361,9 +367,21 @@ def main() -> int:
     _cuda.library()
     print(f"built {_cuda.build_info['path']} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc, one process per source, {_cuda.build_info['seconds']:.1f} s)")
+    entries = []
     for line in _cuda.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+        if "Compiling entry" in line:
+            entries.append(line)
+    # K2's sweeps with a divergence and K6 run as tiles; the one-thread-a-
+    # cell divergence kernels they replaced (`div_kernel`, `rad_div_kernel`)
+    # are gone from the library
+    stale = [e for e in entries if "div_kernel" in e]
+    missing = [k for k in ("sweep_tile_kernel", "rad_div_tile_kernel", "lean_tile_kernel")
+               if not any(k in e for e in entries)]
+    if stale or missing:
+        raise SystemExit(f"library entries: stale {stale}, missing {missing}")
+    print(f"  {len(entries)} kernel entries compiled; no div_kernel or rad_div_kernel")
 
     def new_summary():
         return {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -433,6 +451,12 @@ def main() -> int:
         run_cases(title, kernel_check.cases(U, U2, opts_in, bc, dt_in), lambda c, t=timed: (
             t and "first order" not in c.label and "avg" not in c.label),
             summary, failed, k3_counts_k1_bits)
+    # K2's sweeps with a divergence at their tile's edge shapes: extents 4
+    # and 5, ragged tiles along and across, walls and periodic axes, stage 1
+    # (faces and divergences), first order, stage 2 and K2d
+    run_cases("K2 sweep edge shapes (extents 4 and 5, ragged tiles, walls; stage 1, "
+              "first order, stage 2, K2d)", kernel_check.sweep_edge_cases(opts, "cuda"),
+              lambda c: False, summary, failed, ulps)
     # K2c's stage-2 redo at or below 272 cells an axis: the sweep of U1
     # blended with U0's first-order fluxes and added onto the totals, on the
     # walls and on a periodic x axis
@@ -506,11 +530,26 @@ def main() -> int:
         ("rough radhydro state, T-dependent power-law opacities", rough_rad_state(n),
          RoughOpacity()),
     ]
+    k6_aside = new_summary()  # K6's three axes accumulated, beside its per-axis row
     for title, U, prob in rad_inputs:
         timed = title.startswith("RadhydroBench")
-        run_cases(title, kernel_check.rad_cases(U, None, dt_rad, rad.opts, rwarm.eos,
-                                                prob, rwarm.grid.dx),
+        rcases = list(kernel_check.rad_cases(U, None, dt_rad, rad.opts, rwarm.eos, prob,
+                                             rwarm.grid.dx))
+        run_cases(title, [c for c in rcases if "accumulated" not in c.label],
                   lambda c, t=timed: t, summary, failed)
+        run_cases(f"{title}: K6 as rad_transport_div launches it (x fresh, y and z "
+                  "added on)", [c for c in rcases if "accumulated" in c.label],
+                  lambda c, t=timed: t, k6_aside, failed)
+        del rcases
+    a = k6_aside["rad_div"]
+    summary["rad_div"]["max_abs_err"] = max(summary["rad_div"]["max_abs_err"],
+                                            a["max_abs_err"])
+    print(f"  K6 3 axes accumulated on RadhydroBench 256^3: kernel {a['ms']:.3f} ms, plain "
+          f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.3f} ms ({a['bytes'] / 1e9:.3f} GB)"
+          ", library none")
+    run_cases("K6 edge shapes (extents 4 and 5, ragged tiles, orders 1-3; per axis and "
+              "accumulated)", kernel_check.k6_edge_cases(rad.opts, "cuda"), lambda c: False,
+              summary, failed)
     # K4 at small periodic extents: 4^3 and 5^3 (the halo wraps around its
     # transport's tile) and ragged tiles, PPM (and PLM, donor cell on one shape),
     # both opacity kinds

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time kernels K1, K4, K5, K2's face kernel, K2c, K2e, K7, K8 and K9 of one
-tree of quokka_tpu_torch on the card, at the main paths' shapes, so that two
-trees (a parent and a change) can be compared in one call on one card, in
-turns (parent, change, change, parent), each turn a process of its own:
+"""Time kernels K1, K4, K5, K2's face kernel, K2's sweeps with a divergence,
+K2c, K2e, K2d, K6, K7, K8 and K9 of one tree of quokka_tpu_torch on the card,
+at the main paths' shapes, so that two trees (a parent and a change) can be
+compared in one call on one card, in turns (parent, change, change, parent),
+each turn a process of its own:
 
     python3 kernel_times.py [--tree DIR] [--check]
-                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8]
+                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8,k2s,k2d,k6]
                             [--shell FILE] [--tiles]
     python3 kernel_times.py --capture FILE
     python3 kernel_times.py --histogram --shell FILE
@@ -73,6 +74,15 @@ Kernels and inputs, made on the card from fixed seeds where not captured:
   the plain version;
 - K8 (`compute_mhd_axis`; `--only k8`): Orszag-Tang 256^3 after 3 steps,
   each axis, PLM (its deck) and PPM; --check against the plain version.
+- K2's sweeps with a divergence (`compute_axis_flux` with dx_axis; `--only
+  k2s`): seeded states at 256^3 with reflecting walls, stage 1 (faces and
+  divergences) and stage 2 (a second state averaged with the first's
+  stage-1 faces), per axis and for 3 axes; `--only k2d`: stage 1 and K2d
+  the same way at the dense shell's padded 520^3 (periodic);
+- K6 (`--only k6`): RadhydroBench 256^3 after 2 steps, per axis
+  (`compute_rad_div`) and the three axes as `radiation.system.
+  rad_transport_div` computes them (a parent: three outputs and two
+  PyTorch adds).
 
 --dump FILE saves the face kernel's outputs (PPM and first order, every
 axis, with and without viscosity and reconstruct_eint) on seeded blocks at
@@ -85,15 +95,21 @@ ragged tiles, walls, periodic and mixed axes; with and without viscosity
 and reconstruct_eint), K2c at 512^3 (walls and x periodic) and at 256^3
 with fo_from, K2e's two seeded stages at 256^3, and K8's (orders 1-3,
 floors off and on) on rough states at the same extents and on Orszag-Tang
-256^3, large outputs as SHA-256 digests of their bits; --compare A B says
-whether two trees' dumps are the same bits.
+256^3, large outputs as SHA-256 digests of their bits; with `--only
+k2s,k2d,k6` K2's sweeps (stage 1, first order, stage 2, K2d; with and
+without viscosity and reconstruct_eint) at LEAN_DUMP_SHAPES, stage 1 and 2
+at 256^3 and stage 1 and K2d at 520^3, and K6 per axis and through
+`rad_transport_div` at K4_DUMP_SHAPES (orders 1-3) and on RadhydroBench
+256^3; --compare A B says whether two trees' dumps are the same bits.
 
 --tiles times the face kernel at the three shapes with each tile of
 `TILE_VARIANTS` (faces along the axis x lines across), where the tree's
 `hydro.sweep._face_tile` chooses them; with `--only k1`, K1 at its three
 shapes with each of K1_MARCH_VARIANTS planes a block; with `--only
 k2c,k8`, K2c's clean 512^3 stage and K8's three PLM axes with each tile
-bound of LEAN_TILE_VARIANTS and K8_TILE_VARIANTS.
+bound of LEAN_TILE_VARIANTS and K8_TILE_VARIANTS; with `--only k2s`, K2's
+sweeps per axis (stage 1 and 2 at 256^3 with walls, stage 1 and K2d at
+520^3) with each x and y sweep tile bound of SWEEP_TILE_VARIANTS.
 
 --histogram counts the Newton residual evaluations of every cell with the
 plain version (`counts["cell_resid"]`; the kernel runs the same
@@ -519,6 +535,8 @@ def dump_faces(torch, path, only=("k2",)):
         dump_k1_k4(torch, out)
     if only & {"k2c", "k2e", "k8"}:
         dump_lean_mhd(torch, out, only)
+    if only & {"k2s", "k2d", "k6"}:
+        dump_sweeps_k6(torch, out, only)
     for i, (nb, shape, walls) in enumerate(DUMP_SHAPES if "k2" in only else ()):
         shape = (shape,) * 3 if isinstance(shape, int) else shape
         U5 = hydro_blocks(torch, nb, shape, 60 + i)
@@ -796,6 +814,9 @@ def time_k9(torch, args, times, checks):
 # ------------------------------------------------- K2c, K2e and K8 (lean, MHD)
 # (cells along at most, faces a tile at most) tried by --tiles --only k2c
 LEAN_TILE_VARIANTS = ((40, 512), (31, 512), (15, 512), (32, 256), (64, 256))
+# (cells along at most, lines across at most) of the x and y sweeps' tile
+# tried by --tiles --only k2s (each within four blocks a multiprocessor)
+SWEEP_TILE_VARIANTS = ((30, 16), (24, 16), (20, 16), (13, 32), (40, 12), (37, 13))
 # (lines across at most, faces a tile at most) tried by --tiles --only k8
 K8_TILE_VARIANTS = ((16, 512), (8, 512), (32, 512), (16, 256), (16, 1024))
 
@@ -851,6 +872,45 @@ def time_tile_variants(torch, only, times):
                 print(f"  {key}: {times[key]:.3f} ms", flush=True)
         finally:
             msweep.K8_LINES, msweep.K8_FACES = chosen
+    if "k2s" in only:
+        # K2's sweeps with a divergence, per axis: stage 1 and 2 at 256^3 with
+        # walls, K2d at the padded 520^3; the x and y sweeps' tile bound
+        # (`sweep.SWEEP_ALONG`, `SWEEP_LINES`) of each of SWEEP_TILE_VARIANTS
+        wall = (BC_REFLECT, BC_REFLECT)
+        chosen = (sweep.SWEEP_ALONG, sweep.SWEEP_LINES)
+        for tag, shape, bc in (("256^3 walls", (256,) * 3, {0: wall, 1: wall, 2: wall}),
+                               ("520^3 padded", (520,) * 3, {0: None, 1: None, 2: None})):
+            U, opts, dmins, chi = lean_setup(torch, shape, 61, bc)
+            U1, _, dm1, chi1 = lean_setup(torch, shape, 62, bc)
+            kw = [dict(bc_axis=bc[d], dx_axis=opts.dx[d], state_is_cons=True)
+                  for d in range(3)]
+            names = ("K2 stage 1", "K2d" if bc[0] is None else "K2 stage 2")
+            try:
+                for along, lines in (chosen,) + SWEEP_TILE_VARIANTS:
+                    sweep.SWEEP_ALONG, sweep.SWEEP_LINES = along, lines
+                    tiles = [sweep.sweep_tile(shape[d], shape[1 if d == 2 else 2], d)
+                             for d in range(3)]
+                    for d in range(3):
+                        faces = sweep.compute_axis_flux(U, d, opts, chi, dmins, **kw[d])[:-2]
+                        runs = ((names[0], lambda d=d: sweep.compute_axis_flux(
+                                    U, d, opts, chi, dmins, **kw[d])),
+                                (names[1], lambda d=d, f=faces: sweep.compute_axis_flux(
+                                    U1, d, opts, chi1, dm1, avg_with=f,
+                                    emit_avg_flux=bc[d] is None, **kw[d])))
+                        for name, fn in runs:
+                            times[f"{name} {tag} axis {d} tile {tiles[d]}"] = \
+                                kernel_check.time_ms(fn)
+                        del faces, runs
+                    print(f"  {tag} tiles {tiles}: " + "; ".join(
+                        f"{name} " + " / ".join(
+                            f"{times[f'{name} {tag} axis {d} tile {tiles[d]}']:.3f}"
+                            for d in range(3)) for name in names), flush=True)
+            finally:
+                sweep.SWEEP_ALONG, sweep.SWEEP_LINES = chosen
+            del U, U1, dmins, dm1, chi, chi1
+            torch.cuda.empty_cache()
+
+
 def flag_mask(torch, shape, seed, frac=0.01):
     """A seeded 0/1 f32 FOFC mask on the card flagging `frac` of the cells,
     every axis's first and last cell on a line of each, and the cells of
@@ -983,6 +1043,184 @@ def time_lean(torch, args, times, checks, errors):
               flush=True)
     del U0, U1, dmins0, dmins1, chi0, chi1, cm, mask
     torch.cuda.empty_cache()
+
+
+def time_sweeps(torch, args, times, checks, errors):
+    """K2's sweeps with a divergence (`compute_axis_flux` with dx_axis) on
+    seeded states, K1's fields from the tree's own K1: with `k2s`, at 256^3
+    with reflecting walls (Sedov's shape), stage 1 (faces and divergences)
+    and stage 2 (a second state averaged with the first's stage-1 faces
+    from the tree's own sweep); with `k2d`, at the dense shell's padded
+    520^3 (periodic), stage 1 and K2d the same way. Each per axis and for
+    three axes. With --check each against its plain version (520^3 in 8
+    slabs along another axis)."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    wall = (BC_REFLECT, BC_REFLECT)
+    runs = []
+    if "k2s" in args.only_set:
+        runs.append(("256^3 walls", (256,) * 3, {0: wall, 1: wall, 2: wall}, False))
+    if "k2d" in args.only_set:
+        runs.append(("520^3 padded", (520,) * 3, {0: None, 1: None, 2: None}, True))
+    for tag, shape, bc, k2d in runs:
+        U0, opts, dm0, chi0 = lean_setup(torch, shape, 61, bc)
+        U1, _, dm1, chi1 = lean_setup(torch, shape, 62, bc)
+        nslab = 8 if shape[0] > 300 else 1
+        names = ("K2 stage 1", "K2d" if k2d else "K2 stage 2")
+        for d in range(3):
+            s1 = dict(bc_axis=bc[d], dx_axis=opts.dx[d], state_is_cons=True)
+            faces = sweep.compute_axis_flux(U0, d, opts, chi0, dm0, **s1)[:-2]
+            s2 = dict(s1, avg_with=faces, emit_avg_flux=k2d)
+            for name, U, dm, c, kw in ((names[0], U0, dm0, chi0, s1),
+                                       (names[1], U1, dm1, chi1, s2)):
+                def launch(U=U, d=d, c=c, dm=dm, kw=kw):
+                    return sweep.compute_axis_flux(U, d, opts, c, dm, **kw)
+
+                key = f"{name} {tag} axis {d}"
+                times[key] = kernel_check.time_ms(launch)
+                if args.check:
+                    def plain(Us, cs, dms, avg, d=d, kw=kw):
+                        return sweep.axis_flux_plain(Us, d, opts, cs, dms,
+                                                     **dict(kw, avg_with=avg))
+
+                    ref = kernel_check._slabbed(plain, (U, c, dm, kw.get("avg_with")),
+                                                (d + 1) % 3, nslab)
+                    checks[key], errors[key], _ = kernel_check.compare(launch(), ref)
+                    del ref
+                print(f"  {key}: {times[key]:.3f} ms"
+                      + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check
+                         else ""), flush=True)
+            del faces
+        for name in names:
+            key = f"{name} {tag} 3 axes"
+            times[key] = sum(times[f"{name} {tag} axis {d}"] for d in range(3))
+            print(f"  {key}: {times[key]:.3f} ms", flush=True)
+        del U0, U1, dm0, dm1, chi0, chi1
+        torch.cuda.empty_cache()
+
+
+def time_k6(torch, args, times, checks, errors):
+    """K6 on RadhydroBench 256^3 after 2 steps: per axis into a fresh
+    output (`compute_rad_div`), and the three axes as
+    `radiation.system.rad_transport_div` computes them (a tree with K6's
+    accumulator: x into a fresh output, y and z added on in place; a parent:
+    three outputs and two PyTorch adds). With --check against the plain
+    versions (the sum ((x + y) + z) of the per-axis plain divergences)."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.radiation import sweep as rsweep
+    from quokka_tpu_torch.radiation import system
+
+    U, _, sim = radbench_state(torch)
+    opts, dx = sim._radiation.opts, sim.grid.dx
+    R0 = U[6:]
+    plain = [rsweep.rad_div_plain(R0, d, opts, dx[d]) for d in range(3)]
+    for d in range(3):
+        key = f"K6 RadhydroBench 256^3 axis {d}"
+        times[key] = kernel_check.time_ms(
+            lambda d=d: rsweep.compute_rad_div(R0, d, opts, dx[d]))
+        if args.check:
+            checks[key], errors[key], _ = kernel_check.compare(
+                rsweep.compute_rad_div(R0, d, opts, dx[d]), plain[d])
+        print(f"  {key}: {times[key]:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+              flush=True)
+    key = "K6 RadhydroBench 256^3 3 axes"
+    times[key] = sum(times[f"K6 RadhydroBench 256^3 axis {d}"] for d in range(3))
+    print(f"  {key}: {times[key]:.3f} ms", flush=True)
+    key = "K6 RadhydroBench 256^3 rad_transport_div"
+    times[key] = kernel_check.time_ms(
+        lambda: system.rad_transport_div(U, 6, opts, (0, 1, 2), dx))
+    if args.check:
+        checks[key], errors[key], _ = kernel_check.compare(
+            system.rad_transport_div(U, 6, opts, (0, 1, 2), dx),
+            (plain[0] + plain[1]) + plain[2])
+    print(f"  {key}: {times[key]:.3f} ms"
+          + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+          flush=True)
+    del U, R0, sim, plain
+    torch.cuda.empty_cache()
+
+
+def dump_sweeps_k6(torch, out, only):
+    """Add to `out`, with `k2s` or `k2d` in `only`, K2's sweeps with a
+    divergence on seeded states at LEAN_DUMP_SHAPES (with and without
+    viscosity and reconstruct_eint): stage 1, first order, stage 2 and, on
+    periodic axes, K2d, stage 2's and K2d's stage-1 faces from the plain
+    stage-1 sweep (the same input in every tree); with `k2s` stage 1 and 2
+    at 256^3 with walls, with `k2d` stage 1 and K2d at 520^3 (stage-1 faces
+    from the tree's own sweep; digests); with `k6` K6 per axis and the
+    three axes of `rad_transport_div` on rough states at K4_DUMP_SHAPES
+    (orders 1-3) and on RadhydroBench 256^3 after 2 steps."""
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.radiation import sweep as rsweep
+    from quokka_tpu_torch.radiation import system
+    from quokka_tpu_torch.radiation.system import RadOptions
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    wall = (BC_REFLECT, BC_REFLECT)
+    kinds = {"walls": {0: wall, 1: wall, 2: wall}, "periodic": {0: None, 1: None, 2: None},
+             "periodic x": {0: None, 1: wall, 2: wall}}
+    if only & {"k2s", "k2d"}:
+        for i, (shape, kind) in enumerate(LEAN_DUMP_SHAPES):
+            bc = kinds[kind]
+            U0, opts, dm0, chi0 = lean_setup(torch, shape, 200 + i, bc)
+            U1, _, dm1, chi1 = lean_setup(torch, shape, 220 + i, bc)
+            for extra in ({}, {"K_visc": 0.1, "reconstruct_eint": True}):
+                o = dataclasses.replace(opts, **extra)
+                for d in range(3):
+                    s1 = dict(bc_axis=bc[d], dx_axis=o.dx[d], state_is_cons=True)
+                    faces = sweep.axis_flux_plain(U0, d, o, chi0, dm0, **s1)[:-2]
+                    variants = {"stage 1": (U0, dm0, chi0, s1),
+                                "first order": (U0, {}, None, dict(s1, first_order=True)),
+                                "stage 2": (U1, dm1, chi1, dict(s1, avg_with=faces))}
+                    if bc[d] is None:
+                        variants["K2d"] = (U1, dm1, chi1, dict(s1, avg_with=faces,
+                                                               emit_avg_flux=True))
+                    for v, (U, dm, c, kw) in variants.items():
+                        res = sweep.compute_axis_flux(U, d, o, c, dm, **kw)
+                        out[f"sweep {shape} {kind} {extra or ''} {v} axis {d}"] = [
+                            _digest(r) for r in res]
+            del U0, U1, dm0, dm1, chi0, chi1
+        big = []
+        if "k2s" in only:
+            big.append(("256^3 walls", (256,) * 3, kinds["walls"], False))
+        if "k2d" in only:
+            big.append(("520^3 padded", (520,) * 3, kinds["periodic"], True))
+        for tag, shape, bc, k2d in big:
+            U0, opts, dm0, chi0 = lean_setup(torch, shape, 61, bc)
+            U1, _, dm1, chi1 = lean_setup(torch, shape, 62, bc)
+            for d in range(3):
+                s1 = dict(bc_axis=bc[d], dx_axis=opts.dx[d], state_is_cons=True)
+                res = sweep.compute_axis_flux(U0, d, opts, chi0, dm0, **s1)
+                out[f"K2 stage 1 {tag} axis {d}"] = [_digest(r) for r in res]
+                faces = res[:-2]
+                del res
+                res = sweep.compute_axis_flux(U1, d, opts, chi1, dm1, avg_with=faces,
+                                              emit_avg_flux=k2d, **s1)
+                out[f"{'K2d' if k2d else 'K2 stage 2'} {tag} axis {d}"] = [
+                    _digest(r) for r in res]
+                del res, faces
+            del U0, U1, dm0, dm1, chi0, chi1
+            torch.cuda.empty_cache()
+    if "k6" in only:
+        for i, shape in enumerate(K4_DUMP_SHAPES):
+            U = rough_rad(torch, shape, 240 + i)
+            dx = tuple(1.0 / n for n in shape)
+            for order in (1, 2, 3):
+                opts = RadOptions(c=1.0e3, chat=1.0e2, arad=1.0, erad_floor=1e-10,
+                                  reconstruction_order=order)
+                out[f"K6 {shape} order {order}"] = [
+                    rsweep.compute_rad_div(U[6:], d, opts, dx[d]).cpu() for d in range(3)] + [
+                    system.rad_transport_div(U, 6, opts, (0, 1, 2), dx).cpu()]
+        U, _, sim = radbench_state(torch)
+        opts, dx = sim._radiation.opts, sim.grid.dx
+        out["K6 RadhydroBench 256^3"] = [
+            _digest(rsweep.compute_rad_div(U[6:], d, opts, dx[d])) for d in range(3)] + [
+            _digest(system.rad_transport_div(U, 6, opts, (0, 1, 2), dx))]
+        del U, sim
+        torch.cuda.empty_cache()
 
 
 def mhd_state(torch, nsteps=3):
@@ -1305,7 +1543,8 @@ def main():
                                                                                    shell)}))
         return 0
     names = ("rad_source", "face_tile_kernel", "face_kernel", "rad_stage", "rad_axis_flux",
-             "row_gather", "transverse", "rad_transport", "lean_", "mhd_")
+             "row_gather", "transverse", "rad_transport", "lean_", "mhd_", "sweep_tile",
+             "div_kernel", "rad_div")
     for line in _cuda.build_info["log"].splitlines():
         if any(k in line for k in names) or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -1317,7 +1556,7 @@ def main():
 
         if "k1" in only:
             time_k1_tiles(torch, times)
-        elif only & {"k2c", "k8"}:
+        elif only & {"k2c", "k8", "k2s"}:
             time_tile_variants(torch, only, times)
         elif not hasattr(sweep, "_face_tile"):
             print("error: this tree's face kernel takes no tile", file=sys.stderr)
@@ -1341,6 +1580,10 @@ def main():
         time_lean(torch, args, times, checks, errors)
     if "k8" in only:
         time_k8(torch, args, times, checks, errors)
+    if only & {"k2s", "k2d"}:
+        time_sweeps(torch, args, times, checks, errors)
+    if "k6" in only:
+        time_k6(torch, args, times, checks, errors)
     print(json.dumps({"tree": str(tree), "device": smi, "times": times, "checks": checks,
                       "errors": errors}))
     if args.check and not all(checks.values()):

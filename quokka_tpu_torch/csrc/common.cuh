@@ -1,8 +1,8 @@
 // Shared device helpers for the hydro kernels (K1 transverse.cu, K2 sweep.cu,
-// K3 apply.cu); the radiation kernels (K4-K6, rad_common.cuh) take the index
-// map, the NaN-propagating min/max, PPM and the 7-cell line faces
-// (`line_faces`) from here, the MHD sweep (K8, mhd_sweep.cu) the min/max,
-// PPM, minmod and, with K2, the shared-memory tile index (`tix`, `tpos`).
+// K3 apply.cu); the radiation kernels (K4-K7, rad_common.cuh) take the index
+// map, the NaN-propagating min/max, PPM and minmod from here, the MHD sweep
+// (K8, mhd_sweep.cu) the min/max, PPM, minmod and, with K2, the
+// shared-memory tile index (`tix`, `tpos`).
 //
 // Layout: the state is [6, X, Y, Z] f32, contiguous, z fastest, exactly as
 // the JAX package keeps it. All offsets are 64-bit: 6 x 1024^3 elements
@@ -87,36 +87,6 @@ __device__ __forceinline__ void ppm_cell(float qm2, float qm1, float q0,
 
 __device__ __forceinline__ float minmod(float a, float b) {
   return (0.5f * (sgn(a) + sgn(b))) * mn(fabsf(a), fabsf(b));
-}
-
-// Face states of one primitive component from its 7-cell line w[0..6]
-// (cells i-3 .. i+3): the lo face (between i-1 and i) gets (qL_lo, qR_lo),
-// the hi face (between i and i+1) gets (qL_hi, qR_hi)
-// (reconstruct.reconstruct_faces: qL(f) from cell f-1, qR(f) from cell f).
-__device__ __forceinline__ void line_faces(const float w[7], int order,
-                                           float& qL_lo, float& qR_lo,
-                                           float& qL_hi, float& qR_hi) {
-  if (order == 3) {
-    float m_unused, p_unused, minus_i, plus_i;
-    ppm_cell(w[0], w[1], w[2], w[3], w[4], m_unused, qL_lo);
-    ppm_cell(w[1], w[2], w[3], w[4], w[5], minus_i, plus_i);
-    ppm_cell(w[2], w[3], w[4], w[5], w[6], qR_hi, p_unused);
-    qR_lo = minus_i;
-    qL_hi = plus_i;
-  } else if (order == 2) {
-    const float s_m1 = minmod(w[3] - w[2], w[2] - w[1]);
-    const float s_0 = minmod(w[4] - w[3], w[3] - w[2]);
-    const float s_p1 = minmod(w[5] - w[4], w[4] - w[3]);
-    qL_lo = w[2] + 0.5f * s_m1;
-    qR_lo = w[3] - 0.5f * s_0;
-    qL_hi = w[3] + 0.5f * s_0;
-    qR_hi = w[4] - 0.5f * s_p1;
-  } else {
-    qL_lo = w[2];
-    qR_lo = w[3];
-    qL_hi = w[3];
-    qR_hi = w[4];
-  }
 }
 
 // Cell index along a sweep axis of length n, through the wall map:

@@ -24,7 +24,7 @@
 // instead, staged at the ta + 1 faces), each loaded once through the
 // periodic index map with neighbouring threads on neighbouring addresses;
 // 2. forms both face states (minus, plus) of each of the ta + 2 cells the
-// faces touch once per component (`line_faces` split cell-wise, as K7);
+// faces touch once per component (PPM, PLM or donor cell, as K7);
 // 3. solves HLLD once at each of the ta + 1 faces, qL = plus(f-1), qR =
 // minus(f), with the floors on both states, into shared memory over the
 // staged primitives (only the tile's hi face is solved again, by the next

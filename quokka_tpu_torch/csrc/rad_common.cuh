@@ -1,8 +1,8 @@
 // Shared device functions of the radiation kernels K4 (rad_substep.cu), K5
 // (rad_source.cu), K6 (rad_sweep.cu) and K7 (rad_axis_flux.cu): the M1 closure and Eddington
-// tensor, the per-face HLL flux with its donor-cell fallback, the face
-// states of the four (E, f) primitives, the per-axis transport divergence,
-// amendRadState, and the per-cell implicit matter coupling.
+// tensor, the per-face HLL flux with its donor-cell fallback, the tiled
+// per-axis transport divergence (K4's passes and K6), amendRadState, and
+// the per-cell implicit matter coupling.
 //
 // Layout: the state is [10, X, Y, Z] f32 (6 gas + E, Fx, Fy, Fz of one
 // photon group), contiguous, z fastest, as the JAX package keeps it; a
@@ -148,59 +148,175 @@ __device__ __forceinline__ void hll_face(const float qL[4], const float qR[4],
     out[k] = (wL * FL[k] + wR * FR[k]) - wD * (UR[k] - UL[k]);
 }
 
-// Contribution of `axis` to the transport divergence of cell `idx` (at
-// coordinates co): (F(lo face) - F(hi face)) * inv_dx, from the radiation
-// block R [4, X, Y, Z] (the kernels' compute_rad_div_pallas body).
-template <int axis>
-__device__ __forceinline__ void rad_div_axis(const float* __restrict__ R,
-                                             int64_t ncell, int64_t idx,
-                                             const int64_t co[3],
-                                             const int64_t dims[3],
-                                             const RadParams& p, float div[4]) {
-  const int64_t n = dims[axis];
-  const int64_t stride = axis == 0 ? dims[1] * dims[2] : (axis == 1 ? dims[2] : 1);
-  const int64_t base = idx - co[axis] * stride;
-  float cons[7][4], prim[7][4];
-#pragma unroll
-  for (int o = 0; o < 7; ++o) {
-    bool flip;
-    const int64_t off =
-        base + map_cell(co[axis] - 3 + o, n, BC_PERIODIC, BC_PERIODIC, flip) * stride;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cons[o][k] = R[k * ncell + off];
-    const float cE = p.c * cons[o][0];
-    prim[o][0] = cons[o][0];
-#pragma unroll
-    for (int k = 1; k < 4; ++k) prim[o][k] = cons[o][k] / cE;
-  }
-  float qL_lo[4], qR_lo[4], qL_hi[4], qR_hi[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float w[7] = {prim[0][k], prim[1][k], prim[2][k], prim[3][k],
-                        prim[4][k], prim[5][k], prim[6][k]};
-    line_faces(w, p.recon_order, qL_lo[k], qR_lo[k], qL_hi[k], qR_hi[k]);
-  }
-  float F_lo[4], F_hi[4];
-  hll_face<axis>(qL_lo, qR_lo, cons[2], cons[3], p, F_lo);
-  hll_face<axis>(qL_hi, qR_hi, cons[3], cons[4], p, F_hi);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) div[k] = (F_lo[k] - F_hi[k]) * p.inv_dx[axis];
+// The transport divergence along one axis (K4's three passes a stage, K6's
+// launch an axis): a tile of TR_TA cells along the axis by TR_TW lines
+// across it a block (the lines run along z, the contiguous axis, for the x
+// and y sweeps and along y for the z sweep; the third coordinate is fixed),
+// in four phases separated by __syncthreads:
+//   1. stage cells -3 .. TR_TA + 2 (the periodic wrap resolved once a cell
+//      staged): the 4 conserved values and the primitives, f = F / (c E);
+//   2. the face states (minus, plus) of cells -1 .. TR_TA, once a cell;
+//   3. the HLL flux of faces 0 .. TR_TA (face f between cells f - 1 and f)
+//      from qL = plus(f - 1), qR = minus(f), in the primitives' place;
+//   4. each cell's (F(lo) - F(hi)) * inv_dx, written to div (`first`) or
+//      added onto it (the JAX order of the axes' sum: ((x + y) + z)).
+// The formulas and their order are those of the one-thread-a-cell kernel
+// the tile replaced (which solved each face twice and reconstructed each
+// cell three times an axis), so the outputs are its bits.
+constexpr int TR_THREADS = 256;
+constexpr int TR_TA = 32;         // cells along the axis a block
+constexpr int TR_TW = 16;         // lines across it
+constexpr int TR_SA = TR_TA + 6;  // staged cells along the axis
+constexpr int TR_RA = TR_TA + 2;  // reconstructed cells
+constexpr int TR_FA = TR_TA + 1;  // faces
+
+// Shared-memory index of (along j, across i) in a [n_along][TR_TW] tile:
+// the contiguous global axis is the fastest one in shared memory too.
+template <int axis, int n_along>
+__device__ __forceinline__ int pidx(int j, int i) {
+  return axis == 2 ? i * n_along + j : j * TR_TW + i;
 }
 
-// Sum of the three axes' contributions in the JAX order ((x + y) + z).
-__device__ __forceinline__ void rad_div_3d(const float* __restrict__ R,
-                                           int64_t ncell, int64_t idx,
-                                           const int64_t co[3],
-                                           const int64_t dims[3],
-                                           const RadParams& p, float div[4]) {
-  float d1[4], d2[4];
-  rad_div_axis<0>(R, ncell, idx, co, dims, p, div);
-  rad_div_axis<1>(R, ncell, idx, co, dims, p, d1);
+template <int axis, int n_along>
+__device__ __forceinline__ void ppos(int e, int& j, int& i) {
+  if (axis == 2) {
+    j = e % n_along;
+    i = e / n_along;
+  } else {
+    j = e / TR_TW;
+    i = e % TR_TW;
+  }
+}
+
+// Blocks of one axis's transport pass over X x Y x Z.
+inline long long transport_tiles(int axis, long long X, long long Y, long long Z) {
+  const long long n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const long long n_across = axis == 2 ? Y : Z;
+  const long long fixed = axis == 0 ? Y : X;
+  return (n + TR_TA - 1) / TR_TA * ((n_across + TR_TW - 1) / TR_TW) * fixed;
+}
+
+// One block of the transport pass along `axis` of the radiation block R
+// [4, X, Y, Z] into div [4, X, Y, Z] (see above).
+template <int axis>
+__device__ __forceinline__ void transport_axis_tile(const float* __restrict__ R,
+                                                    float* __restrict__ div, int X, int Y,
+                                                    int Z, int first, const RadParams& p) {
+  __shared__ float cons_s[4][TR_SA * TR_TW];
+  __shared__ float pf_s[4][TR_SA * TR_TW];  // primitives, then the face fluxes
+  __shared__ float minus_s[4][TR_RA * TR_TW];
+  __shared__ float plus_s[4][TR_RA * TR_TW];
+
+  const int64_t ncell = (int64_t)X * Y * Z;
+  const int n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const int n_across = axis == 2 ? Y : Z;
+  const int64_t stride_a = axis == 0 ? (int64_t)Y * Z : (axis == 1 ? Z : 1);
+  const int64_t stride_c = axis == 2 ? Z : 1;
+  const int64_t stride_f = axis == 0 ? Z : (int64_t)Y * Z;
+  const int tiles_a = (n + TR_TA - 1) / TR_TA;
+  const int tiles_c = (n_across + TR_TW - 1) / TR_TW;
+  int t = blockIdx.x;
+  const int ta = t % tiles_a;
+  t /= tiles_a;
+  const int tc = t % tiles_c;
+  const int fixed = t / tiles_c;
+  const int a0 = ta * TR_TA;
+  const int c0 = tc * TR_TW;
+  const int cells = min(TR_TA, n - a0);
+  const int lines = min(TR_TW, n_across - c0);
+  const int64_t base = fixed * stride_f + c0 * stride_c;
+
+  // 1. stage cells a0-3 .. a0+cells+2
+  for (int e = threadIdx.x; e < TR_SA * TR_TW; e += TR_THREADS) {
+    int j, i;
+    ppos<axis, TR_SA>(e, j, i);
+    if (j >= cells + 6 || i >= lines) continue;
+    int a = a0 - 3 + j;  // |wrap| < n: n >= 4
+    a = a < 0 ? a + n : (a >= n ? a - n : a);
+    const int64_t off = base + a * stride_a + i * stride_c;
+    const int s = pidx<axis, TR_SA>(j, i);
+    float c[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) div[k] = div[k] + d1[k];
-  rad_div_axis<2>(R, ncell, idx, co, dims, p, d2);
+    for (int k = 0; k < 4; ++k) c[k] = R[k * ncell + off];
+    const float cE = p.c * c[0];
+    cons_s[0][s] = c[0];
+    pf_s[0][s] = c[0];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) div[k] = div[k] + d2[k];
+    for (int k = 1; k < 4; ++k) {
+      cons_s[k][s] = c[k];
+      pf_s[k][s] = c[k] / cE;
+    }
+  }
+  __syncthreads();
+
+  // 2. face states of cells a0-1 .. a0+cells (slot r, staged j = r + 2)
+  for (int e = threadIdx.x; e < TR_RA * TR_TW; e += TR_THREADS) {
+    int r, i;
+    ppos<axis, TR_RA>(e, r, i);
+    if (r > cells + 1 || i >= lines) continue;
+    const int o = pidx<axis, TR_RA>(r, i);
+    constexpr int sa = axis == 2 ? 1 : TR_TW;  // staged neighbour along the axis
+    const int s = pidx<axis, TR_SA>(r + 2, i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float* w = pf_s[k] + s;
+      float m, pl;
+      if (p.recon_order == 3) {
+        ppm_cell(w[-2 * sa], w[-sa], w[0], w[sa], w[2 * sa], m, pl);
+      } else if (p.recon_order == 2) {
+        const float slope = minmod(w[sa] - w[0], w[0] - w[-sa]);
+        pl = w[0] + 0.5f * slope;
+        m = w[0] - 0.5f * slope;
+      } else {
+        m = w[0];
+        pl = w[0];
+      }
+      minus_s[k][o] = m;
+      plus_s[k][o] = pl;
+    }
+  }
+  __syncthreads();
+
+  // 3. the HLL flux of faces a0 .. a0+cells; no thread reads the primitives
+  // any more, so the fluxes take their place
+  for (int e = threadIdx.x; e < TR_FA * TR_TW; e += TR_THREADS) {
+    int f, i;
+    ppos<axis, TR_FA>(e, f, i);
+    if (f > cells || i >= lines) continue;
+    // face f lies between reconstructed cells f and f+1 (staged f+2, f+3)
+    const int oL = pidx<axis, TR_RA>(f, i);
+    const int oR = pidx<axis, TR_RA>(f + 1, i);
+    const int sL = pidx<axis, TR_SA>(f + 2, i);
+    const int sR = pidx<axis, TR_SA>(f + 3, i);
+    float qL[4], qR[4], cL[4], cR[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      qL[k] = plus_s[k][oL];
+      qR[k] = minus_s[k][oR];
+      cL[k] = cons_s[k][sL];
+      cR[k] = cons_s[k][sR];
+    }
+    float F[4];
+    hll_face<axis>(qL, qR, cL, cR, p, F);
+    const int o = pidx<axis, TR_FA>(f, i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) pf_s[k][o] = F[k];
+  }
+  __syncthreads();
+
+  // 4. (F(lo) - F(hi)) * inv_dx of cells a0 .. a0+cells-1
+  for (int e = threadIdx.x; e < TR_TA * TR_TW; e += TR_THREADS) {
+    int c, i;
+    ppos<axis, TR_TA>(e, c, i);
+    if (c >= cells || i >= lines) continue;
+    const int64_t off = base + (a0 + c) * stride_a + i * stride_c;
+    const int lo = pidx<axis, TR_FA>(c, i), hi = pidx<axis, TR_FA>(c + 1, i);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float d = (pf_s[k][lo] - pf_s[k][hi]) * p.inv_dx[axis];
+      div[k * ncell + off] = first ? d : div[k * ncell + off] + d;
+    }
+  }
 }
 
 // amendRadState (system.amend_rad_state): E >= floor, |F| <= c E.

@@ -13,7 +13,8 @@
 //            the K5 coupling at stage 2. Writes U2 [10, ...].
 //
 // Design: four launches a stage. Three transport passes, one an axis
-// (rad_transport_axis_kernel), each give a block a tile of 32 cells along
+// (rad_transport_axis_kernel, the tile of rad_common.cuh
+// `transport_axis_tile`, which K6 shares), each give a block a tile of 32 cells along
 // the axis by 16 lines across it: it stages the cells the tile's faces
 // read once in shared memory (the 4 conserved values and the (E, f)
 // primitives, f = F / (c E), formed once a cell; the periodic wrap
@@ -53,162 +54,14 @@
 
 namespace qk {
 
-constexpr int K4_THREADS = 256;
-
-// One axis of the transport divergence, a tile of K4_TA cells along the
-// axis by K4_TW lines across it a block (the lines run along z, the
-// contiguous axis, for the x and y sweeps and along y for the z sweep; the
-// third coordinate is fixed), in four phases separated by __syncthreads:
-//   1. stage cells -3 .. K4_TA + 2 (the periodic wrap resolved once a cell
-//      staged): the 4 conserved values and the primitives, f = F / (c E);
-//   2. the face states (minus, plus) of cells -1 .. K4_TA, once a cell;
-//   3. the HLL flux of faces 0 .. K4_TA (face f between cells f - 1 and f)
-//      from qL = plus(f - 1), qR = minus(f), in the primitives' place;
-//   4. each cell's (F(lo) - F(hi)) * inv_dx, written to div (the first
-//      axis) or added onto it (the JAX order: ((x + y) + z)).
-constexpr int K4_TA = 32;         // cells along the axis a block
-constexpr int K4_TW = 16;         // lines across it
-constexpr int K4_SA = K4_TA + 6;  // staged cells along the axis
-constexpr int K4_RA = K4_TA + 2;  // reconstructed cells
-constexpr int K4_FA = K4_TA + 1;  // faces
-
-// Shared-memory index of (along j, across i) in a [n_along][K4_TW] tile:
-// the contiguous global axis is the fastest one in shared memory too.
-template <int axis, int n_along>
-__device__ __forceinline__ int pidx(int j, int i) {
-  return axis == 2 ? i * n_along + j : j * K4_TW + i;
-}
-
-template <int axis, int n_along>
-__device__ __forceinline__ void ppos(int e, int& j, int& i) {
-  if (axis == 2) {
-    j = e % n_along;
-    i = e / n_along;
-  } else {
-    j = e / K4_TW;
-    i = e % K4_TW;
-  }
-}
-
+// One axis of the transport divergence (rad_common.cuh
+// `transport_axis_tile`): written to div by the x pass (`first`), added
+// onto it by the y and z passes.
 template <int axis>
-__global__ void __launch_bounds__(K4_THREADS) rad_transport_axis_kernel(
+__global__ void __launch_bounds__(TR_THREADS) rad_transport_axis_kernel(
     const float* __restrict__ R, float* __restrict__ div, int X, int Y, int Z, int first,
     RadParams p) {
-  __shared__ float cons_s[4][K4_SA * K4_TW];
-  __shared__ float pf_s[4][K4_SA * K4_TW];  // primitives, then the face fluxes
-  __shared__ float minus_s[4][K4_RA * K4_TW];
-  __shared__ float plus_s[4][K4_RA * K4_TW];
-
-  const int64_t ncell = (int64_t)X * Y * Z;
-  const int n = axis == 0 ? X : (axis == 1 ? Y : Z);
-  const int n_across = axis == 2 ? Y : Z;
-  const int64_t stride_a = axis == 0 ? (int64_t)Y * Z : (axis == 1 ? Z : 1);
-  const int64_t stride_c = axis == 2 ? Z : 1;
-  const int64_t stride_f = axis == 0 ? Z : (int64_t)Y * Z;
-  const int tiles_a = (n + K4_TA - 1) / K4_TA;
-  const int tiles_c = (n_across + K4_TW - 1) / K4_TW;
-  int t = blockIdx.x;
-  const int ta = t % tiles_a;
-  t /= tiles_a;
-  const int tc = t % tiles_c;
-  const int fixed = t / tiles_c;
-  const int a0 = ta * K4_TA;
-  const int c0 = tc * K4_TW;
-  const int cells = min(K4_TA, n - a0);
-  const int lines = min(K4_TW, n_across - c0);
-  const int64_t base = fixed * stride_f + c0 * stride_c;
-
-  // 1. stage cells a0-3 .. a0+cells+2
-  for (int e = threadIdx.x; e < K4_SA * K4_TW; e += K4_THREADS) {
-    int j, i;
-    ppos<axis, K4_SA>(e, j, i);
-    if (j >= cells + 6 || i >= lines) continue;
-    int a = a0 - 3 + j;  // |wrap| < n: n >= 4
-    a = a < 0 ? a + n : (a >= n ? a - n : a);
-    const int64_t off = base + a * stride_a + i * stride_c;
-    const int s = pidx<axis, K4_SA>(j, i);
-    float c[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) c[k] = R[k * ncell + off];
-    const float cE = p.c * c[0];
-    cons_s[0][s] = c[0];
-    pf_s[0][s] = c[0];
-#pragma unroll
-    for (int k = 1; k < 4; ++k) {
-      cons_s[k][s] = c[k];
-      pf_s[k][s] = c[k] / cE;
-    }
-  }
-  __syncthreads();
-
-  // 2. face states of cells a0-1 .. a0+cells (slot r, staged j = r + 2)
-  for (int e = threadIdx.x; e < K4_RA * K4_TW; e += K4_THREADS) {
-    int r, i;
-    ppos<axis, K4_RA>(e, r, i);
-    if (r > cells + 1 || i >= lines) continue;
-    const int o = pidx<axis, K4_RA>(r, i);
-    constexpr int sa = axis == 2 ? 1 : K4_TW;  // staged neighbour along the axis
-    const int s = pidx<axis, K4_SA>(r + 2, i);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float* w = pf_s[k] + s;
-      float m, pl;
-      if (p.recon_order == 3) {
-        ppm_cell(w[-2 * sa], w[-sa], w[0], w[sa], w[2 * sa], m, pl);
-      } else if (p.recon_order == 2) {
-        const float slope = minmod(w[sa] - w[0], w[0] - w[-sa]);
-        pl = w[0] + 0.5f * slope;
-        m = w[0] - 0.5f * slope;
-      } else {
-        m = w[0];
-        pl = w[0];
-      }
-      minus_s[k][o] = m;
-      plus_s[k][o] = pl;
-    }
-  }
-  __syncthreads();
-
-  // 3. the HLL flux of faces a0 .. a0+cells; no thread reads the primitives
-  // any more, so the fluxes take their place
-  for (int e = threadIdx.x; e < K4_FA * K4_TW; e += K4_THREADS) {
-    int f, i;
-    ppos<axis, K4_FA>(e, f, i);
-    if (f > cells || i >= lines) continue;
-    // face f lies between reconstructed cells f and f+1 (staged f+2, f+3)
-    const int oL = pidx<axis, K4_RA>(f, i);
-    const int oR = pidx<axis, K4_RA>(f + 1, i);
-    const int sL = pidx<axis, K4_SA>(f + 2, i);
-    const int sR = pidx<axis, K4_SA>(f + 3, i);
-    float qL[4], qR[4], cL[4], cR[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      qL[k] = plus_s[k][oL];
-      qR[k] = minus_s[k][oR];
-      cL[k] = cons_s[k][sL];
-      cR[k] = cons_s[k][sR];
-    }
-    float F[4];
-    hll_face<axis>(qL, qR, cL, cR, p, F);
-    const int o = pidx<axis, K4_FA>(f, i);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) pf_s[k][o] = F[k];
-  }
-  __syncthreads();
-
-  // 4. (F(lo) - F(hi)) * inv_dx of cells a0 .. a0+cells-1
-  for (int e = threadIdx.x; e < K4_TA * K4_TW; e += K4_THREADS) {
-    int c, i;
-    ppos<axis, K4_TA>(e, c, i);
-    if (c >= cells || i >= lines) continue;
-    const int64_t off = base + (a0 + c) * stride_a + i * stride_c;
-    const int lo = pidx<axis, K4_FA>(c, i), hi = pidx<axis, K4_FA>(c + 1, i);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float d = (pf_s[k][lo] - pf_s[k][hi]) * p.inv_dx[axis];
-      div[k * ncell + off] = first ? d : div[k * ncell + off] + d;
-    }
-  }
+  transport_axis_tile<axis>(R, div, X, Y, Z, first, p);
 }
 
 // One thread a cell; held to 64 registers (4 blocks a multiprocessor).
@@ -265,16 +118,12 @@ __global__ void __launch_bounds__(THREADS, 4) rad_stage2_kernel(
 // the three axes in order, each adding onto the one before.
 inline int launch_transport(const float* R, float* div, long long X, long long Y,
                             long long Z, const RadParams& p, cudaStream_t stream) {
-  const long long tiles[3] = {
-      (X + K4_TA - 1) / K4_TA * ((Z + K4_TW - 1) / K4_TW) * Y,
-      (Y + K4_TA - 1) / K4_TA * ((Z + K4_TW - 1) / K4_TW) * X,
-      (Z + K4_TA - 1) / K4_TA * ((Y + K4_TW - 1) / K4_TW) * X};
-  rad_transport_axis_kernel<0><<<(unsigned)tiles[0], K4_THREADS, 0, stream>>>(
-      R, div, (int)X, (int)Y, (int)Z, 1, p);
-  rad_transport_axis_kernel<1><<<(unsigned)tiles[1], K4_THREADS, 0, stream>>>(
-      R, div, (int)X, (int)Y, (int)Z, 0, p);
-  rad_transport_axis_kernel<2><<<(unsigned)tiles[2], K4_THREADS, 0, stream>>>(
-      R, div, (int)X, (int)Y, (int)Z, 0, p);
+  rad_transport_axis_kernel<0><<<(unsigned)transport_tiles(0, X, Y, Z), TR_THREADS, 0,
+                                 stream>>>(R, div, (int)X, (int)Y, (int)Z, 1, p);
+  rad_transport_axis_kernel<1><<<(unsigned)transport_tiles(1, X, Y, Z), TR_THREADS, 0,
+                                 stream>>>(R, div, (int)X, (int)Y, (int)Z, 0, p);
+  rad_transport_axis_kernel<2><<<(unsigned)transport_tiles(2, X, Y, Z), TR_THREADS, 0,
+                                 stream>>>(R, div, (int)X, (int)Y, (int)Z, 0, p);
   return (int)cudaGetLastError();
 }
 
@@ -283,7 +132,7 @@ inline int launch_transport(const float* R, float* div, long long X, long long Y
 // Shared-memory bytes of a transport block (all of it static).
 extern "C" int qk_rad_stage_smem() {
   return (int)(4 * sizeof(float) *
-               (2 * qk::K4_SA * qk::K4_TW + 2 * qk::K4_RA * qk::K4_TW));
+               (2 * qk::TR_SA * qk::TR_TW + 2 * qk::TR_RA * qk::TR_TW));
 }
 
 extern "C" int qk_rad_stage1(const float* U, const float* src, float* U1,

@@ -1,53 +1,53 @@
 // K6: the M1 radiation transport divergence along one axis.
 //
 // Replaces quokka_tpu/radiation/pallas_sweep.py::compute_rad_div_pallas
-// (the pallas_call at :115, kernel body :98-113) for one photon group on
+// (def :70, pallas_call :115, kernel body :98-113) for one photon group on
 // the periodic, unpadded state: (E, f) primitives of the conserved block,
 // PPM / PLM / donor-cell faces of the four primitives, the
 // frozen-Eddington HLL flux with the donor-cell fallback on inadmissible
 // faces, and (F(lo) - F(hi)) * inv_dx.
 //
-// Design: one thread per cell, z fastest. The thread reads cells i-3..i+3
-// of the four components along the axis through the periodic index map
-// (no padded copy; the TPU kernel's "top padded cell is garbage" caveat
-// belongs to its padded layout and has no counterpart here), builds the
-// states of its lo and hi faces and solves both. Each face is solved twice
-// (once by each neighbour): simple and right first; sharing faces through
-// shared memory is later work.
+// Design: K4's transport pass (rad_common.cuh `transport_axis_tile`): a
+// block owns a tile of 32 cells along the axis by 16 lines across it,
+// stages each cell once (the periodic wrap resolved as it is staged; the
+// TPU kernel's "top padded cell is garbage" caveat belongs to its padded
+// layout and has no counterpart here), reconstructs it once, solves each
+// face once and writes each cell's divergence, or adds it onto `div` in
+// place (`first` = 0): `radiation.system.rad_transport_div` launches x
+// into a fresh output and y and z onto it, which is the JAX order of the
+// sum ((x + y) + z), so no PyTorch add and no other output is needed. The
+// one-thread-a-cell kernel this replaces solved each face twice and
+// reconstructed each cell three times an axis; the expressions and their
+// order are its, so the outputs keep its bits. The kernel keeps a name of
+// its own (`rad_div_tile_kernel`), so that a profile tells it from K4's
+// passes.
 //
-// Bound on the H100: bytes. Per cell 16 B are read (the four components;
-// the neighbours' reads hit L1/L2) and 16 B written, against roughly 400
-// FP32 operations for the two faces: at 256^3 the 0.54 GB take >= 0.16 ms
-// at 3.35 TB/s, the operations >= 0.1 ms at 67 TFLOP/s.
+// Bound on the H100: bytes. Per cell 16 B are read and 16 B written (and
+// 16 B more read onto the accumulator), against roughly 280 FP32
+// operations (one face solved a cell): at 256^3 0.54 GB (0.81 GB
+// accumulating) take >= 0.16 ms (0.24 ms) at 3.35 TB/s, the operations
+// >= 0.07 ms at 67 TFLOP/s.
 #include "rad_common.cuh"
 
 namespace qk {
 
 template <int axis>
-__global__ void rad_div_kernel(const float* __restrict__ R,
-                               float* __restrict__ div, int64_t X, int64_t Y,
-                               int64_t Z, RadParams p) {
-  const int64_t ncell = X * Y * Z;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  const int64_t dims[3] = {X, Y, Z};
-  int64_t co[3];
-  unravel(idx, Y, Z, co);
-  float d[4];
-  rad_div_axis<axis>(R, ncell, idx, co, dims, p, d);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) div[k * ncell + idx] = d[k];
+__global__ void __launch_bounds__(TR_THREADS) rad_div_tile_kernel(
+    const float* __restrict__ R, float* __restrict__ div, int X, int Y, int Z, int first,
+    RadParams p) {
+  transport_axis_tile<axis>(R, div, X, Y, Z, first, p);
 }
 
 }  // namespace qk
 
+// K6 along one axis: div = the axis's divergence (first = 1), or div +=
+// it (first = 0).
 extern "C" int qk_rad_div(const float* R, float* div, long long X, long long Y,
-                          long long Z, int axis, const qk::RadParams* p,
+                          long long Z, int axis, int first, const qk::RadParams* p,
                           void* stream) {
-  const int64_t ncell = (int64_t)X * Y * Z;
-  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
-  auto kernel = axis == 0 ? qk::rad_div_kernel<0>
-                : (axis == 1 ? qk::rad_div_kernel<1> : qk::rad_div_kernel<2>);
-  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(R, div, X, Y, Z, *p);
+  auto kernel = axis == 0 ? qk::rad_div_tile_kernel<0>
+                : (axis == 1 ? qk::rad_div_tile_kernel<1> : qk::rad_div_tile_kernel<2>);
+  kernel<<<(unsigned)qk::transport_tiles(axis, X, Y, Z), qk::TR_THREADS, 0,
+           (cudaStream_t)stream>>>(R, div, (int)X, (int)Y, (int)Z, first, *p);
   return (int)cudaGetLastError();
 }

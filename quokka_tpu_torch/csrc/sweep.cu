@@ -40,19 +40,41 @@
 // first-order face kernel (`fo_face_kernel`): one thread per face, z
 //   fastest, reads cells f-1 and f and solves LLF (the FOFC fallback
 //   fluxes); no stencil is shared enough for a tile to pay.
-// div kernel: one thread per cell, div = (F(i) - F(i+1)) / dx and
-//   dvel = (v(i+1) - v(i)) / dx, where with avg_with both faces are first
-//   averaged with stage 1's, 0.5 * (F1 + F2), in registers.
+// sweep kernel (`sweep_tile_kernel`, every sweep with dx_axis that is not
+//   K2c): K2c's tile below (phases 1-3: each face its cells touch solved
+//   once into shared memory), whose phase 3 also
+//     - stage 1 (mode 1): writes the faces the tile owns to global memory,
+//       coalesced as the face kernel writes them (slots a0 .. a0+ta-1, and
+//       on a wall axis the hi-wall plane from the line's last tile); the
+//       caller needs them, since the FOFC fallback re-blends them;
+//     - stage 2 (mode 2, avg_with): reads stage 1's face at each slot (the
+//       hi-wall plane F1_hi / v1_hi for slot n on a wall axis, slot 0 for
+//       slot n on a periodic one) and averages in shared memory,
+//       0.5 * (F1 + F2), and 0.5 * (v1 + v2) where v1 is given; no stage-2
+//       face reaches global memory;
+//   and phase 4, one thread a cell, writes div = (F(i) - F(i+1)) / dx and
+//   dvel = (v(i+1) - v(i)) / dx from the faces in shared memory. The
+//   expressions and their operand order are those of the one-thread-a-cell
+//   divergence kernel that read the faces back from global memory, so the
+//   outputs keep its bits (kernel_times.py --compare). `hydro.sweep.
+//   sweep_tile` picks the tile: K2c's for the z sweep, whose faces run
+//   along z, the contiguous axis; for the x and y sweeps, which store or
+//   read a face row per tile line along z, 29 cells by 16 lines (rows of
+//   64 B; 54.7 KB, four blocks a multiprocessor). Measured on the H100
+//   (kernel_times.py --tiles --only k2s): a stage-1 x sweep at 256^3 takes
+//   1.19 ms on 29 x 16, 1.29 on 37 x 12, 1.54 on K2c's 37 x 13, whose
+//   52 B rows straddle sectors.
 //
 // K2d (emit_avg_flux, the AMR flux-register variant,
-// pallas_sweep.py:743-746 and :1066-1085): on a ghost-padded periodic
-// array, the div kernel also writes the time-averaged face flux
-// 0.5 * (F1 + F2) of the cell's lo face, and takes no stage-1 face
-// velocity: dvel stays the RAW stage-2 velocity divergence, which the
+// pallas_sweep.py:743-746 and :1066-1085): mode 2 on a ghost-padded
+// periodic array, which also writes the time-averaged face flux
+// 0.5 * (F1 + F2) of each cell's lo face (phase 4) and takes no stage-1
+// face velocity: dvel stays the RAW stage-2 velocity divergence, which the
 // caller averages with stage 1's (hydro/advance.py). The padded array
 // wraps in index space, as the JAX in-block rolls do; the wrap reaches
-// ghost faces only. Its cost over K2's stage 2: one more [6, X, Y, Z]
-// write (24 B a cell) and one fewer [X, Y, Z] read.
+// ghost faces only. Its bytes at the dense shell's 520^3: the state, chi
+// and two dmin fields read (9 rows), stage 1's faces read (6 rows), div,
+// dvel and favg written (13 rows), 15.7 GB an axis, 4.7 ms.
 //
 // K2c (div_only, the lean large-domain step, pallas_sweep.py:695-718,
 // :786-810, :924-1009, the blend of _window_flux :543-561): one kernel,
@@ -107,22 +129,22 @@
 // function over them); blockIdx.y picks the block, so a chunk is one launch
 // an axis, not one a tile. Periodic (padded, roll semantics) blocks only.
 //
-// Why K2 keeps its faces in global memory and K2c does not: the stage-1
-// caller needs K2's faces in DRAM anyway (the FOFC fallback re-blends
-// them), so writing them costs nothing extra there; K2c exists for the
-// boxes too large to hold them, and keeps them in its tile's shared
-// memory.
+// Why K2's stage 1 writes its faces to global memory and nothing else
+// does: the stage-1 caller needs them (the FOFC fallback re-blends them,
+// and stage 2 averages with them); stage 2, K2d and K2c keep theirs in the
+// tile's shared memory.
 //
-// Bound on the H100: bytes on paper. A face of the tile kernel reads its
-// cell's 6 values, chi and two dmin fields once (plus the 5 staged halo
-// cells of a tile line) and writes 7 floats, 64 B a cell, against roughly
-// 620 FP32 operations counted once (kernel_check.OPS_K2_SWEEP with the
-// divergence): at 256^3 1.07 GB, >= 0.32 ms at 3.35 TB/s. In practice
-// instruction issue bounds it: each face solve has ~10 IEEE divisions and
-// 6 square roots, which are instruction sequences, and -fmad=false keeps
-// every product and sum apart. The one-thread-a-face form this replaces
-// also redid each cell's primitives 6 times and its PPM twice; the tile
-// does each once, so what is left is one HLLC a face and one PPM a cell.
+// Bound on the H100: bytes on paper. A stage-1 sweep reads its cell's 6
+// values, chi and two dmin fields once and writes 7 face floats and 7
+// divergence floats, 92 B a cell, against roughly 620 FP32 operations
+// counted once (kernel_check.OPS_K2_SWEEP): at 256^3 1.54 GB, >= 0.46 ms
+// at 3.35 TB/s. In practice instruction issue bounds it: each face solve has
+// ~10 IEEE divisions and 6 square roots, which are instruction sequences,
+// and -fmad=false keeps every product and sum apart. The tile does one
+// HLLC a face and one PPM a cell, plus a 28 B shared-memory round trip a
+// face; the two-launch form this replaces also wrote every face to global
+// memory and read it back (twice: once as a cell's lo face, once as its
+// neighbour's hi face), stage 2's and K2d's included.
 #include "common.cuh"
 
 namespace qk {
@@ -366,11 +388,12 @@ __device__ __forceinline__ void store_face(
 
 constexpr int FACE_THREADS = 256;
 
-// The geometry of one tile of the face kernels and of K2c: the axis, the
-// lines across it and the fixed third coordinate, and this block's tile of
-// `count` slots along the axis (faces of the face kernel, cells of K2c).
-// Offsets are of type I: int for the face kernel (the wrapper holds a
-// block below 2^31 cells), int64_t for K2c.
+// The geometry of one tile of the face kernels and of the cell tiles (K2c
+// and K2's sweeps with a divergence): the axis, the lines across it and the
+// fixed third coordinate, and this block's tile of `count` slots along the
+// axis (faces of the face kernel, cells of the cell tiles). Offsets are of
+// type I: int for the face kernel (the wrapper holds a block below 2^31
+// cells), int64_t for the cell tiles.
 template <typename I>
 struct Tile {
   I n, n_across, stride_a, stride_c, stride_f, fixed, base;
@@ -573,63 +596,6 @@ __global__ void __launch_bounds__(FACE_THREADS) fo_face_kernel(
              co[a1] * dims[a2] + co[a2], f == n, Fs, fv);
 }
 
-__global__ void div_kernel(const float* __restrict__ F,
-                           const float* __restrict__ vel,
-                           const float* __restrict__ F_hi,
-                           const float* __restrict__ vel_hi,
-                           const float* __restrict__ F1,
-                           const float* __restrict__ v1,
-                           const float* __restrict__ F1_hi,
-                           const float* __restrict__ v1_hi,
-                           float* __restrict__ div, float* __restrict__ dvel,
-                           float* __restrict__ favg, int64_t X, int64_t Y,
-                           int64_t Z, int axis, int wall, float dx) {
-  const int64_t ncell = X * Y * Z;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= ncell) return;
-  int64_t co[3];
-  unravel(idx, Y, Z, co);
-  const int64_t dims[3] = {X, Y, Z};
-  const int64_t n = dims[axis];
-  const int64_t stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
-  const int64_t c = co[axis];
-  const bool avg = F1 != nullptr;
-  // the face on the cell's hi side: next slot, hi plane, or periodic wrap
-  const bool on_plane = (c + 1 == n) && wall;
-  const int64_t next = (c + 1 < n) ? idx + stride : idx - c * stride;
-  int64_t poff = 0, nplane = 1;
-  if (on_plane) {
-    int64_t pd[2], pc[2], k = 0;
-    for (int a = 0; a < 3; ++a)
-      if (a != axis) {
-        pd[k] = dims[a];
-        pc[k] = co[a];
-        ++k;
-      }
-    nplane = pd[0] * pd[1];
-    poff = pc[0] * pd[1] + pc[1];
-  }
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    float fa = F[v * ncell + idx];
-    float fb = on_plane ? F_hi[v * nplane + poff] : F[v * ncell + next];
-    if (avg) {
-      fa = 0.5f * (F1[v * ncell + idx] + fa);
-      fb = 0.5f * ((on_plane ? F1_hi[v * nplane + poff] : F1[v * ncell + next]) +
-                   fb);
-    }
-    div[v * ncell + idx] = (fa - fb) / dx;
-    if (favg != nullptr) favg[v * ncell + idx] = fa;
-  }
-  float va = vel[idx];
-  float vb = on_plane ? vel_hi[poff] : vel[next];
-  if (v1 != nullptr) {
-    va = 0.5f * (v1[idx] + va);
-    vb = 0.5f * ((on_plane ? v1_hi[poff] : v1[next]) + vb);
-  }
-  dvel[idx] = (vb - va) / dx;
-}
-
 // A cell flag of the FOFC mask at sweep coordinate c: wall ghosts are
 // unflagged (the `_pad_mask` non-periodic fill), periodic axes wrap.
 __device__ __forceinline__ float mask_at(const float* __restrict__ m,
@@ -641,31 +607,46 @@ __device__ __forceinline__ float mask_at(const float* __restrict__ m,
   return load_field(m, base, stride, c, n, lo, hi);
 }
 
-// Shared-memory floats of a K2c tile of ta cells by tw lines: the face
+// Shared-memory floats of a cell tile of ta cells by tw lines: the face
 // kernel's staged primitives, face states and dmins for its ta + 1 faces,
 // and the 7 results (flux in state order, face velocity) of each face.
 __host__ __device__ __forceinline__ int lean_smem_floats(int ta, int tw) {
   return NV * (ta + 6) * tw + (2 * NV + 2) * (ta + 2) * tw + (NV + 1) * (ta + 1) * tw;
 }
 
-// K2c / K2e (see the header): a block owns ta cells by tw lines, stages and
-// reconstructs them as the face kernel does (phases 1-2), solves each of
-// the ta + 1 faces those cells touch once into shared memory (phase 3: a
-// face next to a flagged cell takes LLF, of `fo` from global memory or of
-// the staged state; first_order takes LLF at every face and skips phase 2),
-// and then one thread a cell writes div = (F_lo - F_hi) / dx and dvel =
-// (v_hi - v_lo) / dx, or adds them onto the accumulators in place, and
-// with a boundary mask the register seed corr (phase 4). Slot ta of the
-// last tile of a line is the hi wall on a wall axis, face 0 through the
-// index map on a periodic one. Every global offset is 64-bit.
-template <int axis>
-__global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
+// The tile kernels' modes: K2c / K2e (lean: no face array, accumulators,
+// the FOFC blend, the register seed), K2 stage 1 (the faces written out
+// beside the divergences), K2 stage 2 and K2d (averaged with stage 1's faces).
+constexpr int TILE_LEAN = 0;
+constexpr int TILE_FACES = 1;
+constexpr int TILE_AVG = 2;
+
+// The tile of K2c, K2e and K2's sweeps with a divergence (see the header):
+// a block owns ta cells by tw lines, stages and reconstructs them as the
+// face kernel does (phases 1-2), solves each of the ta + 1 faces those
+// cells touch once into shared memory (phase 3: a face next to a flagged
+// cell takes LLF, of `fo` from global memory or of the staged state;
+// first_order takes LLF at every face and skips phase 2; TILE_FACES also
+// stores the faces the tile owns, TILE_AVG averages each face with stage
+// 1's), and then one thread a cell writes div = (F_lo - F_hi) / dx and
+// dvel = (v_hi - v_lo) / dx, or adds them onto the accumulators in place,
+// with a boundary mask the register seed corr, and with `favg` the
+// averaged lo face (phase 4). Slot ta of the last tile of a line is the hi
+// wall on a wall axis, face 0 through the index map on a periodic one.
+// Every global offset is 64-bit. The kernels pass nullptr and 0 for what
+// their mode does not take, which the compiler folds away.
+template <int axis, int mode>
+__device__ __forceinline__ void tile_sweep(
     const float* __restrict__ Q, const float* __restrict__ chi,
     const float* __restrict__ dminv, const float* __restrict__ dminw,
     const float* __restrict__ mask, const float* __restrict__ fo, float* div, float* dvel,
-    const float* __restrict__ cmask, float* corr, int64_t X, int64_t Y, int64_t Z, int lo,
-    int hi, int is_cons, int first_order, float K_visc, float dx, int accumulate,
-    int corr_accumulate, int ta, int tw, Eos e) {
+    const float* __restrict__ cmask, float* corr, float* __restrict__ F,
+    float* __restrict__ vel, float* __restrict__ F_hi, float* __restrict__ vel_hi,
+    const float* __restrict__ F1, const float* __restrict__ v1,
+    const float* __restrict__ F1_hi, const float* __restrict__ v1_hi,
+    float* __restrict__ favg, int64_t X, int64_t Y, int64_t Z, int lo, int hi,
+    int is_cons, int first_order, float K_visc, float dx, int accumulate,
+    int corr_accumulate, int ta, int tw, const Eos& e) {
   extern __shared__ float smem[];
   const int64_t ncell = X * Y * Z;
   const Tile<int64_t> t =
@@ -681,7 +662,7 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
 
   // the accumulators this block's cells add onto, into L2 now, so that
   // phase 4 finds them there
-  if (accumulate || corr_accumulate) {
+  if (mode == TILE_LEAN && (accumulate || corr_accumulate)) {
     for (int el = threadIdx.x; el < t.count * t.lines; el += FACE_THREADS) {
       int r, i;
       tpos<axis>(el, t.count, t.lines, r, i);
@@ -729,6 +710,24 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
       tile_hllc<axis>(fa, i, nf, t.lines, prim_s, cap_s, qm_s, qp_s, dv_s, dw_s, cap_r,
                       dminv != nullptr, dminw != nullptr, K_visc, e, Fs, fv);
     }
+    if (mode != TILE_LEAN) {
+      // face slot f in global memory: the face arrays below n; at n the
+      // hi-wall plane on a wall axis, slot 0 on a periodic one
+      const bool on_plane = f == t.n && lo != BC_PERIODIC;
+      const int64_t off = lbase + (f == t.n ? 0 : f) * t.stride_a;
+      const int64_t poff = t.fixed * t.n_across + t.c0 + i;
+      if (mode == TILE_FACES) {
+        // the tile's own slots a0 .. a0+cells-1, and the hi wall
+        if (fa < t.count || on_plane)
+          store_face(F, vel, F_hi, vel_hi, ncell, t.nplane, off, poff, on_plane, Fs, fv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < NV; ++c)
+          Fs[c] = 0.5f * ((on_plane ? F1_hi[c * t.nplane + poff] : F1[c * ncell + off]) +
+                          Fs[c]);
+        if (v1 != nullptr) fv = 0.5f * ((on_plane ? v1_hi[poff] : v1[off]) + fv);
+      }
+    }
     const int o = tix<axis>(fa, i, nf, t.lines);
 #pragma unroll
     for (int c = 0; c < NV; ++c) res_s[c * cap_f + o] = Fs[c];
@@ -763,6 +762,10 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
     float dv = (res_s[NV * cap_f + oH] - res_s[NV * cap_f + oL]) / dx;
     if (accumulate) dv = old[NV] + dv;
     dvel[idx] = dv;
+    if (favg != nullptr) {  // K2d: the averaged lo face
+#pragma unroll
+      for (int k = 0; k < NV; ++k) favg[k * ncell + idx] = res_s[k * cap_f + oL];
+    }
     if (corr != nullptr) {  // K2e: the boundary-masked divergence
       const bool m_lo = load_field(cmask, lbase, t.stride_a, c, t.n, lo, hi) > 0.5f;
       const bool m_hi = load_field(cmask, lbase, t.stride_a, c + 1, t.n, lo, hi) > 0.5f;
@@ -780,6 +783,40 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
       }
     }
   }
+}
+
+// K2c / K2e: the tile without a face array (see the header).
+template <int axis>
+__global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw,
+    const float* __restrict__ mask, const float* __restrict__ fo, float* div, float* dvel,
+    const float* __restrict__ cmask, float* corr, int64_t X, int64_t Y, int64_t Z, int lo,
+    int hi, int is_cons, int first_order, float K_visc, float dx, int accumulate,
+    int corr_accumulate, int ta, int tw, Eos e) {
+  tile_sweep<axis, TILE_LEAN>(Q, chi, dminv, dminw, mask, fo, div, dvel, cmask, corr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, X, Y, Z, lo, hi, is_cons, first_order, K_visc,
+                              dx, accumulate, corr_accumulate, ta, tw, e);
+}
+
+// K2's sweeps with a divergence (see the header): mode TILE_FACES writes
+// the faces F, vel (F_hi, vel_hi on a wall axis) beside div and dvel;
+// mode TILE_AVG averages with stage 1's F1, v1 (F1_hi, v1_hi), and with
+// `favg` (K2d, v1 nullptr) also writes the averaged lo faces.
+template <int axis, int mode>
+__global__ void __launch_bounds__(FACE_THREADS, 4) sweep_tile_kernel(
+    const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ dminv, const float* __restrict__ dminw, float* __restrict__ div,
+    float* __restrict__ dvel, float* __restrict__ F, float* __restrict__ vel,
+    float* __restrict__ F_hi, float* __restrict__ vel_hi, const float* __restrict__ F1,
+    const float* __restrict__ v1, const float* __restrict__ F1_hi,
+    const float* __restrict__ v1_hi, float* __restrict__ favg, int64_t X, int64_t Y,
+    int64_t Z, int lo, int hi, int is_cons, int first_order, float K_visc, float dx, int ta,
+    int tw, Eos e) {
+  tile_sweep<axis, mode>(Q, chi, dminv, dminw, nullptr, nullptr, div, dvel, nullptr, nullptr,
+                         F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, favg, X, Y, Z, lo, hi,
+                         is_cons, first_order, K_visc, dx, 0, 0, ta, tw, e);
 }
 
 }  // namespace qk
@@ -863,16 +900,39 @@ extern "C" int qk_axis_flux(const float* Q, const float* chi,
   return (int)cudaGetLastError();
 }
 
-extern "C" int qk_axis_div(const float* F, const float* vel, const float* F_hi,
-                           const float* vel_hi, const float* F1,
-                           const float* v1, const float* F1_hi,
-                           const float* v1_hi, float* div, float* dvel,
-                           float* favg, long long X, long long Y, long long Z,
-                           int axis, int wall, float dx, void* stream) {
-  const int64_t ncell = (int64_t)X * Y * Z;
-  const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
-  qk::div_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, div, dvel, favg, X, Y, Z,
-      axis, wall, dx);
+// K2's sweep with a divergence along one axis in tiles of ta cells by tw
+// lines (`sweep_tile_kernel`): with F (stage 1) the faces are written out,
+// with F1 (stage 2, K2d) averaged with; exactly one of the two is given.
+extern "C" int qk_axis_sweep(const float* Q, const float* chi, const float* dminv,
+                             const float* dminw, float* div, float* dvel, float* F,
+                             float* vel, float* F_hi, float* vel_hi, const float* F1,
+                             const float* v1, const float* F1_hi, const float* v1_hi,
+                             float* favg, long long X, long long Y, long long Z, int axis,
+                             int lo, int hi, int is_cons, int first_order, float K_visc,
+                             float dx, int ta, int tw, float gamma, float gm1,
+                             float inv_gm1, float s_n, int reconstruct_eint, void* stream) {
+  if ((F == nullptr) == (F1 == nullptr)) return (int)cudaErrorInvalidValue;
+  const qk::Eos e{gamma, gm1, inv_gm1, s_n, reconstruct_eint};
+  const long long n = axis == 0 ? X : (axis == 1 ? Y : Z);
+  const long long n_across = axis == 2 ? Y : Z;
+  const long long fixed = axis == 0 ? Y : X;
+  const long long tiles = ((n + ta - 1) / ta) * ((n_across + tw - 1) / tw) * fixed;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  using Kernel = decltype(&qk::sweep_tile_kernel<0, qk::TILE_FACES>);
+  const Kernel kernels[2][3] = {
+      {qk::sweep_tile_kernel<0, qk::TILE_FACES>, qk::sweep_tile_kernel<1, qk::TILE_FACES>,
+       qk::sweep_tile_kernel<2, qk::TILE_FACES>},
+      {qk::sweep_tile_kernel<0, qk::TILE_AVG>, qk::sweep_tile_kernel<1, qk::TILE_AVG>,
+       qk::sweep_tile_kernel<2, qk::TILE_AVG>}};
+  const Kernel kernel = kernels[F == nullptr][axis];
+  const int smem = qk_lean_smem(ta, tw);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<(unsigned)tiles, qk::FACE_THREADS, smem, (cudaStream_t)stream>>>(
+      Q, chi, dminv, dminw, div, dvel, F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, favg, X,
+      Y, Z, lo, hi, is_cons, first_order, K_visc, dx, ta, tw, e);
   return (int)cudaGetLastError();
 }

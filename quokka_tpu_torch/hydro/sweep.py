@@ -559,7 +559,7 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
                                emit_avg_flux, div_only=div_only, acc=acc,
                                fo_mask=fo_mask, fo_from=fo_from,
                                corr_mask=corr_mask, corr_acc=corr_acc)
-    from .._cuda import check, library
+    from .._cuda import library
 
     lib = library()
     if not first_order and opts.reconstruction_order != 3:
@@ -572,41 +572,14 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
         return _axis_flux_lean_cuda(lib, U, axis, opts, chi, dminv, dminw, first_order,
                                     bc_axis, dx_axis, state_is_cons, acc, fo_mask,
                                     fo_from, corr_mask, corr_acc)
-    avg = tuple(avg_with) if avg_with is not None else ()
-    _check_kernel_inputs(opts, U, *avg)
-    wall = bc_axis is not None
-    X, Y, Z = U.shape[1:]
-    plane = tuple(s for a, s in enumerate((X, Y, Z)) if a != axis)
-    _check_shapes(list(zip(avg, (U.shape, (X, Y, Z), (6,) + plane, plane),
-                           ("avg flux", "avg facevel", "avg flux_hi", "avg vel_hi"))))
-    if avg_with is not None and len(avg) != (4 if wall else 2):
-        raise ValueError("avg_with holds (F, v) on a periodic axis, "
-                         "(F, v, F_hi, v_hi) on a wall axis")
-    F, v, Fh, vh = map(_unbatch, _axis_faces_cuda(
-        lib, U[None], axis, opts, _batch(chi), _batch(dminv), _batch(dminw), bc_axis,
-        state_is_cons, first_order))
-    stream = _stream(U)
-    faces = (F, v, Fh, vh) if wall else (F, v)
     if dx_axis is None:
+        F, v, Fh, vh = map(_unbatch, _axis_faces_cuda(
+            lib, U[None], axis, opts, _batch(chi), _batch(dminv), _batch(dminw), bc_axis,
+            state_is_cons, first_order))
         launch_counts["axis_flux"] += 1
-        return faces
-    div = torch.empty_like(U)
-    dvel = torch.empty_like(v)
-    favg = torch.empty_like(U) if emit_avg_flux else None
-    F1, v1, F1h, v1h = (avg + (None,) * 4)[:4]
-    if emit_avg_flux:
-        v1 = None  # K2d: dvel stays the raw stage-2 velocity divergence
-    err = lib.qk_axis_div(F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
-                          _ptr(F1), _ptr(v1), _ptr(F1h), _ptr(v1h),
-                          div.data_ptr(), dvel.data_ptr(), _ptr(favg), X, Y, Z,
-                          axis, int(wall), float(dx_axis), stream)
-    check(err, "axis_div")
-    launch_counts["axis_flux_avg" if emit_avg_flux else "axis_flux"] += 1
-    if emit_avg_flux:
-        return div, dvel, favg
-    if avg_with is not None:
-        return div, dvel
-    return faces + (div, dvel)
+        return (F, v) if bc_axis is None else (F, v, Fh, vh)
+    return _axis_sweep_cuda(lib, U, axis, opts, chi, dminv, dminw, first_order, bc_axis,
+                            dx_axis, avg_with, state_is_cons, emit_avg_flux)
 
 
 def _batch(t):
@@ -734,6 +707,76 @@ def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order
         return div, dvel
     launch_counts["axis_flux_corr"] += 1
     return div, dvel, corr
+
+
+SWEEP_ALONG = 29  # cells of an x or y sweep's tile along the axis, at most
+SWEEP_LINES = 16  # lines of an x or y sweep's tile across it, at most
+
+
+def sweep_tile(n_cells: int, n_across: int, axis: int) -> Tuple[int, int]:
+    """(cells along the axis, lines across) of one tile of K2's sweeps with
+    a divergence (``csrc/sweep.cu`` `sweep_tile_kernel`: stage 1, stage 2,
+    K2d), which share K2c's shared-memory layout (`lean_smem_bytes`). The z
+    sweep's faces run along z, the contiguous axis, and it takes K2c's tile
+    (`lean_tile`). The x and y sweeps store and read their faces in rows of
+    the tile's lines along z: they take up to SWEEP_LINES lines (rows of
+    64 B) and up to SWEEP_ALONG cells along, the most that keeps four blocks
+    a multiprocessor; each split evenly."""
+    if axis == 2:
+        return lean_tile(n_cells, n_across)
+    return _split(n_cells, SWEEP_ALONG), _split(n_across, SWEEP_LINES)
+
+
+def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc_axis,
+                     dx_axis, avg_with, state_is_cons, emit_avg_flux):
+    """Launch K2's sweep with a divergence (csrc/sweep.cu
+    `sweep_tile_kernel`): a block stages and reconstructs a tile of
+    `sweep_tile` cells by lines and solves each face those cells touch once
+    into shared memory. Stage 1 (no `avg_with`) writes the faces (F, v[,
+    F_hi, v_hi]) beside (div, dvel); stage 2 reads stage 1's faces, averages
+    in shared memory and writes only (div, dvel), and with `emit_avg_flux`
+    (K2d, no stage-1 velocity read) also the averaged flux. Every offset is
+    64-bit."""
+    from .._cuda import check
+
+    avg = tuple(avg_with) if avg_with is not None else ()
+    _check_kernel_inputs(opts, U, chi, dminv, dminw, *avg)
+    wall = bc_axis is not None
+    X, Y, Z = U.shape[1:]
+    cell = (X, Y, Z)
+    plane = tuple(s for a, s in enumerate(cell) if a != axis)
+    _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")]
+                  + list(zip(avg, (U.shape, cell, (6,) + plane, plane),
+                             ("avg flux", "avg facevel", "avg flux_hi", "avg vel_hi"))))
+    if avg_with is not None and len(avg) != (4 if wall else 2):
+        raise ValueError("avg_with holds (F, v) on a periodic axis, "
+                         "(F, v, F_hi, v_hi) on a wall axis")
+    lo, hi = _bc_codes(bc_axis)
+    div = torch.empty_like(U)
+    dvel = torch.empty(cell, dtype=U.dtype, device=U.device)
+    faces = (None,) * 4
+    if avg_with is None:
+        faces = (torch.empty_like(U), torch.empty(cell, dtype=U.dtype, device=U.device),
+                 torch.empty((6,) + plane, dtype=U.dtype, device=U.device) if wall else None,
+                 torch.empty(plane, dtype=U.dtype, device=U.device) if wall else None)
+    F1, v1, F1h, v1h = (avg + (None,) * 4)[:4]
+    if emit_avg_flux:
+        v1 = None  # K2d: dvel stays the raw stage-2 velocity divergence
+    favg = torch.empty_like(U) if emit_avg_flux else None
+    err = lib.qk_axis_sweep(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+                            div.data_ptr(), dvel.data_ptr(), *map(_ptr, faces),
+                            _ptr(F1), _ptr(v1), _ptr(F1h), _ptr(v1h), _ptr(favg), X, Y, Z,
+                            axis, lo, hi, int(state_is_cons), int(first_order),
+                            float(opts.K_visc), float(dx_axis),
+                            *sweep_tile(cell[axis], Y if axis == 2 else Z, axis),
+                            *_eos_args(opts), _stream(U))
+    check(err, "axis_sweep")
+    launch_counts["axis_flux_avg" if emit_avg_flux else "axis_flux"] += 1
+    if emit_avg_flux:
+        return div, dvel, favg
+    if avg_with is not None:
+        return div, dvel
+    return faces[:4 if wall else 2] + (div, dvel)
 
 
 def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):

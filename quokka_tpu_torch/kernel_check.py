@@ -31,7 +31,7 @@ import torch
 
 from .hydro import euler, sweep
 from .mhd import sweep as msweep
-from .radiation import source, substep
+from .radiation import source, substep, system
 from .radiation import sweep as rsweep
 from .stencil import sh
 
@@ -221,9 +221,14 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
                    lambda cost=cost: cost)
         divs[d], dvels[d] = res[-2], res[-1]
         s2 = dict(s1, avg_with=res[:-2])
+        # reads U2, chi, two dmin fields and stage 1's faces (and their hi
+        # planes); writes both divergences
+        cost2 = (_nbytes(U2, chi2, *dmins2.values()) - _nbytes(dmins2[d]) + _nbytes(res[:-2])
+                 + _nbytes(res[-2:]), OPS_K2_SWEEP * n)
         yield Case("axis_flux", f"K2 stage 2 avg axis {d}",
                    lambda d=d, kw=s2: sweep.compute_axis_flux(U2, d, opts, chi2, dmins2, **kw),
-                   lambda d=d, kw=s2: sweep.axis_flux_plain(U2, d, opts, chi2, dmins2, **kw))
+                   lambda d=d, kw=s2: sweep.axis_flux_plain(U2, d, opts, chi2, dmins2, **kw),
+                   lambda cost=cost2: cost)
         fo = dict(first_order=True, bc_axis=bc_kinds.get(d))
         yield Case("axis_flux", f"K2 first order axis {d}",
                    lambda d=d, kw=fo: sweep.compute_axis_flux(prim, d, opts, None, {}, **kw),
@@ -285,12 +290,7 @@ def rad_cases(U: torch.Tensor, rad_src, dt: float, opts, eos, problem,
     n = U[0].numel()
     rs = source.RAD_START
     R0 = U[rs:]
-    for d in range(3):
-        cost = (2 * _nbytes(R0), OPS_K6_AXIS * n)
-        yield Case("rad_div", f"K6 axis {d}",
-                   lambda d=d: rsweep.compute_rad_div(R0, d, opts, dx[d]),
-                   lambda d=d: rsweep.rad_div_plain(R0, d, opts, dx[d]),
-                   lambda cost=cost: cost)
+    yield from k6_cases(R0, opts, dx)
     for stage in (1, 2):
         counts = {}
         source.source_update_plain(U, rad_src, dt, stage, opts, eos, problem, rs, counts)
@@ -318,6 +318,28 @@ def rad_cases(U: torch.Tensor, rad_src, dt: float, opts, eos, problem,
                lambda: substep.fused_stage2(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
                lambda: substep.stage2_plain(U1, R0, div0, rad_src, dt, opts, eos, problem, dx),
                lambda: cost2, scaled=True)
+
+
+def k6_cases(R0: torch.Tensor, opts, dx, tag: str = "") -> Iterator[Case]:
+    """K6 on the radiation block R0 [4, X, Y, Z]: per axis into a fresh
+    output (reads R0, writes the divergence), then the three axes as
+    `radiation.system.rad_transport_div` launches them, x into a fresh
+    output and y and z added onto it (the function reads R0 and writes the
+    sum once; the y and z launches also read the running sum), against the
+    plain version accumulated the same way, the JAX sum ((x + y) + z)."""
+    n = R0[0].numel()
+    for d in range(3):
+        cost = (2 * _nbytes(R0), OPS_K6_AXIS * n)
+        yield Case("rad_div", f"K6 axis {d}{tag}",
+                   lambda d=d: rsweep.compute_rad_div(R0, d, opts, dx[d]),
+                   lambda d=d: rsweep.rad_div_plain(R0, d, opts, dx[d]),
+                   lambda cost=cost: cost)
+    cost = (2 * _nbytes(R0), 3 * OPS_K6_AXIS * n)
+    yield Case("rad_div", f"K6 3 axes accumulated{tag}",
+               lambda: system.rad_transport_div(R0, 0, opts, (0, 1, 2), dx),
+               lambda: rsweep.rad_div_plain(R0, 2, opts, dx[2], acc=rsweep.rad_div_plain(
+                   R0, 1, opts, dx[1], acc=rsweep.rad_div_plain(R0, 0, opts, dx[0]))),
+               lambda: cost)
 
 
 def _slabbed(fn, arrays, axis: int, nslab: int, halo: int = 0):
@@ -1086,6 +1108,65 @@ def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
 
                     name = "axis_flux_corr" if v.startswith("corr") else "axis_flux_lean"
                     yield Case(name, f"K2c {shape} {kind}{etag} {v} axis {d}", kernel, plain)
+
+
+# K2's sweeps with a divergence on the same shapes: stage 1 (the faces and
+# both divergences), first order, stage 2 (averaged with stage 1's faces, hi
+# planes on a wall axis) and K2d (the averaged flux too; periodic axes only)
+SWEEP_EDGE_VARIANTS = ("stage 1", "first order", "stage 2", "K2d")
+
+
+def sweep_edge_cases(opts, device, seed: int = 10) -> Iterator[Case]:
+    """K2's sweeps with a divergence (`compute_axis_flux` with dx_axis,
+    `csrc/sweep.cu` `sweep_tile_kernel`) on seeded conserved states at
+    LEAN_EDGE_SHAPES, every axis, in each of SWEEP_EDGE_VARIANTS (K2d on
+    periodic axes only), with K1's fields from its plain version and stage
+    1's faces from the plain stage-1 sweep, so no kernel output feeds both
+    sides; the third shape also with CW84 viscosity and reconstruct_eint.
+    Against `axis_flux_plain`."""
+    import dataclasses
+
+    for i, (shape, kind) in enumerate(LEAN_EDGE_SHAPES):
+        bc = _bc_of(kind)
+        U0 = hydro_blocks(1, shape, seed + i, device)[0]
+        U1 = hydro_blocks(1, shape, seed + 20 + i, device)[0]
+        extras = [("", opts)]
+        if i == 2:
+            extras.append((" visc eint", dataclasses.replace(opts, K_visc=0.1,
+                                                             reconstruct_eint=True)))
+        for etag, o in extras:
+            (dm0, chi0), (dm1, chi1) = plain_transverse(U0, o, bc), plain_transverse(U1, o, bc)
+            for d in range(3):
+                s1 = dict(bc_axis=bc[d], dx_axis=o.dx[d], state_is_cons=True)
+                faces = sweep.axis_flux_plain(U0, d, o, chi0, dm0, **s1)[:-2]
+                variants = {"stage 1": (U0, dm0, chi0, s1),
+                            "first order": (U0, {}, None, dict(s1, first_order=True)),
+                            "stage 2": (U1, dm1, chi1, dict(s1, avg_with=faces))}
+                if bc[d] is None:
+                    variants["K2d"] = (U1, dm1, chi1, dict(s1, avg_with=faces,
+                                                           emit_avg_flux=True))
+                for v, (U, dm, c, kw) in variants.items():
+                    yield Case("axis_flux_avg" if v == "K2d" else "axis_flux",
+                               f"K2 {shape} {kind}{etag} {v} axis {d}",
+                               lambda U=U, d=d, o=o, c=c, dm=dm, kw=kw:
+                                   sweep.compute_axis_flux(U, d, o, c, dm, **kw),
+                               lambda U=U, d=d, o=o, c=c, dm=dm, kw=kw:
+                                   sweep.axis_flux_plain(U, d, o, c, dm, **kw))
+
+
+def k6_edge_cases(opts, device, seed: int = 14) -> Iterator[Case]:
+    """K6 (`k6_cases`: per axis and accumulated) on rough radiation blocks
+    (`rough_rad_state`) at K4_EDGE_SHAPES (the transport tile's edges: the
+    periodic halo wrapping around it, ragged tiles along and across), PPM
+    everywhere and PLM and donor cell on the third shape."""
+    import dataclasses
+
+    for i, shape in enumerate(K4_EDGE_SHAPES):
+        R0 = rough_rad_state(shape, seed + i, device, opts.c)[source.RAD_START:].contiguous()
+        dx = tuple(1.0 / n for n in shape)
+        for order in ((1, 2, 3) if i == 2 else (3,)):
+            o = dataclasses.replace(opts, reconstruction_order=order)
+            yield from k6_cases(R0, o, dx, f" {shape} order {order}")
 
 
 # K8's edge shapes: LEAN_EDGE_SHAPES' extents (every axis periodic)

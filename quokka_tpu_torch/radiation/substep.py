@@ -23,8 +23,9 @@ from .sweep import check_kernel_inputs, launch_counts, rad_div_plain, rad_params
 from .system import RadOptions, add_fluxes_rk2, predict_step
 
 
-# csrc/rad_substep.cu: a block of K4's transport, K4_THREADS threads, owns a
-# tile of K4_TILE_ALONG cells along the axis by K4_TILE_ACROSS lines
+# csrc/rad_common.cuh `transport_axis_tile` (K4's transport passes and K6):
+# a block of K4_THREADS threads owns a tile of K4_TILE_ALONG cells along the
+# axis by K4_TILE_ACROSS lines
 K4_TILE_ALONG = 32
 K4_TILE_ACROSS = 16
 K4_THREADS = 256
@@ -32,10 +33,11 @@ K4_SMEM_MAX = 48 * 1024  # the static shared memory a block can take
 
 
 def k4_smem_bytes() -> int:
-    """Shared-memory bytes of a block of K4's transport (`qk_rad_stage_smem`
-    of csrc/rad_substep.cu): the conserved values and the primitives (then
-    the fluxes) of the staged cells [2][4][(TA + 6) TW], and the face states
-    of the reconstructed cells [2][4][(TA + 2) TW]."""
+    """Shared-memory bytes of a block of K4's transport and of K6
+    (`qk_rad_stage_smem` of csrc/rad_substep.cu): the conserved values and
+    the primitives (then the fluxes) of the staged cells [2][4][(TA + 6)
+    TW], and the face states of the reconstructed cells [2][4][(TA + 2)
+    TW]."""
     ta, tw = K4_TILE_ALONG, K4_TILE_ACROSS
     return 4 * (2 * 4 * (ta + 6) * tw + 2 * 4 * (ta + 2) * tw)
 

@@ -174,10 +174,11 @@ def compute_rad_axis_flux_batched(cons5: torch.Tensor, axis: int,
 
 
 def rad_div_plain(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
-                  dx_axis: float) -> torch.Tensor:
+                  dx_axis: float, acc: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K6: (F(f) - F(f+1)) * (1/dx) along `axis` of the
     conserved block [4G, X, Y, Z], with roll (periodic) semantics.
-    Returns [G, 4, X, Y, Z]."""
+    Returns [G, 4, X, Y, Z], or adds it onto `acc` [G, 4, X, Y, Z] in place
+    and returns `acc`."""
     G = opts.n_groups
     nv, *bs = cons_flat.shape
     ax = axis + 1
@@ -190,26 +191,35 @@ def rad_div_plain(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
     qRg = qR.reshape(G, 4, *bs)
     F = torch.stack([_hll_group_flux(qLg[g], qRg[g], cL[g], consg[g], axis, opts)
                      for g in range(G)]).reshape(nv, *bs)
-    return ((F - sh(F, 1, ax)) * (1.0 / dx_axis)).reshape(G, 4, *bs)
+    div = ((F - sh(F, 1, ax)) * (1.0 / dx_axis)).reshape(G, 4, *bs)
+    return div if acc is None else acc.add_(div)
 
 
 def compute_rad_div(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
-                    dx_axis: float) -> torch.Tensor:
+                    dx_axis: float, acc: torch.Tensor | None = None) -> torch.Tensor:
     """K6 (`pallas_sweep.compute_rad_div_pallas`): the divergence
-    contribution of `axis`, [G, 4, X, Y, Z]."""
+    contribution of `axis`, [G, 4, X, Y, Z]; with `acc` [1, 4, X, Y, Z]
+    added onto it in place (one launch either way) and `acc` returned."""
     if not _on_cuda(cons_flat):
-        return rad_div_plain(cons_flat, axis, opts, dx_axis)
+        return rad_div_plain(cons_flat, axis, opts, dx_axis, acc)
     from .._cuda import check, library
 
     lib = library()
-    check_kernel_inputs(opts, 4, cons_flat)
+    check_kernel_inputs(opts, 4, cons_flat, acc)
     X, Y, Z = cons_flat.shape[1:]
+    if acc is not None:
+        if tuple(acc.shape) != (1, 4, X, Y, Z):
+            raise ValueError(f"acc has shape {tuple(acc.shape)}, expected {(1, 4, X, Y, Z)}")
+        if acc.untyped_storage().data_ptr() == cons_flat.untyped_storage().data_ptr():
+            raise ValueError("acc must not share memory with the state K6 reads")
     dx = [1.0, 1.0, 1.0]
     dx[axis] = dx_axis
     params = rad_params(opts, dx)
-    out = torch.empty((1, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
+    out = acc
+    if out is None:
+        out = torch.empty((1, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
     err = lib.qk_rad_div(cons_flat.data_ptr(), out.data_ptr(), X, Y, Z, axis,
-                         ctypes.addressof(params), _stream(cons_flat))
+                         int(acc is None), ctypes.addressof(params), _stream(cons_flat))
     check(err, "rad_div")
     launch_counts["rad_div"] += 1
     return out

@@ -197,15 +197,15 @@ def rad_transport_div(Ug: torch.Tensor, rad_start: int, opts: RadOptions,
     """Total transport divergence [G, 4, X, Y, Z] of the unpadded state:
     K6 per axis for a float32 state (its plain version for any other
     dtype, on the state's own device, as the JAX package sends non-f32
-    states to XLA), summed ((x + y) + z)."""
+    states to XLA), the first axis into a fresh output and each further
+    axis added onto it in place, which is the JAX sum ((x + y) + z)."""
     from .sweep import compute_rad_div, rad_div_plain
 
     cons_flat = Ug[rad_start:]
     div_fn = compute_rad_div if cons_flat.dtype == torch.float32 else rad_div_plain
     out = None
     for d in active_axes:
-        contrib = div_fn(cons_flat, d, opts, dx[d])
-        out = contrib if out is None else out + contrib
+        out = div_fn(cons_flat, d, opts, dx[d], acc=out)
     return out.reshape(opts.n_groups, 4, *Ug.shape[1:])
 
 

@@ -154,7 +154,8 @@ def test_step_profile_parts():
     assert sim.istep == 1 and torch.equal(sim.U, U1)
     parts["step"]()
     assert torch.equal(sim.U, U2)
-    names = {"rad_div_kernel(float const*)": "K6", "div_kernel(float const*)": "K2 divergence",
+    names = {"void qk::rad_div_tile_kernel<0>(float const*)": "K6",
+             "void qk::sweep_tile_kernel<0, 1>(float const*)": "K2",
              "rad_stage2_kernel": "K4 stage 2", "apply_kernel": "K3",
              "Memcpy DtoH (Device -> Pinned)": "copies",
              "void at::native::vectorized_elementwise_kernel": "plain torch"}
