@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of quokka_tpu_torch on one CUDA GPU: build the hand-written
 kernels, hold each against its plain PyTorch version at the main paths'
-shapes, compare small runs with the CPU, then run the five main paths on
+shapes, compare small runs with the CPU, then run the eight main paths on
 the card:
 
 - hydro: 10 steps of the Sedov 256^3 f32 blast from
@@ -21,16 +21,33 @@ the card:
 - packed AMR: the reference's AMR benchmark, the radhydro shell at 256^3 +
   2 levels of packed 16^3-tile pools f32 (`problems/radhydro_shell.py:
   DECK_256_PACKED`, the JAX package's bench.py:163-207 `run_amr_shell(
-  sparse=True)`, chunks of 512 tiles), one warm-up coarse step and one
-  timed: the root's seeded lean step (K1, K2e), the pool levels' batched
-  sweeps (K1, K2), K7, K5 and the row gathers (K9).
+  sparse=True)`, chunks of 512 tiles), one coarse step, timed with its
+  first-step costs (no warm-up step: it keeps the script within its time
+  limit): the root's seeded lean step (K1, K2e), the pool levels' batched
+  sweeps (K1, K2), K7, K5 and the row gathers (K9);
+- ShockCloud 256^3 f32 (`problems/shock_cloud.py:DECK_256`: user inflow
+  x-lo, outflow x-hi, periodic y and z), 10 steps through `Simulation` in
+  the hybrid ghost-free mode (x padded by the inflow hook; K1, K2, K3 on
+  the padded layout), phase 12;
+- Richtmyer-Meshkov on 256 x 256 x 64 f32 (`problems/hydro_suite.py:
+  DECK_RM_3D`: outflow x walls assembled in the kernels), 10 steps: K1
+  writes the outflow chi planes and every K2 sweep reads them, phase 13.
 
 Besides, phase 4 runs Sedov, Orszag-Tang and RadhydroBench (both
 radiation configurations) at 32^3 and the dense AMR shell at 16^3 + 1
 level in float64 on the card (the classic formulation, K8's plain form and
 the plain versions of K4-K7, as the JAX package takes XLA) against the
 CPU, with no kernel launched, and the packed engine at 32^3 + 1 and + 2
-pool levels.
+pool levels, the outflow and mixed walls' rough FOFC steps (fused and
+lean), ShockCloud and Richtmyer-Meshkov 3D at 32^3 f32 against the CPU,
+Richtmyer-Meshkov 2D at 64^2 in float64 against the CPU with no kernel
+launched, and the shocktube deck (`decks/shocktube.in`, 1D float64, plain
+torch on the card) with its error norm below 0.002.
+
+Phase 3 also holds K1's outflow chi planes bitwise and every K2 variant
+on outflow and mixed walls at their edge shapes (every side kind on every
+axis, rough states whose FOFC mask flags the wall cells), and times K1, K2
+(stage 1, stage 2) and K3 at the two new paths' shapes.
 
 Phase 3 also holds K2c/K2e's, K2's sweeps' (stage 1, first order, stage
 2, K2d: one tile kernel, `sweep_tile_kernel`) and K8's shared-memory tiles
@@ -49,7 +66,7 @@ its input variants (conserved and primitive input, reconstruct_eint,
 dmin alone), and both K4 stage kernels at small periodic extents (4^3,
 5^3, ragged tiles; PPM, PLM, donor cell; both opacity kinds); phase 11 holds
 the batched K5 to its plain version on main path 6's own first level-2
-chunk (captured in its warm-up step: stage 1 on the 2g-deep blocks with
+chunk (captured in its coarse step: stage 1 on the 2g-deep blocks with
 the ring mask, stage 2 on the crop, written into pool rows), and times
 it.
 
@@ -343,6 +360,11 @@ def main() -> int:
     from quokka_tpu_torch.radiation import source as rsource
     from quokka_tpu_torch.radiation import sweep as rsweep
     from quokka_tpu_torch.registry import BC_REFLECT
+    from quokka_tpu_torch import step_profile
+    from quokka_tpu_torch.problems import shock_cloud
+    from quokka_tpu_torch.problems.hydro_suite import (DECK_RM_3D,
+                                                       RichtmeyerMeshkovProblem)
+    from quokka_tpu_torch.problems.shocktube import ShocktubeProblem
 
     def release():
         """Free what the phase before left: reference cycles first (an AMR
@@ -469,6 +491,59 @@ def main() -> int:
                   lambda c: False, summary, failed)
     del warm, U_sedov, U_sedov2, U_rough, U_rough2, inputs
     release()
+
+    # the outflow variant at its edge shapes: every side kind on every axis
+    # (outflow, each reflect / outflow pair, periodic beside them), extents
+    # 4 and 5 and ragged tiles, rough states with jets at every wall and a
+    # FOFC mask that flags the wall cells; K1 and its chi planes bitwise
+    outflow_shapes = kernel_check.OUTFLOW_EDGE_SHAPES
+    run_cases("K1 outflow edge shapes (every side kind, rough walls), bitwise",
+              kernel_check.k1_wall_edge_cases(opts, "cuda"), lambda c: False, summary,
+              failed, bitwise)
+    for title, gen in (
+            ("K2 faces (PPM, first order)", kernel_check.face_wall_edge_cases(opts, "cuda")),
+            ("K2 sweeps (stage 1, first order, stage 2, K2d)",
+             kernel_check.sweep_edge_cases(opts, "cuda", shapes=outflow_shapes)),
+            ("K2c / K2e (every lean variant)",
+             kernel_check.lean_edge_cases(opts, "cuda", shapes=outflow_shapes))):
+        run_cases(f"{title} at the outflow edge shapes", gen, lambda c: False, summary,
+                  failed, ulps)
+    # the two new paths' shapes, timed beside the Sedov rows: Richtmyer-
+    # Meshkov 256 x 256 x 64 after 2 steps (outflow x walls: K1 writes the
+    # chi planes, every K2 sweep reads them) and ShockCloud 256^3 after 2
+    # steps on its hybrid layout (x padded to 264 by the inflow hook; K3
+    # reads the padded stage input at the interior)
+    new_paths = {}
+    for title, prob, deck in (
+            ("Richtmyer-Meshkov 256x256x64 after 2 steps, outflow x", RichtmeyerMeshkovProblem(),
+             DECK_RM_3D),
+            ("ShockCloud 256^3 after 2 steps, hybrid (x padded by 4)",
+             shock_cloud.ShockCloudProblem(), shock_cloud.DECK_256)):
+        wsim = Simulation(prob, ParmParse.from_string(deck, ["max_timesteps=2"]), device="cuda")
+        wsim.set_initial_conditions()
+        wsim.evolve()
+        gf, W0 = wsim._gf, wsim.U
+        W1 = wsim._step(W0, wsim.dt_prev)[0]
+        if gf["fill"] is not None:
+            W0, W1 = gf["fill"](W0), gf["fill"](W1)
+        wcases = list(kernel_check.cases(W0, W1, wsim.hydro_opts, gf["bc_kinds"],
+                                         wsim.dt_prev, gf["ng"]))
+        s1, s2 = new_summary(), new_summary()
+        run_cases(title, [c for c in wcases if "avg" not in c.label],
+                  lambda c: "first order" not in c.label, s1, failed, k3_counts_k1_bits)
+        run_cases(f"{title}: K2 stage 2", [c for c in wcases if "avg" in c.label],
+                  lambda c: True, s2, failed)
+        for k in KERNELS:
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], s1[k]["max_abs_err"],
+                                            s2[k]["max_abs_err"])
+        for what, a in (("K1", s1["transverse"]), ("K2 stage 1, 3 axes", s1["axis_flux"]),
+                        ("K2 stage 2, 3 axes", s2["axis_flux"]), ("K3", s1["apply_update"])):
+            print(f"  {what} at {tuple(W0.shape[1:])}: kernel {a['ms']:.3f} ms, plain "
+                  f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.3f} ms "
+                  f"({a['bytes'] / 1e9:.3f} GB, {a['ops'] / 1e9:.2f} GFLOP), library none")
+        new_paths[title] = (s1, s2)
+        del wsim, W0, W1, wcases
+        release()
 
     # the lean path at 512^3: K1 and K2c on main path 5's own states (Sedov
     # 512^3 after 2 steps, and one more RK2 step of it), every kernel input
@@ -879,6 +954,94 @@ def main() -> int:
             raise SystemExit(f"the forced lean step {shape} disagrees between GPU and CPU")
     del os.environ["QUOKKA_PALLAS_LEAN"], steps, Ug, Uc
 
+    print("-- rough 32^3 states on outflow and on mixed walls (reflect / outflow pairs), one "
+          "step through the FOFC fallback, fused and lean (QUOKKA_PALLAS_LEAN=1): GPU vs CPU")
+    for walls in ("outflow", "mixed"):
+        bc = kernel_check._bc_of(walls)
+        per = tuple(bc[d] is None for d in range(3))
+        U_w = kernel_check.rough_wall_state((32, 32, 32), 41, "cpu")
+        for lean in ("0", "1"):
+            os.environ["QUOKKA_PALLAS_LEAN"] = lean
+            reset_counts()
+            steps = {dev: advance_hydro_rk2(U_w.to(dev), 0.2 / 32, small_opts, None, (0, 0, 0),
+                                            per, bc_kinds=bc) for dev in ("cuda", "cpu")}
+            counts = read_counts()
+            (Ug, sg), (Uc, sc) = steps["cuda"], steps["cpu"]
+            ok, max_abs, max_rel = kernel_check.compare(Ug.cpu(), Uc)
+            form = "lean" if lean == "1" else "fused"
+            print(f"  {'ok  ' if ok else 'FAIL'} {walls} {form}: FOFC GPU {sg['fofc_fallbacks']} "
+                  f"fallbacks / {int(sg['n_fofc'])} cells, CPU {sc['fofc_fallbacks']} / "
+                  f"{int(sc['n_fofc'])}; launches K1 {counts['transverse']} K2 "
+                  f"{counts['axis_flux']} K2c {counts['axis_flux_lean']} K3 "
+                  f"{counts['apply_update']}; state max_abs {max_abs:.3e} max_rel {max_rel:.3e}")
+            if not (ok and sg["fofc_fallbacks"] >= 1 and counts["transverse"] > 0
+                    and (sg["fofc_fallbacks"], int(sg["n_fofc"])) == (sc["fofc_fallbacks"],
+                                                                      int(sc["n_fofc"]))):
+                raise SystemExit(f"the rough {walls} {form} step disagrees between GPU and CPU")
+    del os.environ["QUOKKA_PALLAS_LEAN"], steps, Ug, Uc
+
+    print("-- ShockCloud 32^3 (hybrid: x padded by the inflow hook) and Richtmyer-Meshkov "
+          "32 x 32 x 8 (outflow x walls in the kernels) f32, 5 steps: GPU kernels vs CPU plain "
+          "versions within 1e-5 x each component's max (the Sedov bar)")
+    for title, prob, deck, cells in (
+            ("ShockCloud", shock_cloud.ShockCloudProblem(), shock_cloud.DECK_256, "32 32 32"),
+            ("Richtmyer-Meshkov 3D", RichtmeyerMeshkovProblem(), DECK_RM_3D, "32 32 8")):
+        fin = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            sim = Simulation(prob, ParmParse.from_string(deck, [
+                f"amr.n_cell={cells}", "max_timesteps=5"]), device=dev)
+            sim.set_initial_conditions()
+            sim.evolve()
+            fin[dev] = sim.U.double().cpu()
+            counts = read_counts()
+            print(f"  {title} {dev}: ng {sim._gf['ng']}, {sim.istep} steps, t {sim.t:.9e}, FOFC "
+                  f"{sim.fofc_fallbacks} fallbacks / {sim.fofc_cells} cells; launches K1 "
+                  f"{counts['transverse']} K2 {counts['axis_flux']} K3 "
+                  f"{counts['apply_update']}")
+        if any(read_counts()[k] for k in HYDRO_KEYS):
+            raise SystemExit(f"{title} on the CPU launched a kernel")
+        gpu_vs_cpu(fin["cuda"], fin["cpu"], f"{title} GPU vs CPU", 0.0, 1e-5)
+
+    print("-- fewer than three axes on the card (plain torch, as the JAX package takes XLA): "
+          "Richtmyer-Meshkov 2D 64^2 and the shocktube deck's first 5 steps in f64, GPU vs "
+          "CPU within 1e-12 x each component's max, no kernel launched; the shocktube deck "
+          "(decks/shocktube.in, 1024 cells, PPM, t = 0.4) f64 on the card to its end, error "
+          "norm < 0.002")
+    tube_deck = str(ROOT / "decks" / "shocktube.in")
+    low = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        sim = Simulation(RichtmeyerMeshkovProblem(), ParmParse.from_string(
+            "amr.n_cell = 64 64 1\ncfl = 0.4\nstop_time = 10.0\nmax_timesteps = 5\n"
+            "verbose = 0\nprecision = double\n"), device=dev)
+        sim.set_initial_conditions()
+        sim.evolve()
+        tube = Simulation(ShocktubeProblem(), ParmParse.from_file(
+            tube_deck, overrides=["verbose=0", "max_timesteps=5"]), device=dev)
+        tube.set_initial_conditions()
+        tube.evolve()
+        low[dev] = (sim.U.cpu(), tube.U.cpu(), sum(read_counts().values()))
+        print(f"  {dev}: RM 2D {sim.istep} steps t {sim.t:.9e}; shocktube {tube.istep} steps "
+              f"t {tube.t:.9e}; kernel launches {low[dev][2]}")
+    gpu_vs_cpu(low["cuda"][0], low["cpu"][0], "Richtmyer-Meshkov 2D f64 GPU vs CPU", 0.0, 1e-12)
+    gpu_vs_cpu(low["cuda"][1], low["cpu"][1], "shocktube 5 steps f64 GPU vs CPU", 0.0, 1e-12)
+    reset_counts()
+    t0 = time.perf_counter()
+    tube = Simulation(ShocktubeProblem(), ParmParse.from_file(tube_deck,
+                                                              overrides=["verbose=0"]))
+    tube.set_initial_conditions()
+    tube.evolve()
+    tube_launches = sum(read_counts().values())
+    print(f"  the shocktube deck on the card: {tube.istep} steps to t {tube.t:.9e} in "
+          f"{time.perf_counter() - t0:.1f} s, error norm {tube.error_norm:.6e} (limit 0.002); "
+          f"kernel launches {tube_launches}")
+    if low["cuda"][2] != 0 or tube_launches != 0:
+        raise SystemExit("a run with fewer than three axes launched a kernel")
+    if not tube.error_norm < 0.002:
+        raise SystemExit(f"the shocktube's error norm {tube.error_norm:.6e} is not < 0.002")
+    del low, sim, tube
+
     print("-- RadhydroBench 32^3 f32, 3 steps: GPU vs CPU, fused (A) and per-stage (B)")
     rad_finals = {}
     for fused in (1, 0):
@@ -1256,7 +1419,8 @@ def main() -> int:
     # has 64: at 64 the host's launch rate bounds a coarse step, which this
     # script's time cannot afford (radhydro_shell.CARD_PACKED_CHUNK)
     phase("10. main path 6: the reference's AMR benchmark, radhydro shell 256^3 + 2 packed "
-          "16^3-tile pool levels f32, 1 warm-up and 1 timed coarse step (bench.py:163-207 "
+          "16^3-tile pool levels f32, 1 coarse step, timed with its first-step costs "
+          "(bench.py:163-207 "
           "deck, DECK_256_PACKED, with amr.packed_chunk = 512)")
     sim = AMRSimulation(radhydro_shell.RadhydroShellProblem(),
                         ParmParse.from_string(radhydro_shell.DECK_256_PACKED, [
@@ -1269,7 +1433,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"initial conditions and the two pool levels built in "
           f"{time.perf_counter() - t0:.3f} s")
-    # the K5 inputs of the warm-up step's first level-2 chunk (both stages),
+    # the K5 inputs of the coarse step's first level-2 chunk (both stages),
     # cloned as the chunk runs: phase 11 holds K5 to its plain version on
     # them, the shell's own mix of Newton iterations
     shell_k5 = {}
@@ -1293,7 +1457,7 @@ def main() -> int:
     rsource.source_update_batched = coupling_capture
     try:
         reset_counts()
-        mz_packed, mz_packed_raw, secs = bench_amr_shell(sim, n_warmup=1, n_steps=1)
+        mz_packed, mz_packed_raw, secs = bench_amr_shell(sim, n_warmup=0, n_steps=1)
         packed_launches = read_counts()
     finally:
         psweep.fused_rad_subcycle_packed = level_subcycle
@@ -1305,7 +1469,7 @@ def main() -> int:
         for st in sim.level_pool[1:sim.finest_level + 1])
     print(f"FOM: {mz_packed:.3f} active Mzone-updates/s, raw {mz_packed_raw:.3f} "
           f"Mzone-updates/s (the root's cells and the pools' tiles), 1 coarse step in "
-          f"{secs:.3f} s after 1, t = {sim.t:.6e}, on {smi} (the reference's 4 x V100 "
+          f"{secs:.3f} s, the first, t = {sim.t:.6e}, on {smi} (the reference's 4 x V100 "
           "figure: 4.95 Mzones/GPU/s)")
     for lev in range(1, sim.finest_level + 1):
         st = sim.level_pool[lev]
@@ -1320,7 +1484,7 @@ def main() -> int:
           f"{rel[4]:.3e}; finite states {finite}")
     print("launches in this path: " + ", ".join(f"{k} {packed_launches[k]}"
                                                  for k in PACKED_KEYS))
-    if sim.istep != 2 or sim.finest_level != 2 or not finite:
+    if sim.istep != 1 or sim.finest_level != 2 or not finite:
         raise SystemExit(f"packed AMR main path: {sim.istep} coarse steps, finest level "
                          f"{sim.finest_level}, finite states {finite}")
     if not abs(rel[0]) < 1e-5:
@@ -1332,7 +1496,7 @@ def main() -> int:
     release()
 
     # ---- 11. K5 on the packed shell's own chunk
-    phase("11. K5 on main path 6's first level-2 chunk (captured in its warm-up step): "
+    phase("11. K5 on main path 6's first level-2 chunk (captured in its coarse step): "
           "stage 1 on the 2g-deep blocks with the ring mask, stage 2 on the crop, "
           "written into pool rows")
     if "stage2" not in shell_k5:
@@ -1363,6 +1527,57 @@ def main() -> int:
           f"{a['ops'] / 1e9:.2f} GFLOP), library none")
     del shell_k5, s1, s2, pools, k5_cases
     release()
+
+    # ---- 12, 13. the outflow and user walls' main paths
+    for num, title, prob, deck in (
+            (12, "main path 7: ShockCloud 256^3 f32, 10 steps, hybrid ghost-free (x padded by "
+             "the inflow hook: user x-lo, outflow x-hi; y, z periodic)",
+             shock_cloud.ShockCloudProblem(), shock_cloud.DECK_256),
+            (13, "main path 8: Richtmyer-Meshkov 256 x 256 x 64 f32, 10 steps, outflow x walls "
+             "assembled in the kernels (K1's chi planes read by every K2 sweep)",
+             RichtmeyerMeshkovProblem(), DECK_RM_3D)):
+        phase(f"{num}. {title}")
+        sim = Simulation(prob, ParmParse.from_string(deck, ["max_timesteps=10", "verbose=1"]),
+                         device="cuda")
+        held = torch.cuda.memory_allocated() / 2**30
+        print(f"held before the path: {held:.2f} GiB; stepping: ng {sim._gf['ng']}, walls "
+              f"{sim._gf['bc_kinds']}")
+        sim.set_initial_conditions()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sim.evolve()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        nsteps, wall, fofc = sim.istep, sim.elapsed_walltime, (sim.fofc_fallbacks,
+                                                                sim.fofc_cells)
+        finite = bool(torch.isfinite(sim.U).all())
+        rho_min = float(sim.U[0].min())
+        if nsteps != 10 or not finite or not rho_min > 0.0:
+            raise SystemExit(f"main path {num}: {nsteps} steps, finite state {finite}, "
+                             f"min density {rho_min:.3e}")
+        # one more step under the profiler: its device time by kernel
+        by_kernel, _ = step_profile.device_ms(step_profile._parts(sim)["step"], 1)
+        dev_ms = sum(by_kernel.values())
+        print(f"wall time: {wall / nsteps * 1e3:.3f} ms a step over {nsteps} steps "
+              f"({wall:.3f} s, first step included), FOM "
+              f"{sim.zone_updates_per_second / 1e6:.3f} Mzone-updates/s, on {smi}")
+        print(f"device time of one more step (torch.profiler; FOFC fallbacks "
+              f"{sim.fofc_fallbacks - fofc[0]} in it): {dev_ms:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items(),
+                                                             key=lambda kv: -kv[1])))
+        print(f"peak device memory: {peak:.2f} GiB ({peak - held:.2f} GiB above what the "
+              "phases before held)")
+        print(f"FOFC: {fofc[0]} stage fallbacks, {fofc[1]} invalid cells in {nsteps} steps; "
+              f"min density {rho_min:.6e}; finite state {finite}")
+        print(f"launches in this path: {launches}")
+        missing = [k for k in HYDRO_KEYS if launches[k] <= 0]
+        unprofiled = [k for k in ("K1", "K2", "K3") if by_kernel.get(k, 0.0) <= 0.0]
+        if missing or unprofiled:
+            raise SystemExit(f"main path {num}: kernels not launched {missing}, not in the "
+                             f"profiled step {unprofiled}")
+        del sim
+        release()
+
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 

@@ -472,7 +472,7 @@ def time_faces(torch, args, times, checks, errors, variants=None):
         if fo:
             dmins, chi = {}, None
         else:
-            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)
+            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)[:2]
         for d in range(3):
             vax, wax = sweep._transverse_axes(d, 3)
             bc_axis = None if bc is None else bc[d]
@@ -543,7 +543,7 @@ def dump_faces(torch, path, only=("k2",)):
         bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
         for extra in ({}, {"K_visc": 0.1, "reconstruct_eint": True}):
             opts = dataclasses.replace(hydro_opts(8), **extra)
-            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)
+            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)[:2]
             for fo in (False, True):
                 for d in range(3):
                     vax, wax = sweep._transverse_axes(d, 3)
@@ -606,7 +606,7 @@ def time_k1(torch, args, times, checks, errors):
         opts = hydro_opts(U5.shape[-1])
         times[label] = kernel_check.time_ms(lambda: sweep._transverse_cuda(U5, opts, bc, True))
         if args.check:
-            got = sweep._transverse_cuda(U5, opts, bc, True)
+            got = sweep._transverse_cuda(U5, opts, bc, True)[:2]
             if U5.shape[0] == 1:
                 ref = kernel_check.plain_transverse(U5[0], opts, bc or {},
                                                     nslab=4 if U5.shape[-1] > 300 else 1)
@@ -738,7 +738,7 @@ def dump_k1_k4(torch, out):
         bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
         for extra in ({}, {"reconstruct_eint": True}, {"reconstruction_order": 2}):
             opts = dataclasses.replace(hydro_opts(8), **extra)
-            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)
+            dmins, chi = sweep._transverse_cuda(U5, opts, bc, True)[:2]
             out[f"K1 B {nb} {shape}{' walls' if walls else ''} {extra or ''}"] = [
                 dmins[t].cpu() for t in sorted(dmins)] + ([] if chi is None else [chi.cpu()])
     eos = IdealGasEOS(gamma=5.0 / 3.0, mean_molecular_weight=1.0, boltzmann_constant=1.0)

@@ -35,17 +35,17 @@ build_info: dict = {}
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "qk_transverse": [_P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I, _I,
-                      _F, _F, _F, _F, _I, _I, _I, _I, _P],
+    "qk_transverse": [_P] * 11 + [_L, _L, _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                                  _I, _I, _P],
     "qk_transverse_smem": [_I, _I],
-    "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
+    "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
-    "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
+    "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
                      _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
     "qk_lean_smem": [_I, _I],
-    "qk_axis_sweep": [_P] * 15 + [_L, _L, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+    "qk_axis_sweep": [_P] * 17 + [_L, _L, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                                   _F, _F, _F, _F, _I, _P],
-    "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+    "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
                  _F, _F, _F, _F, _I, _P],
     # radiation kernels: the last pointer before the stream is a host
     # `RadParams` (radiation/sweep.py), copied into the launch by value

@@ -12,6 +12,13 @@
 // dt is read from device memory, so a step whose dt was computed on the
 // card needs no host round trip to launch this kernel.
 //
+// Padded stage inputs: Ug0 and the divergences may be ghost-padded along x
+// (a hook-filled x axis stepped in the hybrid ghost-free mode,
+// hydro/advance.py): component c of cell i is then read at c * pstride +
+// poff + i, pstride the padded block's cells and poff the x ghosts' cells
+// before the interior (pstride = ncell, poff = 0 unpadded); U and the
+// output are the interior.
+//
 // Validity: an int32 count of invalid cells, kept with atomicAdd. Callers
 // use only "any invalid" to gate the FOFC fallback. The JAX kernel keeps
 // per-(8 x 8 x Z)-block flags instead, so the n_fofc statistic of the port
@@ -40,25 +47,27 @@ __global__ void apply_kernel(const float* __restrict__ U,
                              const float* __restrict__ v2,
                              const float* __restrict__ dt_ptr,
                              float* __restrict__ out, int* __restrict__ n_bad,
-                             int64_t ncell, float density_floor,
+                             int64_t ncell, int64_t pstride, int64_t poff,
+                             float density_floor,
                              float temperature_floor, float c_v, float gm1,
                              int dual_energy) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ncell) return;
   const float dt = *dt_ptr;
+  const int64_t ip = poff + i;  // the cell in the padded inputs
 
   float rhs[NV];
 #pragma unroll
   for (int c = 0; c < NV; ++c)
-    rhs[c] = (d0[c * ncell + i] + d1[c * ncell + i]) + d2[c * ncell + i];
-  const float dv = (v0[i] + v1[i]) + v2[i];
+    rhs[c] = (d0[c * pstride + ip] + d1[c * pstride + ip]) + d2[c * pstride + ip];
+  const float dv = (v0[ip] + v1[ip]) + v2[ip];
 
   // PdV source on the EINT slot (euler.pressure of the stage's input state)
-  const float g_rho = Ug0[i];
-  const float g1 = Ug0[ncell + i], g2 = Ug0[2 * ncell + i],
-              g3 = Ug0[3 * ncell + i];
+  const float g_rho = Ug0[ip];
+  const float g1 = Ug0[pstride + ip], g2 = Ug0[2 * pstride + ip],
+              g3 = Ug0[3 * pstride + ip];
   const float g_ke = (0.5f * ((g1 * g1 + g2 * g2) + g3 * g3)) / g_rho;
-  const float P = gm1 * (Ug0[4 * ncell + i] - g_ke);
+  const float P = gm1 * (Ug0[4 * pstride + ip] - g_ke);
   rhs[5] = rhs[5] - P * dv;
 
   float u[NV];
@@ -107,11 +116,12 @@ extern "C" int qk_apply(const float* U, const float* Ug0, const float* d0,
                         const float* d1, const float* d2, const float* v0,
                         const float* v1, const float* v2, const float* dt,
                         float* out, int* n_bad, long long ncell,
-                        float density_floor, float temperature_floor,
-                        float c_v, float gm1, int dual_energy, void* stream) {
+                        long long pstride, long long poff, float density_floor,
+                        float temperature_floor, float c_v, float gm1,
+                        int dual_energy, void* stream) {
   const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
   qk::apply_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
-      U, Ug0, d0, d1, d2, v0, v1, v2, dt, out, n_bad, ncell, density_floor,
+      U, Ug0, d0, d1, d2, v0, v1, v2, dt, out, n_bad, ncell, pstride, poff, density_floor,
       temperature_floor, c_v, gm1, dual_energy);
   return (int)cudaGetLastError();
 }

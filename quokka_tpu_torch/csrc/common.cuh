@@ -24,6 +24,7 @@ namespace qk {
 constexpr int NV = 6;  // RHO, MX1, MX2, MX3, EGAS, EINT
 constexpr int BC_PERIODIC = 0;
 constexpr int BC_REFLECT = 1;
+constexpr int BC_OUTFLOW = 2;
 constexpr int THREADS = 256;
 
 // Gamma-law constants, each rounded once from its double expression.
@@ -92,19 +93,21 @@ __device__ __forceinline__ float minmod(float a, float b) {
 // Cell index along a sweep axis of length n, through the wall map:
 // periodic wraps, reflect mirrors (ghost g_j = cell j on the lo side, cell
 // n-1-j on the hi side) and sets `flip` (the normal velocity or momentum
-// changes sign). |c| stays within 4 of the domain, and n >= 4.
+// changes sign), outflow clamps to the edge cell (no flip). |c| stays
+// within 4 of the domain, and n >= 4. Reflect and outflow share one
+// select: a branch for each cost K1's march 3-4% on the H100 (PERF.md).
 __device__ __forceinline__ int64_t map_cell(int64_t c, int64_t n, int lo,
                                             int hi, bool& flip) {
   flip = false;
   if (c < 0) {
     if (lo == BC_PERIODIC) return c + n;
-    flip = true;
-    return -1 - c;
+    flip = lo == BC_REFLECT;
+    return flip ? -1 - c : 0;
   }
   if (c >= n) {
     if (hi == BC_PERIODIC) return c - n;
-    flip = true;
-    return 2 * n - 1 - c;
+    flip = hi == BC_REFLECT;
+    return flip ? 2 * n - 1 - c : n - 1;
   }
   return c;
 }
@@ -152,6 +155,22 @@ __device__ __forceinline__ float load_field(const float* __restrict__ A,
                                             int hi) {
   bool flip;
   return A[base + map_cell(c, n, lo, hi, flip) * stride];
+}
+
+// chi_cell at sweep coordinate c: load_field, except that the
+// wall-adjacent ghost of an outflow side (c = -1 or c = n) reads its exact
+// plane (K1's outflow planes, `hydro.sweep.outflow_chi_planes`) at plane
+// offset `poff`, where that plane is given; the other outflow ghosts copy
+// the edge cell.
+__device__ __forceinline__ float load_chi(const float* __restrict__ chi,
+                                          const float* __restrict__ glo,
+                                          const float* __restrict__ ghi,
+                                          int64_t base, int64_t stride,
+                                          int64_t poff, int64_t c, int64_t n,
+                                          int lo, int hi) {
+  if (c == -1 && glo != nullptr) return glo[poff];
+  if (c == n && ghi != nullptr) return ghi[poff];
+  return load_field(chi, base, stride, c, n, lo, hi);
 }
 
 // Shared-memory index of (along j, line i) in a tile with n_along entries

@@ -3,10 +3,21 @@
 //
 // Replaces quokka_tpu/hydro/pallas_sweep.py::compute_axis_flux_pallas (the
 // pallas_call at :1148, body _sweep_body :314) for the variants the unigrid
-// main paths run: wall (reflect) or periodic axes, the divergence outputs
+// main paths run: wall or periodic axes, the divergence outputs
 // (dx_axis), the stage-2 time average (avg_with), conserved input
 // (state_is_cons), the first-order FOFC fluxes (donor cell + LLF), and the
 // lean div-only sweep (K2c, below).
+//
+// Walls (`lo`, `hi`: common.cuh BC_*): a reflecting side mirrors the cells
+// and flips the normal momentum, an outflow side copies the edge cell
+// (map_cell), the two kinds freely mixed on one axis (reflect lo, outflow
+// hi). On an outflow side chi_cell's wall-adjacent ghost (cell -1 or n) is
+// read from K1's exact plane `chi_glo` / `chi_ghi` (pallas_sweep.py:828-843,
+// :963-970; common.cuh load_chi), its other ghosts copy the edge cell, as
+// do the dmin ghosts (:972-974); every K2 variant stages its cells through
+// `stage_prims` and `reconstruct_cells`, so each takes them at once. The hi
+// wall's face (slot n) goes to flux_hi / vel_hi on either kind, and the
+// FOFC mask counts every wall ghost unflagged.
 //
 // face kernel (`face_tile_kernel`): a thread block owns a tile of `ta`
 //   faces along the axis by `tw` lines across it (the lines run along z,
@@ -450,9 +461,12 @@ __device__ __forceinline__ void stage_prims(const Tile<I>& t, int nfaces,
 // Phase 2: the chi-blended PPM face states (minus, plus) of the nfaces + 1
 // cells the faces touch (a0-1 .. a0+nfaces-1), each reconstructed once,
 // into qm_s / qp_s [NV][cap_r], and their dmin values into dv_s / dw_s.
+// chi_glo / chi_ghi: the outflow sides' wall-adjacent chi planes
+// (common.cuh: load_chi), or nullptr.
 template <int axis, typename I>
 __device__ __forceinline__ void reconstruct_cells(
     const Tile<I>& t, int nfaces, const float* __restrict__ chi,
+    const float* __restrict__ chi_glo, const float* __restrict__ chi_ghi,
     const float* __restrict__ dminv, const float* __restrict__ dminw, int lo, int hi,
     const float* prim_s, int cap_s, float* qm_s, float* qp_s, float* dv_s, float* dw_s,
     int cap_r) {
@@ -466,7 +480,9 @@ __device__ __forceinline__ void reconstruct_cells(
     const int s = tix<axis>(r + 2, i, ns, t.lines);
     const int sa = axis == 2 ? 1 : t.lines;  // staged neighbour along the axis
     float chi_c = 1.0f;
-    if (chi != nullptr) chi_c = load_field(chi, lbase, t.stride_a, a, t.n, lo, hi);
+    if (chi != nullptr)
+      chi_c = load_chi(chi, chi_glo, chi_ghi, lbase, t.stride_a,
+                       (int64_t)t.fixed * t.n_across + t.c0 + i, a, t.n, lo, hi);
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
       const float* w = prim_s + c * cap_s + s;
@@ -516,6 +532,7 @@ __device__ __forceinline__ void tile_hllc(int fa, int i, int nfaces, int lines,
 template <int axis>
 __global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
     const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ chi_glo, const float* __restrict__ chi_ghi,
     const float* __restrict__ dminv, const float* __restrict__ dminw,
     float* __restrict__ F, float* __restrict__ vel, float* __restrict__ F_hi,
     float* __restrict__ vel_hi, int X, int Y, int Z, int lo, int hi,
@@ -542,8 +559,8 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) face_tile_kernel(
 
   stage_prims<axis>(t, t.count, Q, ncell, lo, hi, is_cons, e, prim_s, cap_s);
   __syncthreads();
-  reconstruct_cells<axis>(t, t.count, chi, dminv, dminw, lo, hi, prim_s, cap_s, qm_s, qp_s,
-                          dv_s, dw_s, cap_r);
+  reconstruct_cells<axis, int>(t, t.count, chi, chi_glo, chi_ghi, dminv, dminw, lo,
+                                        hi, prim_s, cap_s, qm_s, qp_s, dv_s, dw_s, cap_r);
   __syncthreads();
 
   // 3. HLLC at faces a0 .. a0+faces-1
@@ -638,6 +655,7 @@ constexpr int TILE_AVG = 2;
 template <int axis, int mode>
 __device__ __forceinline__ void tile_sweep(
     const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ chi_glo, const float* __restrict__ chi_ghi,
     const float* __restrict__ dminv, const float* __restrict__ dminw,
     const float* __restrict__ mask, const float* __restrict__ fo, float* div, float* dvel,
     const float* __restrict__ cmask, float* corr, float* __restrict__ F,
@@ -678,8 +696,8 @@ __device__ __forceinline__ void tile_sweep(
   stage_prims<axis>(t, nf, Q, ncell, lo, hi, is_cons, e, prim_s, cap_s);
   __syncthreads();
   if (!first_order)
-    reconstruct_cells<axis>(t, nf, chi, dminv, dminw, lo, hi, prim_s, cap_s, qm_s, qp_s,
-                            dv_s, dw_s, cap_r);
+    reconstruct_cells<axis>(t, nf, chi, chi_glo, chi_ghi, dminv, dminw, lo, hi, prim_s,
+                            cap_s, qm_s, qp_s, dv_s, dw_s, cap_r);
   __syncthreads();
 
   // 3. each face once: HLLC, or LLF next to a flagged cell
@@ -789,12 +807,14 @@ __device__ __forceinline__ void tile_sweep(
 template <int axis>
 __global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
     const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ chi_glo, const float* __restrict__ chi_ghi,
     const float* __restrict__ dminv, const float* __restrict__ dminw,
     const float* __restrict__ mask, const float* __restrict__ fo, float* div, float* dvel,
     const float* __restrict__ cmask, float* corr, int64_t X, int64_t Y, int64_t Z, int lo,
     int hi, int is_cons, int first_order, float K_visc, float dx, int accumulate,
     int corr_accumulate, int ta, int tw, Eos e) {
-  tile_sweep<axis, TILE_LEAN>(Q, chi, dminv, dminw, mask, fo, div, dvel, cmask, corr,
+  tile_sweep<axis, TILE_LEAN>(Q, chi, chi_glo, chi_ghi, dminv, dminw, mask, fo, div, dvel,
+                              cmask, corr,
                               nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                               nullptr, nullptr, X, Y, Z, lo, hi, is_cons, first_order, K_visc,
                               dx, accumulate, corr_accumulate, ta, tw, e);
@@ -807,6 +827,7 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) lean_tile_kernel(
 template <int axis, int mode>
 __global__ void __launch_bounds__(FACE_THREADS, 4) sweep_tile_kernel(
     const float* __restrict__ Q, const float* __restrict__ chi,
+    const float* __restrict__ chi_glo, const float* __restrict__ chi_ghi,
     const float* __restrict__ dminv, const float* __restrict__ dminw, float* __restrict__ div,
     float* __restrict__ dvel, float* __restrict__ F, float* __restrict__ vel,
     float* __restrict__ F_hi, float* __restrict__ vel_hi, const float* __restrict__ F1,
@@ -814,7 +835,8 @@ __global__ void __launch_bounds__(FACE_THREADS, 4) sweep_tile_kernel(
     const float* __restrict__ v1_hi, float* __restrict__ favg, int64_t X, int64_t Y,
     int64_t Z, int lo, int hi, int is_cons, int first_order, float K_visc, float dx, int ta,
     int tw, Eos e) {
-  tile_sweep<axis, mode>(Q, chi, dminv, dminw, nullptr, nullptr, div, dvel, nullptr, nullptr,
+  tile_sweep<axis, mode>(Q, chi, chi_glo, chi_ghi, dminv, dminw, nullptr, nullptr, div, dvel,
+                         nullptr, nullptr,
                          F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, favg, X, Y, Z, lo, hi,
                          is_cons, first_order, K_visc, dx, 0, 0, ta, tw, e);
 }
@@ -826,8 +848,8 @@ extern "C" int qk_lean_smem(int ta, int tw) {
 }
 
 // K2c / K2e along one axis in tiles of ta cells by tw lines.
-extern "C" int qk_axis_lean(const float* Q, const float* chi,
-                            const float* dminv, const float* dminw,
+extern "C" int qk_axis_lean(const float* Q, const float* chi, const float* chi_glo,
+                            const float* chi_ghi, const float* dminv, const float* dminw,
                             const float* mask, const float* fo, float* div,
                             float* dvel, const float* cmask, float* corr,
                             long long X, long long Y, long long Z,
@@ -851,7 +873,8 @@ extern "C" int qk_axis_lean(const float* Q, const float* chi,
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)tiles, qk::FACE_THREADS, smem, (cudaStream_t)stream>>>(
-      Q, chi, dminv, dminw, mask, fo, div, dvel, cmask, corr, X, Y, Z, lo, hi, is_cons,
+      Q, chi, chi_glo, chi_ghi, dminv, dminw, mask, fo, div, dvel, cmask, corr, X, Y, Z, lo,
+      hi, is_cons,
       first_order, K_visc, dx, accumulate, corr_accumulate, ta, tw, e);
   return (int)cudaGetLastError();
 }
@@ -859,8 +882,8 @@ extern "C" int qk_axis_lean(const float* Q, const float* chi,
 // The face kernels of one axis over a batch [nbatch, 6, X, Y, Z] (nbatch 1
 // on a wall axis), in tiles of ta faces by tw lines (`face_tile_kernel`,
 // or `fo_face_kernel` for the first-order fluxes).
-extern "C" int qk_axis_flux(const float* Q, const float* chi,
-                            const float* dminv, const float* dminw, float* F,
+extern "C" int qk_axis_flux(const float* Q, const float* chi, const float* chi_glo,
+                            const float* chi_ghi, const float* dminv, const float* dminw, float* F,
                             float* vel, float* F_hi, float* vel_hi, long long X,
                             long long Y, long long Z, long long nbatch,
                             int axis, int lo, int hi,
@@ -894,16 +917,17 @@ extern "C" int qk_axis_flux(const float* Q, const float* chi,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<blocks, qk::FACE_THREADS, smem, st>>>(Q, chi, dminv, dminw, F, vel, F_hi,
-                                                 vel_hi, (int)X, (int)Y, (int)Z, lo, hi,
-                                                 is_cons, K_visc, ta, tw, e);
+  kernel<<<blocks, qk::FACE_THREADS, smem, st>>>(Q, chi, chi_glo, chi_ghi, dminv, dminw, F,
+                                                 vel, F_hi, vel_hi, (int)X, (int)Y, (int)Z,
+                                                 lo, hi, is_cons, K_visc, ta, tw, e);
   return (int)cudaGetLastError();
 }
 
 // K2's sweep with a divergence along one axis in tiles of ta cells by tw
 // lines (`sweep_tile_kernel`): with F (stage 1) the faces are written out,
 // with F1 (stage 2, K2d) averaged with; exactly one of the two is given.
-extern "C" int qk_axis_sweep(const float* Q, const float* chi, const float* dminv,
+extern "C" int qk_axis_sweep(const float* Q, const float* chi, const float* chi_glo,
+                             const float* chi_ghi, const float* dminv,
                              const float* dminw, float* div, float* dvel, float* F,
                              float* vel, float* F_hi, float* vel_hi, const float* F1,
                              const float* v1, const float* F1_hi, const float* v1_hi,
@@ -932,7 +956,8 @@ extern "C" int qk_axis_sweep(const float* Q, const float* chi, const float* dmin
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned)tiles, qk::FACE_THREADS, smem, (cudaStream_t)stream>>>(
-      Q, chi, dminv, dminw, div, dvel, F, vel, F_hi, vel_hi, F1, v1, F1_hi, v1_hi, favg, X,
+      Q, chi, chi_glo, chi_ghi, dminv, dminw, div, dvel, F, vel, F_hi, vel_hi, F1, v1, F1_hi,
+      v1_hi, favg, X,
       Y, Z, lo, hi, is_cons, first_order, K_visc, dx, ta, tw, e);
   return (int)cudaGetLastError();
 }

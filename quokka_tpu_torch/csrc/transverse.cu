@@ -11,16 +11,26 @@
 // chi_t the Miller & Colella flattening coefficient along t
 // (reconstruct.flattening_chi), over the active axes in their order, with
 // the NaN-propagating min (what the JAX package folds in XLA). No per-axis
-// chi leaves the kernel: its one reader in the JAX package, the exact
-// outflow ghost planes, has no counterpart (outflow walls are refused).
+// chi leaves the kernel. Its one reader in the JAX package, the exact
+// outflow ghost planes (pallas_sweep.py:215-245), is K1's second pass,
+// launched after the march only when a side is an outflow side: for each
+// outflow side of an axis d it writes the plane
+//   ghost_d = min(chi_d(edge), min over t != d of m3_t(edge)),
+// the chi_cell of the wall-adjacent ghost cell that K2 reads there
+// (hydro.sweep.outflow_chi_planes), one thread an edge cell, from the
+// state (19 cells a plane cell with three axes; the planes hold 1/n of the
+// cells). Folded into the march instead, the planes' code cost every
+// launch of the march, outflow or not, 2-80% on the H100 (PERF.md): the
+// march is held at 80 registers and its spills move with any code added.
 //
 // Batched: blockIdx.y picks a block of a [B, 6, X, Y, Z] chunk (the packed
 // AMR engine's ghost-padded tiles, one launch a chunk).
 //
 // Walls are never stored: a cell outside the domain along one axis is read
-// through the reflect/periodic index map (common.cuh: map_cell) and a
-// mirrored read flips that axis's velocity, which reproduces the JAX
-// kernel's in-VMEM ghost assembly value for value. With is_cons the input
+// through the periodic/reflect/outflow index map (common.cuh: map_cell); a
+// mirrored read flips that axis's velocity and an outflow read copies the
+// edge cell, which reproduces the JAX kernel's in-VMEM ghost assembly value
+// for value. With is_cons the input
 // is the conserved state and cons->prim runs once a staged cell.
 //
 // Design: a march along x. A block owns a TY x TZ column tile and walks SX
@@ -53,13 +63,17 @@ namespace qk {
 constexpr int K1_THREADS = 256;
 constexpr int K1_SMEM_MAX = 48 * 1024;   // bytes of shared memory a block takes at most
 
+// The march's parameters, the fields of its form before outflow walls:
+// six plane pointers and an outflow word appended here, unused, cost every
+// launch 4-5% on the H100 (PERF.md), so the outflow bits share `walls` and
+// the planes are the second pass's parameters (K1Planes).
 struct K1Args {
   const float* U;
   float* dmin[3];  // one [B, X, Y, Z] field an active axis, else null
   float* chi;      // chi_cell [B, X, Y, Z], or null without flattening
   int X, Y, Z;
   int axes;   // bit t: axis t is active
-  int walls;  // bit 2t: lo wall of axis t reflects, bit 2t+1: hi wall
+  int walls;  // bit 2t / 2t+1: lo / hi wall of axis t reflects; 6+2t / 7+2t: outflow
   int is_cons, do_chi;
   int T[3];   // tile: SX planes of TY x TZ columns
   Eos e;
@@ -83,8 +97,12 @@ __device__ __forceinline__ float chi_of(float Pm2, float Pm1, float P0, float Pp
   return converging ? chi_conv : 1.0f;
 }
 
-__device__ __forceinline__ int wall_lo(int walls, int t) { return (walls >> (2 * t)) & 1; }
-__device__ __forceinline__ int wall_hi(int walls, int t) { return (walls >> (2 * t + 1)) & 1; }
+// The BC_* code of side `side` (0 lo, 1 hi) of axis t.
+__device__ __forceinline__ int wall_of(const K1Args& A, int t, int side) {
+  const int bit = 2 * t + side;
+  if ((A.walls >> (6 + bit)) & 1) return BC_OUTFLOW;
+  return (A.walls >> bit) & 1;
+}
 
 // Shared memory (floats), two buffers that alternate plane by plane (so a
 // plane needs two __syncthreads, not three): the plane's y stencil rho, P,
@@ -141,7 +159,7 @@ __global__ void __launch_bounds__(K1_THREADS, 3) transverse_kernel_march(K1Args 
   const bool ax = A.axes & 1, ay = (A.axes >> 1) & 1, az = (A.axes >> 2) & 1;
   const int nbuf = k1_march_buffer_floats(TY, TZ);
   const int ny = (TY + 6) * TZ, nz = TY * (TZ + 6);
-  const int lo0 = wall_lo(A.walls, 0), hi0 = wall_hi(A.walls, 0);
+  const int lo0 = wall_of(A, 0, 0), hi0 = wall_of(A, 0, 1);
 
   const int j = threadIdx.x / TZ, k = threadIdx.x % TZ;
   const bool col = threadIdx.x < TY * TZ && j < LY && k < LZ;
@@ -166,7 +184,7 @@ __global__ void __launch_bounds__(K1_THREADS, 3) transverse_kernel_march(K1Args 
         const int a = h < 3 ? h - 3 : LY + h - 3;
         bool flip;
         const int64_t ym =
-            map_cell(y0 + a, A.Y, wall_lo(A.walls, 1), wall_hi(A.walls, 1), flip);
+            map_cell(y0 + a, A.Y, wall_of(A, 1, 0), wall_of(A, 1, 1), flip);
         h_kind[sl] = 1;
         h_off[sl] = ym * A.Z + (z0 + kk);
         h_idx[sl] = (a + 3) * TZ + kk;
@@ -178,7 +196,7 @@ __global__ void __launch_bounds__(K1_THREADS, 3) transverse_kernel_march(K1Args 
         const int a = h < 3 ? h - 3 : LZ + h - 3;
         bool flip;
         const int64_t zm =
-            map_cell(z0 + a, A.Z, wall_lo(A.walls, 2), wall_hi(A.walls, 2), flip);
+            map_cell(z0 + a, A.Z, wall_of(A, 2, 0), wall_of(A, 2, 1), flip);
         h_kind[sl] = 2;
         h_off[sl] = (int64_t)(y0 + jj) * A.Z + zm;
         h_idx[sl] = jj * (TZ + 6) + a + 3;
@@ -343,6 +361,73 @@ __global__ void __launch_bounds__(K1_THREADS, 3) transverse_kernel_march(K1Args 
   }
 }
 
+// The outflow chi planes, side s of axis t at [2t + s] (x: [B, Y, Z], y:
+// [B, X, Z], z: [B, X, Y]), null where that side is not an outflow side.
+struct K1Planes {
+  float* p[6];
+};
+
+// chi_t of the cell c (c[t] may lie one cell outside the domain), from the
+// five cells c[t] - 2 .. c[t] + 2 along t, each through t's walls as the
+// march stages them (an outflow ghost copies the edge cell, a mirrored one
+// flips v_t).
+__device__ float chi_along(const K1Args& A, const float* __restrict__ U, int64_t ncell,
+                           const int c[3], int t) {
+  const int n = t == 0 ? A.X : (t == 1 ? A.Y : A.Z);
+  const int lo = wall_of(A, t, 0), hi = wall_of(A, t, 1);
+  float P[5], rho0 = 0.0f, vm = 0.0f, vp = 0.0f;
+#pragma unroll
+  for (int a = -2; a <= 2; ++a) {
+    int q[3] = {c[0], c[1], c[2]};
+    bool flip;
+    q[t] = (int)map_cell(c[t] + a, n, lo, hi, flip);
+    float v6[NV], rho, Pc, v[3];
+    load6(U, ncell, ((int64_t)q[0] * A.Y + q[1]) * A.Z + q[2], v6);
+    prim_of(v6, A.is_cons, A.e, rho, Pc, v);
+    P[a + 2] = Pc;
+    const float vt = flip ? -v[t] : v[t];
+    if (a == 0) rho0 = rho;
+    if (a == -1) vm = vt;
+    if (a == 1) vp = vt;
+  }
+  return chi_of(P[0], P[1], P[2], P[3], P[4], rho0, vm, vp, A.e);
+}
+
+// K1's second pass: one thread a cell of the plane of side blockIdx.z % 2
+// of axis blockIdx.z / 2 (a block of the batch a blockIdx.y), its chi_d
+// folded with the other active axes' m3 in axis order, as the plain
+// version folds them.
+__global__ void __launch_bounds__(K1_THREADS) outflow_planes_kernel(K1Args A, K1Planes Q) {
+  const int d = blockIdx.z / 2, side = blockIdx.z % 2;
+  float* const out = Q.p[blockIdx.z];
+  if (out == nullptr) return;
+  const int n[3] = {A.X, A.Y, A.Z};
+  const int u = d == 0 ? 1 : 0, w = d == 2 ? 1 : 2;  // the plane's axes, in order
+  const int64_t m = (int64_t)n[u] * n[w];
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const int64_t ncell = (int64_t)A.X * A.Y * A.Z;
+  const float* U = A.U + (int64_t)blockIdx.y * NV * ncell;
+  int c[3];
+  c[d] = side ? n[d] - 1 : 0;
+  c[u] = (int)(i / n[w]);
+  c[w] = (int)(i % n[w]);
+  float g = chi_along(A, U, ncell, c, d);
+  bool has_e = false;
+  float E = 0.0f;
+  for (int t = 0; t < 3; ++t) {
+    if (t == d || !((A.axes >> t) & 1)) continue;
+    int cm[3] = {c[0], c[1], c[2]}, cp[3] = {c[0], c[1], c[2]};
+    cm[t] -= 1;
+    cp[t] += 1;
+    const float m3 = mn(mn(chi_along(A, U, ncell, cm, t), chi_along(A, U, ncell, c, t)),
+                        chi_along(A, U, ncell, cp, t));
+    E = has_e ? mn(E, m3) : m3;
+    has_e = true;
+  }
+  out[(int64_t)blockIdx.y * m + i] = has_e ? mn(g, E) : g;
+}
+
 // Shared-memory bytes of a block: two buffers of a plane's stencils.
 int k1_smem_bytes(int TY, int TZ) {
   return 8 * (3 * (TY + 6) * TZ + 3 * TY * (TZ + 6) + (TY + 2) * TZ + TY * (TZ + 2));
@@ -352,8 +437,12 @@ int k1_smem_bytes(int TY, int TZ) {
 
 extern "C" int qk_transverse_smem(int ty, int tz) { return qk::k1_smem_bytes(ty, tz); }
 
+// `walls` holds the BC_* code of side s of axis t in bits 4t + 2s ..
+// 4t + 2s + 1; a plane is given for each outflow side of an active axis
+// with do_chi, and for no other side.
 extern "C" int qk_transverse(const float* U, float* dmin0, float* dmin1, float* dmin2,
-                             float* chi, long long X, long long Y, long long Z,
+                             float* chi, float* x_lo, float* x_hi, float* y_lo, float* y_hi,
+                             float* z_lo, float* z_hi, long long X, long long Y, long long Z,
                              long long nbatch, int axes, int walls, int is_cons,
                              int do_chi, float gamma, float gm1, float inv_gm1, float s_n,
                              int reconstruct_eint, int sx, int ty, int tz, void* stream) {
@@ -363,11 +452,24 @@ extern "C" int qk_transverse(const float* U, float* dmin0, float* dmin1, float* 
   A.dmin[1] = dmin1;
   A.dmin[2] = dmin2;
   A.chi = chi;
+  const qk::K1Planes Q = {{x_lo, x_hi, y_lo, y_hi, z_lo, z_hi}};
+  bool planes = false;
+  A.walls = 0;
+  for (int t = 0; t < 3; ++t) {
+    for (int side = 0; side < 2; ++side) {
+      const int kind = (walls >> (4 * t + 2 * side)) & 3;
+      if (kind == qk::BC_REFLECT) A.walls |= 1 << (2 * t + side);
+      if (kind == qk::BC_OUTFLOW) A.walls |= 1 << (6 + 2 * t + side);
+      const bool given = Q.p[2 * t + side] != nullptr;
+      if (given != (kind == qk::BC_OUTFLOW && do_chi && (axes >> t & 1)))
+        return (int)cudaErrorInvalidValue;
+      planes = planes || given;
+    }
+  }
   A.X = (int)X;
   A.Y = (int)Y;
   A.Z = (int)Z;
   A.axes = axes;
-  A.walls = walls;
   A.is_cons = is_cons;
   A.do_chi = do_chi;
   A.T[0] = sx;
@@ -381,5 +483,12 @@ extern "C" int qk_transverse(const float* U, float* dmin0, float* dmin1, float* 
   const long long tiles = (Y + ty - 1) / ty * ((Z + tz - 1) / tz) * ((X + sx - 1) / sx);
   const dim3 blocks((unsigned)tiles, (unsigned)nbatch);
   qk::transverse_kernel_march<<<blocks, qk::K1_THREADS, smem, (cudaStream_t)stream>>>(A);
+  if (planes) {
+    long long m = Y * Z > X * Z ? Y * Z : X * Z;  // the largest plane
+    m = m > X * Y ? m : X * Y;
+    const dim3 pblocks((unsigned)((m + qk::K1_THREADS - 1) / qk::K1_THREADS), (unsigned)nbatch,
+                       6);
+    qk::outflow_planes_kernel<<<pblocks, qk::K1_THREADS, 0, (cudaStream_t)stream>>>(A, Q);
+  }
   return (int)cudaGetLastError();
 }

@@ -85,17 +85,16 @@ def compute_fluxes(Ug, opts: HydroOptions, first_order: bool = False,
     (roll semantics; the wrap reaches ghost faces only) and the return is
     (fluxes, facevels).
 
-    An f32 state takes the K1/K2 sweep (on the card the kernels or an
-    error); any other dtype takes the plain sweep on its own device, as the
-    JAX package's `compute_fluxes` sends non-f32 states to XLA
-    (`quokka_tpu/hydro/advance.py:280-313`), and refuses ghost-free
-    stepping as it does."""
-    if len(opts.active_axes) != 3:
-        raise NotImplementedError("compute_fluxes: only 3D stepping is ported")
-    plain = Ug.dtype != torch.float32
+    An f32 state with three active axes takes the K1/K2 sweep (on the card
+    the kernels or an error); any other dtype, and a state with fewer than
+    three active axes, takes the plain sweep on its own device, as the JAX
+    package's `compute_fluxes` sends them to XLA (`quokka_tpu/hydro/
+    advance.py:280-313`; its kernels need three axes), and refuses
+    ghost-free stepping as it does."""
+    plain = Ug.dtype != torch.float32 or len(opts.active_axes) != 3
     if plain and bc_kinds is not None:
         raise ValueError("ghost-free stepping (bc_kinds) requires the kernel sweep "
-                         f"(float32, 3D); got {Ug.dtype}")
+                         f"(float32, 3D); got {Ug.dtype}, axes {opts.active_axes}")
     return compute_fluxes_pallas(Ug, opts, first_order, bc_kinds, plain=plain)
 
 
@@ -259,13 +258,20 @@ def _apply_from_divs(U0_int, Ug_old, div, dvel, dt, ng, opts: HydroOptions,
 
 
 def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
-                             bc_kinds: dict):
+                             bc_kinds: dict, fill_fn=None):
     """RK2-SSP step on the kernel-fused divergence path, with K3 finishing
     every stage (at every grid size: the CUDA kernel has no tiling rule).
-    Returns (U_new, stats) with stats ``n_fofc`` (invalid cells before the
-    floors, summed over stages, a 0-d tensor) and ``fofc_fallbacks`` (how
-    many times a stage took the FOFC fallback, an int)."""
-    Ug0 = U
+    With `fill_fn` (the hybrid ghost-free mode: a hook-filled axis padded
+    by `ng`, the others unpadded) each stage's input is padded first and K3
+    reads the padded input and divergences at the interior, where the JAX
+    package applies the update in XLA (`quokka_tpu/hydro/advance.py:
+    703-712`). Returns (U_new, stats) with stats ``n_fofc`` (invalid cells
+    before the floors, summed over stages, a 0-d tensor) and
+    ``fofc_fallbacks`` (how many times a stage took the FOFC fallback, an
+    int)."""
+    if fill_fn is None:
+        fill_fn = _identity
+    Ug0 = fill_fn(U)
 
     def fo_fluxes():
         return compute_fluxes(Ug0, opts, first_order=True, bc_kinds=bc_kinds)
@@ -291,7 +297,7 @@ def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
 
     # ---- stage 1
     r1 = compute_fluxes_pallas_div(Ug0, opts, bc_kinds)
-    U1, n1 = apply_update(U, Ug0, r1["divs"], r1["dvels"], dt, opts)
+    U1, n1 = apply_update(U, Ug0, r1["divs"], r1["dvels"], dt, opts, ng)
     fired1 = bool(n1 > 0)  # host sync
     fallbacks = int(fired1)
     if fired1:
@@ -301,9 +307,9 @@ def _advance_hydro_rk2_fused(U, dt, opts: HydroOptions, ng, periodic,
         return U1, {"n_fofc": n1, "fofc_fallbacks": fallbacks}
 
     # ---- stage 2: divergence of the time-averaged flux
-    Ug1 = U1
+    Ug1 = fill_fn(U1)
     r2 = compute_fluxes_pallas_div(Ug1, opts, bc_kinds, avg_with=r1)
-    U2, n2 = apply_update(U, Ug0, r2["divs"], r2["dvels"], dt, opts)
+    U2, n2 = apply_update(U, Ug0, r2["divs"], r2["dvels"], dt, opts, ng)
     fired2 = bool(n2 > 0)  # host sync
     if not (fired1 or fired2):
         return U2, {"n_fofc": n1 + n2, "fofc_fallbacks": fallbacks}
@@ -343,7 +349,7 @@ LEAN_STAGES = ("lean_stage1", "lean_stage2")
 
 
 def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: dict,
-                            corr_masks: dict | None = None):
+                            corr_masks: dict | None = None, fill_fn=None):
     """RK2-SSP step in the lean divergence formulation (`quokka_tpu/hydro/
     advance.py:925-1078`), the JAX package's path for unigrid steps above
     272 cells an axis. K2c emits only accumulated divergence totals, so no
@@ -369,13 +375,17 @@ def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: d
     `rk_order` 1), so the register uses the very fluxes of the update in
     every FOFC branch.
 
-    The FOFC checks are a Python `if` on one host read a stage, where the
-    JAX package has a `lax.cond`. Returns (U_new, stats) with ``n_fofc``
-    (invalid cells of the two try states, a 0-d tensor) and
-    ``fofc_fallbacks`` (stages that fell back, an int)."""
+    With `fill_fn` (the hybrid ghost-free mode) each stage's input is
+    padded by `ng` first, as in the JAX step. The FOFC checks are a Python
+    `if` on one host read a stage, where the JAX package has a `lax.cond`.
+    Returns (U_new, stats) with ``n_fofc`` (invalid cells of the two try
+    states, a 0-d tensor) and ``fofc_fallbacks`` (stages that fell back, an
+    int)."""
     eos = opts.eos
     dtype = U.dtype
-    Ug0 = U
+    if fill_fn is None:
+        fill_fn = _identity
+    Ug0 = fill_fn(U)
 
     def sweeps(Ug, fo_mask=None, fo_from=None, acc_init=None, corr_init=None):
         return compute_fluxes_pallas_div(Ug, opts, bc_kinds, accumulate=True,
@@ -409,7 +419,7 @@ def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: d
 
     # ---- stage 2: the averaged divergences, added onto stage 1's totals
     with prof.region(LEAN_STAGES[1]):
-        Ug1 = U1
+        Ug1 = fill_fn(U1)
         r2 = sweeps(Ug1, acc_init=(div1, dvel1), corr_init=corr1)
         del div1, dvel1, corr1
         U2_try = _apply_from_divs(U, Ug0, r2["div"], r2["dvel"], 0.5 * dt, ng, opts,
@@ -448,6 +458,10 @@ def _advance_hydro_rk2_lean(U, dt, opts: HydroOptions, ng, periodic, bc_kinds: d
             # time-averaged seed
             stats["reflux_corr"] = 0.5 * corr2t
         return U2, stats
+
+
+def _identity(X):
+    return X
 
 
 def _padded_sweeps(Ug, opts: HydroOptions, r1: dict | None = None,
@@ -668,15 +682,21 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
                       return_fluxes: bool = False, redo_any_fn=None,
                       bc_kinds: dict | None = None,
                       reflux_corr_masks: dict | None = None):
-    """Full RK2-SSP hydro step (reference `advanceHydroAtLevel`) of a 3D
-    state, in one of two forms:
+    """Full RK2-SSP hydro step (reference `advanceHydroAtLevel`), in one of
+    two forms:
 
-    - ghost-free (`bc_kinds` = {axis: (lo, hi) | None}, None = periodic,
-      `ng` all 0, no `fill_fn`): the unigrid path;
+    - ghost-free (`bc_kinds` = {axis: (lo, hi) | None}, None = periodic or
+      padded): the unigrid path. With `ng` all 0 and no `fill_fn` every
+      axis is unpadded and the kernels assemble the walls; in the hybrid
+      mode `fill_fn` pads the hook-filled axes by `ng` (a BC_USER x axis:
+      `ng = (4, 0, 0)`), which the kernels see padded with roll semantics,
+      while the others stay unpadded (`quokka_tpu/simulation.py:222-294`);
     - ghost-padded (`bc_kinds` None): `fill_fn(U)` pads the ghosts (and
       `fill_fn2` the stage-2 state; AMR fills interpolate the parent in
       time there), `ng` the ghost widths; `return_fluxes` adds the
-      time-averaged face fluxes for the flux registers.
+      time-averaged face fluxes for the flux registers. A state with fewer
+      than three active axes steps so, in the classic form on the plain
+      sweep, as the JAX package steps it in XLA.
 
     The formulation is the one the JAX package's dispatch takes
     (`_branch`): lean (K1 + K2c, K2e with `reflux_corr_masks`), fused
@@ -690,7 +710,6 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
     unsupported = {
         "redo_any_fn": redo_any_fn is not None,
         "mask_fill_fn": mask_fill_fn is not None,
-        "fewer than 3 active axes": len(opts.active_axes) != 3,
         "rk_order not in (1, 2)": opts.rk_order not in (1, 2),
         "passive scalars": opts.n_scalars > 0,
         "riemann != hllc": opts.riemann != "hllc",
@@ -699,10 +718,12 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
         unsupported["ghost-padded stepping without fill_fn"] = fill_fn is None
     else:
         unsupported.update({
-            "fill_fn (ghost-free stepping)": fill_fn is not None,
             "fill_fn2 (ghost-free stepping)": fill_fn2 is not None,
             "return_fluxes (ghost-free stepping)": return_fluxes,
-            "ng != 0 (ghost-free stepping)": any(g != 0 for g in ng),
+            "ng != 0 without fill_fn (ghost-free stepping)": (
+                fill_fn is None and any(g != 0 for g in ng)),
+            "a padded wall axis (ghost-free stepping)": any(
+                ng[d] and bc_kinds.get(d) is not None for d in range(3)),
         })
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -716,30 +737,32 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
                                           periodic, fill_fn2, return_fluxes, bc_kinds)
     if branch == "lean":
         return _advance_hydro_rk2_lean(U, dt, opts, ng, periodic, bc_kinds,
-                                       corr_masks=reflux_corr_masks)
+                                       corr_masks=reflux_corr_masks, fill_fn=fill_fn)
     if padded:
         return _advance_hydro_rk2_padded(U, dt, opts, fill_fn, ng, periodic,
                                          fill_fn2, return_fluxes)
-    return _advance_hydro_rk2_fused(U, dt, opts, ng, periodic, bc_kinds)
+    return _advance_hydro_rk2_fused(U, dt, opts, ng, periodic, bc_kinds, fill_fn)
 
 
 def _branch(U, opts: HydroOptions, padded: bool, return_fluxes: bool, ng,
             corr: bool = False) -> str:
     """"lean", "fused" or "classic": the JAX package's dispatch
-    (`quokka_tpu/hydro/advance.py:1139-1181`) for a step with three active
-    axes. The lean step takes a float32 RK2 step with the fused update and
-    no face outputs when the register seed (`corr`) asks for it, when
+    (`quokka_tpu/hydro/advance.py:1139-1181`). The lean step takes a
+    float32 RK2 step of three active axes with the fused update and no face
+    outputs when the register seed (`corr`) asks for it, when
     ``QUOKKA_PALLAS_LEAN`` is "1", or when it is "auto" (the default) and
-    the extent (the padded one on a padded level) lies in (272, 1088]. The
-    fused step takes float32 at or below 272 without face outputs. Every
-    other step is classic: any float64 state, f32 above 1088, above 272
+    the extent lies in (272, 1088]: the padded one on a padded level, the
+    unpadded one in a ghost-free step (the hybrid mode's padded axes
+    included, as in the JAX package). The fused step takes float32 at or
+    below 272 without face outputs. Every other step is classic: any
+    float64 state, fewer than three active axes, f32 above 1088, above 272
     with ``QUOKKA_PALLAS_LEAN=0``, `rk_order` 1 above 272, `fuse_update =
     False`. Two deviations: a padded f32 RK2 level with flux outputs (the
     AMR levels) runs the fused kernels at every extent, where the JAX
     package leaves the fused form above 176 padded cells (a TPU VMEM
     limit, `fits_vmem`); and the padded lean form is not ported (the port
     steps its unigrid ghost-free), so it raises."""
-    f32 = U.dtype == torch.float32
+    f32 = U.dtype == torch.float32 and len(opts.active_axes) == 3
     ext = max(U.shape[1:]) + (2 * max(ng) if padded else 0)
     pref = os.environ.get("QUOKKA_PALLAS_LEAN", "auto")
     pallas_ok = ext <= LEAN_MIN_EXTENT

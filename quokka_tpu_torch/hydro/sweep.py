@@ -30,7 +30,9 @@ Layout: ``[nvar, X, Y, Z]``, contiguous, z fastest. Face arrays keep the
 JAX convention: slot i is the face between cells i-1 and i (slot 0 is the
 lo-wall face on a wall axis), and the hi-wall face comes back as separate
 ``flux_hi`` / ``vel_hi`` planes. Walls are given per axis as
-``bc_axis = (lo_kind, hi_kind)``; None means periodic.
+``bc_axis = (lo_kind, hi_kind)``, each side reflect or outflow; None means
+periodic. An outflow side's wall-adjacent chi_cell ghost is K1's exact
+plane (`outflow_chi_planes`, K2's `chi_ghost_axis`).
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ import torch
 
 from .._numerics import sqrt
 from ..indices import EGAS, EINT, MX1, PEINT, PPRES, PRHO, PVX1, RHO
-from ..registry import BC_REFLECT
-from ..stencil import sh
+from ..registry import BC_OUTFLOW, BC_REFLECT
+from ..stencil import interior, sh
 from . import euler, reconstruct
 from .riemann import FaceState, hllc, llf
 
@@ -79,26 +81,43 @@ def _check_bc(bc_axis):
     if bc_axis is None:
         return
     for kind in bc_axis:
-        if kind != BC_REFLECT:
+        if kind not in (BC_REFLECT, BC_OUTFLOW):
             raise NotImplementedError(
-                f"wall kind {kind!r}: the hydro sweep supports periodic and "
-                "reflect walls (outflow walls are not ported yet)")
+                f"wall kind {kind!r}: the hydro sweep assembles periodic, reflect and "
+                "outflow walls (the NSCBC and user walls are padded by "
+                "boundaries.fill_ghosts, and NSCBC is not ported yet)")
 
 
-def _assemble_wall_ghosts(blk: torch.Tensor, ax: int, odd_comp: int | None,
-                          g: int = 4) -> torch.Tensor:
-    """Extend `blk` by `g` mirrored ghost entries on each side of spatial
-    axis `ax` (reflecting walls), flipping the sign of component `odd_comp`
-    (the normal velocity or momentum); the padded fill's values exactly."""
+def _assemble_wall_ghosts(blk: torch.Tensor, ax: int, lo_kind: str, hi_kind: str,
+                          odd_comp: int | None, g: int = 4, adj_lo=None,
+                          adj_hi=None) -> torch.Tensor:
+    """Extend `blk` by `g` ghost entries on each side of spatial axis `ax`
+    (`pallas_sweep._assemble_wall_ghosts`, `:250-312`): a reflecting side
+    mirrors the block, flipping the sign of component `odd_comp` (the normal
+    velocity or momentum); an outflow side copies the edge entry, and with
+    `adj_lo` / `adj_hi` (a plane, the axis kept with extent 1) the
+    wall-adjacent ghost takes that plane instead: g - 1 edge copies, then
+    the plane. The padded fill's values exactly."""
     nax = blk.dim() - 3 + ax
     n = blk.shape[nax]
-    lo = blk.narrow(nax, 0, g).flip(nax)
-    hi = blk.narrow(nax, n - g, g).flip(nax)
-    if odd_comp is not None:
-        lo = lo.clone()
-        hi = hi.clone()
-        lo[odd_comp] = -lo[odd_comp]
-        hi[odd_comp] = -hi[odd_comp]
+
+    def side(kind, mirror_from, edge, adj, adj_first):
+        if kind == BC_REFLECT:
+            out = blk.narrow(nax, mirror_from, g).flip(nax)
+            if odd_comp is not None:
+                out = out.clone()
+                out[odd_comp] = -out[odd_comp]
+            return out
+        shape = list(blk.shape)
+        shape[nax] = g if adj is None else g - 1
+        out = blk.narrow(nax, edge, 1).expand(shape)
+        if adj is None:
+            return out
+        adj = adj.reshape(blk.narrow(nax, 0, 1).shape)
+        return torch.cat([adj, out] if adj_first else [out, adj], dim=nax)
+
+    lo = side(lo_kind, 0, 0, adj_lo, False)
+    hi = side(hi_kind, n - g, n - 1, adj_hi, True)
     return torch.cat([lo, blk, hi], dim=nax)
 
 
@@ -198,7 +217,7 @@ def _transverse_axis_plain(U, t: int, opts, bc_axis, state_is_cons: bool):
     blk, g = U, 0
     if bc_axis is not None:
         g = 4
-        blk = _assemble_wall_ghosts(U, t, odd_comp=MX1 + t, g=g)
+        blk = _assemble_wall_ghosts(U, t, *bc_axis, odd_comp=MX1 + t, g=g)
     if state_is_cons:
         blk = euler.cons_to_prim(blk, opts.eos, opts.reconstruct_eint)
 
@@ -214,19 +233,45 @@ def _transverse_axis_plain(U, t: int, opts, bc_axis, state_is_cons: bool):
     return dmin, islice(m3), islice(chi)
 
 
+def outflow_chi_planes(chis: dict, m3s: dict, opts, bc_kinds: dict | None) -> dict:
+    """The exact chi_cell of the wall-adjacent ghost on each outflow side
+    (`pallas_sweep.py:215-245`): with edge-copied ghosts the along-axis chi
+    is 1 at every ghost, so the padded path's value there is chi_d(edge)
+    folded with the other axes' 3-point mins at the edge,
+    min(chi_d, min over t != d of m3_t), not the edge cell's chi_cell.
+    {axis: (lo plane or None, hi plane or None)}, each plane keeping the
+    axis with extent 1; only axes with an outflow side."""
+    planes = {}
+    if bc_kinds is None or not chis:
+        return planes
+    for d in opts.active_axes:
+        bc_axis = bc_kinds.get(d)
+        if bc_axis is None or BC_OUTFLOW not in bc_axis:
+            continue
+        E = None
+        for t in opts.active_axes:
+            if t != d:
+                E = m3s[t] if E is None else torch.minimum(E, m3s[t])
+        ghost = chis[d] if E is None else torch.minimum(chis[d], E)
+        n = ghost.shape[d]
+        planes[d] = tuple(ghost.narrow(d, i, 1).contiguous() if kind == BC_OUTFLOW else None
+                          for kind, i in zip(bc_axis, (0, n - 1)))
+    return planes
+
+
 def precompute_transverse_plain(U, opts, bc_kinds: dict | None,
                                 state_is_cons: bool = False):
     """Plain version of K1 over all active axes: (dmins, chi_cell,
-    chi_ghost) like `pallas_sweep.precompute_transverse_pallas`. chi_ghost
-    (exact outflow ghost planes) is always empty: outflow walls raise."""
-    dmins, chi_cell = {}, None
+    chi_ghost) like `pallas_sweep.precompute_transverse_pallas`; chi_ghost
+    holds the exact outflow ghost planes (`outflow_chi_planes`)."""
+    dmins, chi_cell, chis, m3s = {}, None, {}, {}
     for t in opts.active_axes:
         bc_axis = None if bc_kinds is None else bc_kinds.get(t)
-        dmins[t], m3, _ = _transverse_axis_plain(U, t, opts, bc_axis,
-                                                 state_is_cons)
+        dmins[t], m3, chi = _transverse_axis_plain(U, t, opts, bc_axis, state_is_cons)
         if m3 is not None:
+            chis[t], m3s[t] = chi, m3
             chi_cell = m3 if chi_cell is None else torch.minimum(chi_cell, m3)
-    return dmins, chi_cell, {}
+    return dmins, chi_cell, outflow_chi_planes(chis, m3s, opts, bc_kinds)
 
 
 def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
@@ -234,7 +279,7 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
                     avg_with: tuple | None = None, state_is_cons: bool = False,
                     emit_avg_flux: bool = False, *, div_only: bool = False,
                     acc: tuple | None = None, fo_mask=None, fo_from=None,
-                    corr_mask=None, corr_acc=None):
+                    corr_mask=None, corr_acc=None, chi_ghost_axis=None):
     """Plain version of K2: one sweep along `axis`. Returns what
     `pallas_sweep.compute_axis_flux_pallas` returns for these arguments:
     (F, v[, F_hi, v_hi][, div, dvel]), or (div, dvel) with `avg_with`, or
@@ -254,8 +299,14 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     K2e (`corr_mask`, `pallas_sweep.py:623-633`): also the divergence of
     the boundary-masked flux, corr = (m_lo F_lo - m_hi F_hi) / dx from the
     blended faces, added onto `corr_acc` in place when given; the return
-    is then (div, dvel, corr)."""
+    is then (div, dvel, corr).
+
+    `chi_ghost_axis` = (lo plane, hi plane) (`precompute_transverse`'s
+    chi_ghost[axis]): on an outflow side the wall-adjacent ghost's chi_cell
+    (`pallas_sweep.py:828-843`, `:963-970`); the other ghosts copy the edge
+    cell's, and a dmin ghost on an outflow side is an edge copy."""
     _check_bc(bc_axis)
+    _check_chi_ghost(chi_ghost_axis, bc_axis)
     _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
     _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with)
     _check_corr(corr_mask, corr_acc, div_only, bc_axis)
@@ -269,10 +320,14 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     blk, g = U, 0
     if wall:
         g = 4
-        blk = _assemble_wall_ghosts(U, axis, odd_comp=MX1 + axis, g=g)
-        chi = None if chi is None else _assemble_wall_ghosts(chi, axis, None, g)
-        dminv = None if dminv is None else _assemble_wall_ghosts(dminv, axis, None, g)
-        dminw = None if dminw is None else _assemble_wall_ghosts(dminw, axis, None, g)
+        blk = _assemble_wall_ghosts(U, axis, *bc_axis, odd_comp=MX1 + axis, g=g)
+        adj = chi_ghost_axis or (None, None)
+        chi = None if chi is None else _assemble_wall_ghosts(chi, axis, *bc_axis, None, g,
+                                                             *adj)
+        dminv = None if dminv is None else _assemble_wall_ghosts(dminv, axis, *bc_axis,
+                                                                 None, g)
+        dminw = None if dminw is None else _assemble_wall_ghosts(dminw, axis, *bc_axis,
+                                                                 None, g)
     if state_is_cons:
         blk = euler.cons_to_prim(blk, opts.eos, opts.reconstruct_eint)
     F, v = _sweep_body(blk, chi, dminv, dminw, axis, opts, first_order)
@@ -281,7 +336,8 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
         if fo_from is not None:
             fblk = fo_from
             if wall:
-                fblk = _assemble_wall_ghosts(fo_from, axis, odd_comp=MX1 + axis, g=g)
+                fblk = _assemble_wall_ghosts(fo_from, axis, *bc_axis, odd_comp=MX1 + axis,
+                                             g=g)
             if state_is_cons:
                 fblk = euler.cons_to_prim(fblk, opts.eos, opts.reconstruct_eint)
         Ff, vf = _sweep_body(fblk, None, None, None, axis, opts, True)
@@ -334,18 +390,31 @@ def axis_flux_plain(U, axis: int, opts, chi_cell, dmins: dict,
     return ((F, v, Fh, vh) if wall else (F, v)) + (div, dvel)
 
 
-def apply_update_plain(U, Ug0, divs: dict, dvels: dict, dt, opts):
+def apply_update_plain(U, Ug0, divs: dict, dvels: dict, dt, opts, ng=(0, 0, 0)):
     """Plain version of K3: the RK apply from per-axis divergences + PdV
     source, the pre-floor invalid-cell count, EnforceLimits and
-    SyncDualEnergy. Returns (U_finalized, n_invalid as a 0-d tensor)."""
+    SyncDualEnergy. Returns (U_finalized, n_invalid as a 0-d tensor). With
+    `ng` the stage input Ug0 and the divergences are ghost-padded by `ng`
+    and U is the interior (the hybrid ghost-free step)."""
     rhs = _sum_divs(divs)
     dv = _sum_divs(dvels)
     P = euler.pressure(Ug0, opts.eos)
     rhs = rhs.clone()
     rhs[EINT] = rhs[EINT] - P * dv
-    U_try = U + dt * rhs
+    U_try = U + dt * interior(rhs, ng)
     n_bad = torch.logical_not(euler.is_state_valid(U_try, opts.eos)).sum()
     return finalize(U_try, opts), n_bad
+
+
+def _check_chi_ghost(chi_ghost_axis, bc_axis):
+    """A chi ghost plane belongs to an outflow side of a wall axis."""
+    if chi_ghost_axis is None:
+        return
+    kinds = bc_axis or (None, None)
+    for plane, kind, name in zip(chi_ghost_axis, kinds, ("lo", "hi")):
+        if plane is not None and kind != BC_OUTFLOW:
+            raise ValueError(f"chi_ghost_axis has a {name} plane on a {kind or 'periodic'} "
+                             "side; the planes belong to outflow walls")
 
 
 def _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis):
@@ -436,10 +505,13 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+BC_CODES = {BC_REFLECT: 1, BC_OUTFLOW: 2}  # csrc/common.cuh BC_*; 0 is periodic
+
+
 def _bc_codes(bc_axis):
-    """(lo, hi) codes of csrc/common.cuh: 0 periodic, 1 reflect."""
+    """(lo, hi) codes of csrc/common.cuh: 0 periodic, 1 reflect, 2 outflow."""
     _check_bc(bc_axis)
-    return (0, 0) if bc_axis is None else (1, 1)
+    return (0, 0) if bc_axis is None else tuple(BC_CODES[k] for k in bc_axis)
 
 
 K1_THREADS = 256
@@ -471,9 +543,10 @@ def k1_smem_bytes(tile) -> int:
 
 def _transverse_cuda(U5, opts, bc_kinds: dict | None, state_is_cons: bool):
     """K1 over all active axes of a batch [B, 6, X, Y, Z] in one launch:
-    (dmins, chi_cell), dmins[t] [B, X, Y, Z] and chi_cell the min over axes
-    of each axis's 3-point min of chi, folded in the kernel (None without
-    PPM flattening)."""
+    (dmins, chi_cell, chi_ghost), dmins[t] [B, X, Y, Z], chi_cell the min
+    over axes of each axis's 3-point min of chi, folded in the kernel (None
+    without PPM flattening), and chi_ghost the outflow sides' planes
+    [B, ...] (`outflow_chi_planes`), written by the kernel too."""
     from .._cuda import check, library
 
     lib = library()
@@ -486,17 +559,25 @@ def _transverse_cuda(U5, opts, bc_kinds: dict | None, state_is_cons: bool):
     dmin = torch.empty((len(axes), B, X, Y, Z), dtype=U5.dtype, device=U5.device)
     chi = torch.empty((B, X, Y, Z), dtype=U5.dtype, device=U5.device) if do_chi else None
     ptrs, mask, walls = [None] * 3, 0, 0
+    planes, plane_ptrs = {}, [None] * 6
     for i, t in enumerate(axes):
-        lo, hi = _bc_codes(None if bc_kinds is None else bc_kinds.get(t))
+        bc_axis = None if bc_kinds is None else bc_kinds.get(t)
+        lo, hi = _bc_codes(bc_axis)
         ptrs[t] = dmin[i].data_ptr()
         mask |= 1 << t
-        walls |= lo << (2 * t) | hi << (2 * t + 1)
-    err = lib.qk_transverse(U5.data_ptr(), *ptrs, _ptr(chi), X, Y, Z, B, mask, walls,
-                            int(state_is_cons), int(do_chi), *_eos_args(opts),
+        walls |= lo << (4 * t) | hi << (4 * t + 2)
+        if do_chi and bc_axis is not None and BC_OUTFLOW in bc_axis:
+            shape = [B, X, Y, Z]
+            shape[1 + t] = 1
+            planes[t] = tuple(torch.empty(shape, dtype=U5.dtype, device=U5.device)
+                              if k == BC_OUTFLOW else None for k in bc_axis)
+            plane_ptrs[2 * t:2 * t + 2] = map(_ptr, planes[t])
+    err = lib.qk_transverse(U5.data_ptr(), *ptrs, _ptr(chi), *plane_ptrs, X, Y, Z, B, mask,
+                            walls, int(state_is_cons), int(do_chi), *_eos_args(opts),
                             *k1_tile(X, Y, Z), _stream(U5))
     check(err, "transverse")
     launch_counts["transverse"] += 1
-    return {t: dmin[i] for i, t in enumerate(axes)}, chi
+    return {t: dmin[i] for i, t in enumerate(axes)}, chi, planes
 
 
 def precompute_transverse_batched(U5, opts, bc_kinds: dict | None,
@@ -505,7 +586,7 @@ def precompute_transverse_batched(U5, opts, bc_kinds: dict | None,
     axis, chi_cell [B, X, Y, Z] or None); one launch on the card, the plain
     version block by block on the CPU."""
     if _on_cuda(U5):
-        return _transverse_cuda(U5, opts, bc_kinds, state_is_cons)
+        return _transverse_cuda(U5, opts, bc_kinds, state_is_cons)[:2]
     return precompute_transverse_batched_plain(U5, opts, bc_kinds, state_is_cons)
 
 
@@ -521,18 +602,13 @@ def precompute_transverse(U, opts, bc_kinds: dict | None,
                           state_is_cons: bool = False):
     """K1 over all active axes (`pallas_sweep.precompute_transverse_pallas`):
     returns (dmins, chi_cell, chi_ghost); chi_cell = min over axes of each
-    axis's 3-point min of chi."""
+    axis's 3-point min of chi, chi_ghost {axis: (lo, hi)} the exact outflow
+    ghost planes (`outflow_chi_planes`)."""
     if not _on_cuda(U):
         return precompute_transverse_plain(U, opts, bc_kinds, state_is_cons)
-    dmins, chi_cell = _transverse_cuda(U[None], opts, bc_kinds, state_is_cons)
-    return {t: m[0] for t, m in dmins.items()}, _unbatch(chi_cell), {}
-
-
-def _unsupported(**kw):
-    bad = [k for k, v in kw.items() if v is not None and v is not False]
-    if bad:
-        raise NotImplementedError(
-            f"hydro sweep option(s) {bad} are not ported yet (see ROADMAP.md)")
+    dmins, chi_cell, planes = _transverse_cuda(U[None], opts, bc_kinds, state_is_cons)
+    return ({t: m[0] for t, m in dmins.items()}, _unbatch(chi_cell),
+            {t: tuple(map(_unbatch, pl)) for t, pl in planes.items()})
 
 
 def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
@@ -548,8 +624,9 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     F_avg) with `emit_avg_flux` (K2d), or (div, dvel) with `div_only` (K2c;
     with `acc` the accumulator tensors, updated in place), or (div, dvel,
     corr) with `corr_mask` (K2e): `axis_flux_plain` says what each
-    holds."""
-    _unsupported(chi_ghost_axis=chi_ghost_axis)
+    holds, and what `chi_ghost_axis` (the outflow sides' chi planes) is."""
+    _check_bc(bc_axis)
+    _check_chi_ghost(chi_ghost_axis, bc_axis)
     _check_avg_flux(emit_avg_flux, avg_with, bc_axis, dx_axis)
     _check_lean(div_only, acc, fo_mask, fo_from, dx_axis, avg_with)
     _check_corr(corr_mask, corr_acc, div_only, bc_axis)
@@ -558,7 +635,8 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
                                bc_axis, dx_axis, avg_with, state_is_cons,
                                emit_avg_flux, div_only=div_only, acc=acc,
                                fo_mask=fo_mask, fo_from=fo_from,
-                               corr_mask=corr_mask, corr_acc=corr_acc)
+                               corr_mask=corr_mask, corr_acc=corr_acc,
+                               chi_ghost_axis=chi_ghost_axis)
     from .._cuda import library
 
     lib = library()
@@ -568,18 +646,37 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
     dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
     chi = chi_cell if not first_order else None
+    planes = (None, None) if chi is None or chi_ghost_axis is None else tuple(chi_ghost_axis)
     if div_only:
         return _axis_flux_lean_cuda(lib, U, axis, opts, chi, dminv, dminw, first_order,
                                     bc_axis, dx_axis, state_is_cons, acc, fo_mask,
-                                    fo_from, corr_mask, corr_acc)
+                                    fo_from, corr_mask, corr_acc, planes)
     if dx_axis is None:
         F, v, Fh, vh = map(_unbatch, _axis_faces_cuda(
             lib, U[None], axis, opts, _batch(chi), _batch(dminv), _batch(dminw), bc_axis,
-            state_is_cons, first_order))
+            state_is_cons, first_order, planes))
         launch_counts["axis_flux"] += 1
         return (F, v) if bc_axis is None else (F, v, Fh, vh)
     return _axis_sweep_cuda(lib, U, axis, opts, chi, dminv, dminw, first_order, bc_axis,
-                            dx_axis, avg_with, state_is_cons, emit_avg_flux)
+                            dx_axis, avg_with, state_is_cons, emit_avg_flux, planes)
+
+
+def _plane_args(planes, U, axis: int):
+    """The (lo, hi) chi plane pointers of an outflow wall axis of the state
+    U [.., 6, X, Y, Z], each plane checked to be a contiguous float32 tensor
+    on U's device with the cells of the plane across `axis` (the axis kept
+    with extent 1, or dropped)."""
+    shape = list(U.shape[-3:])
+    shape[axis] = 1
+    for pl in planes:
+        if pl is None:
+            continue
+        if (pl.numel() != shape[0] * shape[1] * shape[2] or pl.dtype != torch.float32
+                or not pl.is_contiguous() or pl.device != U.device):
+            raise ValueError(f"a chi ghost plane must be a contiguous float32 "
+                             f"{tuple(shape)} on {U.device}, got {tuple(pl.shape)} "
+                             f"{pl.dtype} on {pl.device}")
+    return tuple(map(_ptr, planes))
 
 
 def _batch(t):
@@ -602,12 +699,13 @@ def _face_tile(n_faces: int, n_across: int) -> Tuple[int, int]:
 
 
 def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
-                     state_is_cons: bool, first_order: bool):
+                     state_is_cons: bool, first_order: bool, planes=(None, None)):
     """Launch K2's face mode along `axis` over a batch [B, 6, X, Y, Z] (B = 1
     for one state; the per-cell fields [B, X, Y, Z]): (F [B, 6, X, Y, Z],
     v [B, X, Y, Z], F_hi, v_hi), the last two the wall's extra high faces
-    [B, 6, plane] / [B, plane] on a wall axis (one state only), else None.
-    The caller counts the launch."""
+    [B, 6, plane] / [B, plane] on a wall axis (one state only), else None;
+    `planes`: the outflow sides' chi planes (one state only). The caller
+    counts the launch."""
     from .._cuda import check
 
     if U5.dim() != 5:
@@ -620,7 +718,7 @@ def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
     _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")])
     lo, hi = _bc_codes(bc_axis)
     wall = bc_axis is not None
-    if wall and B != 1:
+    if (wall or planes != (None, None)) and B != 1:
         raise ValueError("a wall axis takes one state, not a batch")
     plane = tuple(s for a, s in enumerate((X, Y, Z)) if a != axis)
     F = torch.empty_like(U5)
@@ -631,7 +729,8 @@ def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
         raise ValueError("the CUDA face kernel takes < 2^31 cells a block and <= 65535 blocks")
     n_faces = (X, Y, Z)[axis] + (1 if wall else 0)
     ta, tw = _face_tile(n_faces, Y if axis == 2 else Z)
-    err = lib.qk_axis_flux(U5.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+    err = lib.qk_axis_flux(U5.data_ptr(), _ptr(chi), *_plane_args(planes, U5, axis),
+                           _ptr(dminv), _ptr(dminw),
                            F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
                            X, Y, Z, B, axis, lo, hi, int(state_is_cons),
                            int(first_order), float(opts.K_visc), ta, tw, *_eos_args(opts),
@@ -665,7 +764,7 @@ def lean_smem_bytes(tile) -> int:
 
 def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order,
                          bc_axis, dx_axis, state_is_cons, acc, fo_mask, fo_from,
-                         corr_mask=None, corr_acc=None):
+                         corr_mask=None, corr_acc=None, planes=(None, None)):
     """Launch K2c (csrc/sweep.cu `lean_tile_kernel`): a block stages and
     reconstructs a tile of `lean_tile` cells by lines, solves each face
     those cells touch once into shared memory (LLF next to a flagged cell of
@@ -693,7 +792,8 @@ def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order
     corr = None
     if corr_mask is not None:
         corr = torch.empty_like(U) if corr_acc is None else corr_acc
-    err = lib.qk_axis_lean(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+    err = lib.qk_axis_lean(U.data_ptr(), _ptr(chi), *_plane_args(planes, U, axis),
+                           _ptr(dminv), _ptr(dminw),
                            _ptr(fo_mask), _ptr(fo_from), div.data_ptr(), dvel.data_ptr(),
                            _ptr(corr_mask), _ptr(corr), X, Y, Z, axis, lo, hi,
                            int(state_is_cons), int(first_order),
@@ -728,7 +828,7 @@ def sweep_tile(n_cells: int, n_across: int, axis: int) -> Tuple[int, int]:
 
 
 def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc_axis,
-                     dx_axis, avg_with, state_is_cons, emit_avg_flux):
+                     dx_axis, avg_with, state_is_cons, emit_avg_flux, planes=(None, None)):
     """Launch K2's sweep with a divergence (csrc/sweep.cu
     `sweep_tile_kernel`): a block stages and reconstructs a tile of
     `sweep_tile` cells by lines and solves each face those cells touch once
@@ -763,7 +863,8 @@ def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc
     if emit_avg_flux:
         v1 = None  # K2d: dvel stays the raw stage-2 velocity divergence
     favg = torch.empty_like(U) if emit_avg_flux else None
-    err = lib.qk_axis_sweep(U.data_ptr(), _ptr(chi), _ptr(dminv), _ptr(dminw),
+    err = lib.qk_axis_sweep(U.data_ptr(), _ptr(chi), *_plane_args(planes, U, axis),
+                            _ptr(dminv), _ptr(dminw),
                             div.data_ptr(), dvel.data_ptr(), *map(_ptr, faces),
                             _ptr(F1), _ptr(v1), _ptr(F1h), _ptr(v1h), _ptr(favg), X, Y, Z,
                             axis, lo, hi, int(state_is_cons), int(first_order),
@@ -779,13 +880,17 @@ def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc
     return faces[:4 if wall else 2] + (div, dvel)
 
 
-def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):
+def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts, ng=(0, 0, 0)):
     """K3 (`pallas_sweep.apply_update_pallas`): returns (U_finalized,
     n_invalid) with n_invalid a 0-d integer tensor counting the cells whose
     raw update was invalid before the floors. `dt` may be a float or a
-    one-element tensor on the state's device."""
+    one-element tensor on the state's device. With `ng` the stage input Ug0
+    and the divergences are ghost-padded by `ng` (the hybrid ghost-free
+    step, a hook-filled axis padded) and U is the interior: the kernel reads
+    an x-padded block where it lies, and a block padded along y or z from
+    a contiguous copy of its interior."""
     if not _on_cuda(U):
-        return apply_update_plain(U, Ug0, divs, dvels, dt, opts)
+        return apply_update_plain(U, Ug0, divs, dvels, dt, opts, ng)
     from .._cuda import check, library
 
     lib = library()
@@ -794,19 +899,25 @@ def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts):
         raise NotImplementedError("the CUDA apply kernel takes three axes")
     if opts.n_scalars > 0:
         raise NotImplementedError("the CUDA apply kernel takes no passive scalars")
-    _check_kernel_inputs(opts, U, Ug0, *(divs[d] for d in axes),
-                         *(dvels[d] for d in axes))
-    _check_shapes([(Ug0, U.shape, "Ug0")]
-                  + [(divs[d], U.shape, "div") for d in axes]
-                  + [(dvels[d], U.shape[1:], "dvel") for d in axes])
+    ins = [Ug0] + [divs[d] for d in axes] + [dvels[d] for d in axes]
+    if any(ng[1:]):
+        ins = [interior(t, ng).contiguous() for t in ins]
+        ng = (0, 0, 0)
+    Ug0, dlist, vlist = ins[0], ins[1:4], ins[4:]
+    _check_kernel_inputs(opts, U, *ins)
+    X, Y, Z = U.shape[1:]
+    padded = (X + 2 * ng[0], Y, Z)
+    _check_shapes([(Ug0, (6,) + padded, "Ug0")]
+                  + [(t, (6,) + padded, "div") for t in dlist]
+                  + [(t, padded, "dvel") for t in vlist])
     dt_t = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(1)
     out = torch.empty_like(U)
     n_bad = torch.zeros(1, dtype=torch.int32, device=U.device)
-    err = lib.qk_apply(U.data_ptr(), Ug0.data_ptr(),
-                       *(divs[d].data_ptr() for d in axes),
-                       *(dvels[d].data_ptr() for d in axes),
+    ncell = U[0].numel()
+    err = lib.qk_apply(U.data_ptr(), Ug0.data_ptr(), *(t.data_ptr() for t in dlist),
+                       *(t.data_ptr() for t in vlist),
                        dt_t.data_ptr(), out.data_ptr(), n_bad.data_ptr(),
-                       U[0].numel(), float(opts.density_floor),
+                       ncell, Ug0[0].numel(), ng[0] * Y * Z, float(opts.density_floor),
                        float(opts.temperature_floor), float(opts.eos.c_v)
                        if opts.temperature_floor > 0.0 else 0.0,
                        opts.eos.gamma - 1.0,
@@ -851,8 +962,8 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
         raise ValueError("acc_init requires accumulate")
     if div_only and avg_with is not None:
         raise ValueError("div_only excludes avg_with")
-    dmins, chi_cell, _ = precompute_transverse(Ug, opts, bc_kinds,
-                                               state_is_cons=True)
+    dmins, chi_cell, chi_ghost = precompute_transverse(Ug, opts, bc_kinds,
+                                                       state_is_cons=True)
     out = {"fluxes": {}, "facevels": {}, "flux_hi": {}, "vel_hi": {},
            "divs": {}, "dvels": {}}
     if div_only:
@@ -860,6 +971,7 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
         for d in opts.active_axes:
             bc_axis = None if bc_kinds is None else bc_kinds.get(d)
             res = compute_axis_flux(Ug, d, opts, chi_cell, dmins, bc_axis=bc_axis,
+                                    chi_ghost_axis=chi_ghost.get(d),
                                     dx_axis=opts.dx[d], state_is_cons=True,
                                     acc=acc if accumulate else None, div_only=True,
                                     fo_mask=fo_mask, fo_from=fo_from,
@@ -884,8 +996,9 @@ def compute_fluxes_pallas_div(Ug, opts, bc_kinds: dict | None = None,
             if bc_axis is not None:
                 avg_axis += (avg_with["flux_hi"][d], avg_with["vel_hi"][d])
         res = compute_axis_flux(Ug, d, opts, chi_cell, dmins, False,
-                                bc_axis=bc_axis, dx_axis=opts.dx[d],
-                                avg_with=avg_axis, state_is_cons=True)
+                                bc_axis=bc_axis, chi_ghost_axis=chi_ghost.get(d),
+                                dx_axis=opts.dx[d], avg_with=avg_axis,
+                                state_is_cons=True)
         if avg_axis is not None:
             out["divs"][d], out["dvels"][d] = res
             continue
@@ -913,14 +1026,14 @@ def compute_fluxes_pallas(Ug, opts, first_order: bool = False,
     transverse = precompute_transverse_plain if plain else precompute_transverse
     axis_flux = axis_flux_plain if plain else compute_axis_flux
     if first_order:
-        dmins, chi_cell = {}, None
+        dmins, chi_cell, chi_ghost = {}, None, {}
     else:
-        dmins, chi_cell, _ = transverse(prim, opts, bc_kinds)
+        dmins, chi_cell, chi_ghost = transverse(prim, opts, bc_kinds)
     fluxes, facevels, flux_hi, vel_hi = {}, {}, {}, {}
     for d in opts.active_axes:
         bc_axis = None if bc_kinds is None else bc_kinds.get(d)
         res = axis_flux(prim, d, opts, chi_cell, dmins, first_order,
-                        bc_axis=bc_axis)
+                        bc_axis=bc_axis, chi_ghost_axis=chi_ghost.get(d))
         fluxes[d], facevels[d] = res[0], res[1]
         if bc_axis is not None:
             flux_hi[d], vel_hi[d] = res[2], res[3]
@@ -951,7 +1064,8 @@ def compute_fluxes_batched(Ug5, opts, first_order: bool = False):
     from .._cuda import library
 
     lib = library()
-    dmins, chi_cell = ({}, None) if first_order else _transverse_cuda(Ug5, opts, None, True)
+    dmins, chi_cell = ({}, None) if first_order else _transverse_cuda(Ug5, opts, None,
+                                                                        True)[:2]
     fl, fv = {}, {}
     for d in opts.active_axes:
         vax, wax = _transverse_axes(d, max(opts.ndim, 1))

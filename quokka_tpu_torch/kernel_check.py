@@ -33,7 +33,7 @@ from .hydro import euler, sweep
 from .mhd import sweep as msweep
 from .radiation import source, substep, system
 from .radiation import sweep as rsweep
-from .stencil import sh
+from .stencil import interior, sh
 
 RTOL = 1e-5
 ULPS = 64
@@ -192,24 +192,28 @@ class Case(NamedTuple):
 
 
 def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
-          dt: float) -> Iterator[Case]:
+          dt: float, ng=(0, 0, 0)) -> Iterator[Case]:
     """The kernels at the shapes of the main path: K1 on the conserved
-    state; K2 stage 1 (walls + divergence), stage 2 (time average with
-    stage 1's faces) and first order, per axis; K3 on stage 1's
-    divergences. K2 and K3 take inputs from the plain versions, so each
-    kernel is compared on identical inputs."""
+    state; K2 stage 1 (walls + divergence; on an outflow wall with K1's
+    chi planes), stage 2 (time average with stage 1's faces) and first
+    order, per axis; K3 on stage 1's divergences. K2 and K3 take inputs from
+    the plain versions, so each kernel is compared on identical inputs.
+    With `ng` (the hybrid ghost-free mode) U and U2 are padded by `ng` and
+    K3 updates their interior from the padded stage input and divergences,
+    as the step does."""
     n = U[0].numel()
-    k1_cost = k1_cost_of(U, opts)
+    dmins, chi, planes = sweep.precompute_transverse_plain(U, opts, bc_kinds, True)
+    dmins2, chi2, planes2 = sweep.precompute_transverse_plain(U2, opts, bc_kinds, True)
+    k1_cost = k1_cost_of(U, opts, planes)
     yield Case("transverse", "K1 all axes",
-               lambda: sweep.precompute_transverse(U, opts, bc_kinds, True)[:2],
-               lambda: sweep.precompute_transverse_plain(U, opts, bc_kinds, True)[:2],
+               lambda: sweep.precompute_transverse(U, opts, bc_kinds, True),
+               lambda: sweep.precompute_transverse_plain(U, opts, bc_kinds, True),
                lambda: k1_cost)
-    dmins, chi, _ = sweep.precompute_transverse_plain(U, opts, bc_kinds, True)
-    dmins2, chi2, _ = sweep.precompute_transverse_plain(U2, opts, bc_kinds, True)
     prim = euler.cons_to_prim(U, opts.eos, opts.reconstruct_eint)
     divs, dvels = {}, {}
     for d in opts.active_axes:
-        s1 = dict(bc_axis=bc_kinds.get(d), dx_axis=opts.dx[d], state_is_cons=True)
+        s1 = dict(bc_axis=bc_kinds.get(d), dx_axis=opts.dx[d], state_is_cons=True,
+                  chi_ghost_axis=planes.get(d))
         res = sweep.axis_flux_plain(U, d, opts, chi, dmins, **s1)
         # reads U, chi and two dmin fields; writes faces, face velocities
         # and both divergences
@@ -220,7 +224,7 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
                    lambda d=d, kw=s1: sweep.axis_flux_plain(U, d, opts, chi, dmins, **kw),
                    lambda cost=cost: cost)
         divs[d], dvels[d] = res[-2], res[-1]
-        s2 = dict(s1, avg_with=res[:-2])
+        s2 = dict(s1, avg_with=res[:-2], chi_ghost_axis=planes2.get(d))
         # reads U2, chi, two dmin fields and stage 1's faces (and their hi
         # planes); writes both divergences
         cost2 = (_nbytes(U2, chi2, *dmins2.values()) - _nbytes(dmins2[d]) + _nbytes(res[:-2])
@@ -236,23 +240,34 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
     # K3 reads U, the stage's input state, three divergences and three
     # dvels, and writes the state. Both RK stages of the main path pass the
     # step's initial state as U and as the stage input (hydro/advance.py),
-    # as this call does, so U is read once.
-    k3_cost = (_nbytes(U, U, divs, dvels) + _nbytes(U), OPS_K3 * n)
-    yield Case("apply_update", "K3",
-               lambda: sweep.apply_update(U, U, divs, dvels, dt, opts),
-               lambda: sweep.apply_update_plain(U, U, divs, dvels, dt, opts),
+    # as this call does, so U is read once. Padded (the hybrid mode), the
+    # kernel reads the interior of the padded inputs only, and 5 components
+    # of the stage input (the PdV pressure), beside the interior state Ui.
+    if any(ng):
+        Ui = interior(U, ng).contiguous()
+        read = (_nbytes(Ui, interior(U, ng)[:5]) + _nbytes(*(interior(t, ng) for t in divs.values()))
+                + _nbytes(*(interior(t, ng) for t in dvels.values())))
+    else:
+        Ui = U
+        read = _nbytes(U, divs, dvels)
+    k3_cost = (read + _nbytes(Ui), OPS_K3 * Ui[0].numel())
+    yield Case("apply_update", "K3" + (f" padded {tuple(ng)}" if any(ng) else ""),
+               lambda: sweep.apply_update(Ui, U, divs, dvels, dt, opts, ng),
+               lambda: sweep.apply_update_plain(Ui, U, divs, dvels, dt, opts, ng),
                lambda: k3_cost)
 
 
-def k1_cost_of(U: torch.Tensor, opts):
+def k1_cost_of(U: torch.Tensor, opts, planes: dict | None = None):
     """(bytes, FP32 operations) of K1 over a state [6, X, Y, Z] or a batch
     [B, 6, X, Y, Z]: the state read once, and what K1 returns written once:
     dmin an active axis and, with PPM flattening, chi_cell (40 B a cell with
-    three axes); OPS_K1_AXIS a cell and axis."""
+    three axes) and the outflow chi planes `planes` (`hydro.sweep.
+    outflow_chi_planes`); OPS_K1_AXIS a cell and axis."""
     cell = U.select(-4, 0)
     axes = len(opts.active_axes)
     chi = opts.use_flattening and opts.reconstruction_order == 3
-    return (_bytes_of(U) + _bytes_of(cell) * (axes + chi), OPS_K1_AXIS * cell.numel() * axes)
+    return (_bytes_of(U) + _bytes_of(cell) * (axes + chi) + _nbytes(planes),
+            OPS_K1_AXIS * cell.numel() * axes)
 
 
 def same_bits(got, ref) -> bool:
@@ -1007,12 +1022,92 @@ LEAN_EDGE_VARIANTS = ("clean", "acc", "fo_mask", "fo_mask+acc+fo_from", "first o
 
 
 def _bc_of(kind: str) -> dict:
-    from .registry import BC_REFLECT
+    from .registry import BC_OUTFLOW, BC_REFLECT
 
-    wall = (BC_REFLECT, BC_REFLECT)
+    wall, out = (BC_REFLECT, BC_REFLECT), (BC_OUTFLOW, BC_OUTFLOW)
+    r_o, o_r = (BC_REFLECT, BC_OUTFLOW), (BC_OUTFLOW, BC_REFLECT)
     return {"walls": {0: wall, 1: wall, 2: wall},
             "periodic": {0: None, 1: None, 2: None},
-            "periodic x": {0: None, 1: wall, 2: wall}}[kind]
+            "periodic x": {0: None, 1: wall, 2: wall},
+            # the JAX package's `outflow_all` and `mixed` (tests/test_ghostfree.py:
+            # 75-95), Richtmyer-Meshkov's x walls, and each mixed pair on an axis
+            "outflow": {0: out, 1: out, 2: out},
+            "mixed": {0: None, 1: r_o, 2: o_r},
+            "outflow x": {0: out, 1: None, 2: None},
+            "reflect-outflow": {0: r_o, 1: o_r, 2: out}}[kind]
+
+
+# (extents, walls) of the outflow variant's edge shapes: LEAN_EDGE_SHAPES'
+# extents with every side kind on every axis (outflow on both sides, each
+# reflect / outflow pair, periodic beside them)
+OUTFLOW_EDGE_SHAPES = (((4, 4, 4), "outflow"), ((5, 5, 5), "mixed"),
+                       ((37, 18, 33), "outflow x"), ((4, 35, 17), "reflect-outflow"),
+                       ((83, 6, 47), "mixed"), ((5, 5, 5), "reflect-outflow"))
+
+
+def rough_wall_state(shape, seed: int, device) -> torch.Tensor:
+    """`hydro_blocks` with a density and pressure well and strong outward
+    and inward jets in the first and last two cells of every axis, so that
+    PPM's limiters, flattening and the FOFC mask act at the walls."""
+    U = hydro_blocks(1, shape, seed, device)[0].clone()
+    rho, eint = U[0].clone(), (U[5] / U[0]).clone()
+    v = U[1:4] / U[0]
+    for d in range(3):
+        n = shape[d]
+        for c, vel, boost in ((0, -3.0, 30.0), (1, 2.5, 4.0), (n - 2, -2.5, 4.0),
+                              (n - 1, 3.0, 30.0)):
+            sl = [slice(None)] * 3
+            sl[d] = c
+            v[d][tuple(sl)] = vel
+            eint[tuple(sl)] *= boost
+    rho[tuple(s // 2 for s in shape)] = 1e-4
+    eint[tuple(s // 2 for s in shape)] = 1e-6
+    ke = 0.5 * rho * (v * v).sum(dim=0)
+    return torch.stack([rho, rho * v[0], rho * v[1], rho * v[2], rho * eint + ke,
+                        rho * eint]).contiguous()
+
+
+def k1_wall_edge_cases(opts, device, seed: int = 16,
+                       shapes=OUTFLOW_EDGE_SHAPES) -> Iterator[Case]:
+    """K1 on one state (`precompute_transverse`: dmins, chi_cell and the
+    outflow chi planes) at `shapes`, in each of K1_EDGE_VARIANTS, against
+    its plain version; K1 is held bit for bit."""
+    import dataclasses
+
+    for i, (shape, kind) in enumerate(shapes):
+        bc = _bc_of(kind)
+        U = rough_wall_state(shape, seed + i, device)
+        for label, changes, is_cons in K1_EDGE_VARIANTS:
+            o = dataclasses.replace(opts, **changes)
+            W = U if is_cons else euler.cons_to_prim(U, o.eos, o.reconstruct_eint).contiguous()
+            yield Case("transverse", f"K1 {shape} {kind} {label}",
+                       lambda W=W, o=o, c=is_cons, bc=bc:
+                           sweep.precompute_transverse(W, o, bc, c),
+                       lambda W=W, o=o, c=is_cons, bc=bc:
+                           sweep.precompute_transverse_plain(W, o, bc, c))
+
+
+def face_wall_edge_cases(opts, device, seed: int = 18,
+                         shapes=OUTFLOW_EDGE_SHAPES) -> Iterator[Case]:
+    """K2's face kernel (`compute_axis_flux` without dx_axis: the FOFC
+    fallback's faces) on one state at `shapes`, every axis, PPM (K1's fields
+    and outflow planes from its plain version) and first order, against
+    `axis_flux_plain`."""
+    for i, (shape, kind) in enumerate(shapes):
+        bc = _bc_of(kind)
+        U = rough_wall_state(shape, seed + i, device)
+        dmins, chi, planes = sweep.precompute_transverse_plain(U, opts, bc, True)
+        for fo in (False, True):
+            for d in range(3):
+                kw = dict(bc_axis=bc[d], state_is_cons=True,
+                          chi_ghost_axis=None if fo else planes.get(d))
+                c, dm = (None, {}) if fo else (chi, dmins)
+                what = "first order" if fo else "PPM"
+                yield Case("axis_flux", f"K2 faces {shape} {kind} {what} axis {d}",
+                           lambda d=d, c=c, dm=dm, kw=kw, fo=fo:
+                               sweep.compute_axis_flux(U, d, opts, c, dm, fo, **kw),
+                           lambda d=d, c=c, dm=dm, kw=kw, fo=fo:
+                               sweep.axis_flux_plain(U, d, opts, c, dm, fo, **kw))
 
 
 def tile_edge_mask(shape, d: int, ta: int, seed: int, device) -> torch.Tensor:
@@ -1048,7 +1143,8 @@ def box_face_masks(shape, device) -> dict:
     return out
 
 
-def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
+def lean_edge_cases(opts, device, seed: int = 8,
+                    shapes=LEAN_EDGE_SHAPES) -> Iterator[Case]:
     """K2c and K2e (the div_only sweep, `compute_axis_flux`) on seeded
     conserved states at LEAN_EDGE_SHAPES, every axis, in each of
     LEAN_EDGE_VARIANTS (K2e's on periodic axes only), with K1's fields from
@@ -1058,7 +1154,7 @@ def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
     accumulators are copied for each call."""
     import dataclasses
 
-    for i, (shape, kind) in enumerate(LEAN_EDGE_SHAPES):
+    for i, (shape, kind) in enumerate(shapes):
         bc = _bc_of(kind)
         U0 = hydro_blocks(1, shape, seed + i, device)[0]
         U1 = hydro_blocks(1, shape, seed + 20 + i, device)[0]
@@ -1072,7 +1168,8 @@ def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
             extras.append((" visc eint", dataclasses.replace(opts, K_visc=0.1,
                                                              reconstruct_eint=True)))
         for etag, o in extras:
-            k1 = {"0": plain_transverse(U0, o, bc), "1": plain_transverse(U1, o, bc)}
+            k1 = {"0": sweep.precompute_transverse_plain(U0, o, bc, True),
+                  "1": sweep.precompute_transverse_plain(U1, o, bc, True)}
             for d in range(3):
                 ta, _ = sweep.lean_tile(shape[d], shape[1] if d == 2 else shape[2])
                 mask = tile_edge_mask(shape, d, ta, seed + 60 + 3 * i + d, device)
@@ -1081,9 +1178,10 @@ def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
                         continue
                     stage2 = "fo_from" in v
                     U = U1 if stage2 else U0
-                    dmins, chi = k1["1" if stage2 else "0"]
+                    dmins, chi, planes = k1["1" if stage2 else "0"]
                     kw = dict(bc_axis=bc[d], dx_axis=o.dx[d], state_is_cons=True,
-                              div_only=True, first_order=v == "first order")
+                              div_only=True, first_order=v == "first order",
+                              chi_ghost_axis=planes.get(d))
                     if "fo_mask" in v or stage2:
                         kw["fo_mask"] = mask
                     if stage2:
@@ -1116,7 +1214,8 @@ def lean_edge_cases(opts, device, seed: int = 8) -> Iterator[Case]:
 SWEEP_EDGE_VARIANTS = ("stage 1", "first order", "stage 2", "K2d")
 
 
-def sweep_edge_cases(opts, device, seed: int = 10) -> Iterator[Case]:
+def sweep_edge_cases(opts, device, seed: int = 10,
+                     shapes=LEAN_EDGE_SHAPES) -> Iterator[Case]:
     """K2's sweeps with a divergence (`compute_axis_flux` with dx_axis,
     `csrc/sweep.cu` `sweep_tile_kernel`) on seeded conserved states at
     LEAN_EDGE_SHAPES, every axis, in each of SWEEP_EDGE_VARIANTS (K2d on
@@ -1126,7 +1225,7 @@ def sweep_edge_cases(opts, device, seed: int = 10) -> Iterator[Case]:
     Against `axis_flux_plain`."""
     import dataclasses
 
-    for i, (shape, kind) in enumerate(LEAN_EDGE_SHAPES):
+    for i, (shape, kind) in enumerate(shapes):
         bc = _bc_of(kind)
         U0 = hydro_blocks(1, shape, seed + i, device)[0]
         U1 = hydro_blocks(1, shape, seed + 20 + i, device)[0]
@@ -1135,13 +1234,16 @@ def sweep_edge_cases(opts, device, seed: int = 10) -> Iterator[Case]:
             extras.append((" visc eint", dataclasses.replace(opts, K_visc=0.1,
                                                              reconstruct_eint=True)))
         for etag, o in extras:
-            (dm0, chi0), (dm1, chi1) = plain_transverse(U0, o, bc), plain_transverse(U1, o, bc)
+            dm0, chi0, pl0 = sweep.precompute_transverse_plain(U0, o, bc, True)
+            dm1, chi1, pl1 = sweep.precompute_transverse_plain(U1, o, bc, True)
             for d in range(3):
                 s1 = dict(bc_axis=bc[d], dx_axis=o.dx[d], state_is_cons=True)
-                faces = sweep.axis_flux_plain(U0, d, o, chi0, dm0, **s1)[:-2]
-                variants = {"stage 1": (U0, dm0, chi0, s1),
+                faces = sweep.axis_flux_plain(U0, d, o, chi0, dm0, chi_ghost_axis=pl0.get(d),
+                                              **s1)[:-2]
+                variants = {"stage 1": (U0, dm0, chi0, dict(s1, chi_ghost_axis=pl0.get(d))),
                             "first order": (U0, {}, None, dict(s1, first_order=True)),
-                            "stage 2": (U1, dm1, chi1, dict(s1, avg_with=faces))}
+                            "stage 2": (U1, dm1, chi1, dict(s1, avg_with=faces,
+                                                            chi_ghost_axis=pl1.get(d)))}
                 if bc[d] is None:
                     variants["K2d"] = (U1, dm1, chi1, dict(s1, avg_with=faces,
                                                            emit_avg_flux=True))

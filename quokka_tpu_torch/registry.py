@@ -152,6 +152,8 @@ class Problem:
 
     Subclasses override trait attributes and hooks:
       - set_initial_conditions(grid, dtype, device) -> U[nvar, nx, ny, nz]
+      - fill_user_boundary(Ug, grid, ng, time, axis, side) (BC_USER walls)
+      - compute_reference_solution(sim) -> U_exact or None (the error norm)
       - compute_before_timestep(sim), compute_after_evolve(sim)
       - radiation: the opacity laws (`planck_opacity`, and optionally
         `energy_mean_opacity` / `flux_mean_opacity`) and
@@ -173,6 +175,20 @@ class Problem:
 
     def set_initial_conditions(self, grid, dtype=torch.float64, device="cuda"):
         raise NotImplementedError
+
+    def fill_user_boundary(self, Ug, grid, ng, time, axis, side):
+        """Fill the BC_USER ghost cells of side `side` (0 lo, 1 hi) of `axis`
+        in the padded tensor Ug (padded along the axes up to `axis`, `ng`
+        the ghost widths of the fill) and return it; writing into Ug in
+        place is allowed (`quokka_tpu/registry.py:150-155`)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares BC_USER but does not implement "
+            "fill_user_boundary()")
+
+    def compute_reference_solution(self, sim):
+        """The exact solution at `sim.t` ([nvar, nx, ny, nz], any array), for
+        the error norm that `Simulation.evolve` reports; None: no norm."""
+        return None
 
     # ---- radiation opacity hooks (reference `ComputePlanckOpacity` etc.,
     # ``src/radiation/radiation_system.hpp:1141-1154``; energy-mean and

@@ -31,7 +31,7 @@ from .grid import Grid
 from .hydro import euler
 from .hydro.advance import HydroOptions, advance_hydro_rk2
 from .indices import EGAS, EINT, RHO
-from .registry import BC_PERIODIC, BC_REFLECT, Problem
+from .registry import BC_OUTFLOW, BC_PERIODIC, BC_REFLECT, Problem
 from .stencil import ghost_widths
 
 NGHOST = 4  # ghost cells of a padded level: PPM + flattening (reference nghost_cc)
@@ -145,6 +145,7 @@ class Simulation:
         self.cell_updates_raw = 0  # every cell advanced (AMR: inactive ones too)
         self.fofc_cells = 0  # invalid cells that triggered FOFC, summed
         self.fofc_fallbacks = 0  # stages that took the FOFC fallback
+        self.error_norm = float("nan")  # against compute_reference_solution
         self.init_sums: Optional[np.ndarray] = None
         self._radiation = None  # attached with the initial conditions
 
@@ -164,40 +165,56 @@ class Simulation:
 
     def _ghost_free_config(self):
         """Stepping mode for the hydro advance, as the JAX package's
-        `_ghost_free_config` chooses it (`quokka_tpu/simulation.py:222-294`).
-        A float32 state up to the kernels' extent (1088 cells an axis when
-        the lean step may run, else 272) steps ghost-free: every axis
-        unpadded, walls read through the kernels' index map; {"ng": (0, 0,
-        0), "bc_kinds", "fill": None} with bc_kinds[axis] = (lo, hi) for a
-        wall axis, None if periodic. Any other state steps padded (the
-        classic formulation): "fill" pads the walls (nothing on a periodic
-        domain, whose rolls wrap) and "bc_kinds" is None."""
+        `_ghost_free_config` and step builder choose it (`quokka_tpu/
+        simulation.py:222-294`, `:444-476`). A float32 state with three
+        active axes up to the kernels' extent (1088 cells an axis when the
+        lean step may run, else 272) steps ghost-free: {"ng", "bc_kinds",
+        "fill"}, bc_kinds[axis] = (lo, hi) for a periodic, reflect or
+        outflow wall axis the kernels assemble (None if periodic), and a
+        BC_USER (or NSCBC) axis padded by its `ng` through "fill", its
+        bc_kinds entry None (the hybrid mode; "fill" None when no axis is
+        padded). The port has no sharding: the JAX package's tiles are (1,
+        1, 1). Any other state, `hydro.ghost_free = 0`, or a z wall the
+        kernels cannot assemble, steps padded (the classic formulation,
+        and the plain sweep with fewer than three axes): "fill" pads every
+        active axis (nothing on a periodic domain, whose rolls wrap) and
+        "bc_kinds" is None."""
         import os
 
         from .hydro.advance import LEAN_MAX_EXTENT, LEAN_MIN_EXTENT
 
         opts = self.hydro_opts
+        bcs = self.problem.bcs
         lean_ok = (opts.fuse_update and opts.rk_order == 2
                    and os.environ.get("QUOKKA_PALLAS_LEAN", "auto") != "0")
         max_ext = LEAN_MAX_EXTENT if lean_ok else LEAN_MIN_EXTENT
-        if self.dtype != torch.float32 or max(self.grid.n_cell) > max_ext:
+        allowed = (BC_PERIODIC, BC_REFLECT, BC_OUTFLOW)
+        if (self.dtype != torch.float32 or len(opts.active_axes) != 3
+                or self.pp.get_int("hydro.ghost_free", 1) == 0
+                or max(self.grid.n_cell) > max_ext
+                or any(k not in allowed for k in bcs.axis(2))):
             if all(self.periodic):
                 return {"ng": (0, 0, 0), "bc_kinds": None, "fill": lambda X: X}
-            ng, bcs = self.ng, self.problem.bcs
-            return {"ng": ng, "bc_kinds": None,
-                    "fill": lambda X: fill_ghosts(X, ng, bcs)}
-        kinds = {}
-        for d in self.hydro_opts.active_axes:
-            lo, hi = self.problem.bcs.axis(d)
-            if self.periodic[d]:
+            return {"ng": self.ng, "bc_kinds": None, "fill": self._fill}
+        ng, kinds = [0, 0, 0], {}
+        for d in opts.active_axes:
+            lo, hi = bcs.axis(d)
+            if lo not in allowed or hi not in allowed:
+                ng[d] = self.ng[d]  # a hook-filled axis: conventional padding
                 kinds[d] = None
-            elif lo == hi == BC_REFLECT:
-                kinds[d] = (lo, hi)
             else:
-                raise NotImplementedError(
-                    f"axis {d} boundary ({lo}, {hi}): the port supports "
-                    f"{BC_PERIODIC} and {BC_REFLECT} walls")
-        return {"ng": (0, 0, 0), "bc_kinds": kinds, "fill": None}
+                kinds[d] = None if self.periodic[d] else (lo, hi)
+        ng = tuple(ng)
+        fill = None
+        if any(ng):
+            fill = lambda X: fill_ghosts(X, ng, bcs, self.problem, self.grid)  # noqa: E731
+        return {"ng": ng, "bc_kinds": kinds, "fill": fill}
+
+    def _fill(self, U, time: float = 0.0):
+        """U padded by `self.ng` with the problem's boundary conditions
+        (`quokka_tpu/simulation.py:296-300`); the JAX step calls it at its
+        default time 0."""
+        return fill_ghosts(U, self.ng, self.problem.bcs, self.problem, self.grid, time)
 
     # ------------------------------------------------------------------ step
     def _step(self, U, dt):
@@ -352,7 +369,24 @@ class Simulation:
             print(f"FOFC: {self.fofc_fallbacks} stage fallbacks, "
                   f"{self.fofc_cells} invalid cells")
         self._conservation_audit()
+        self._compute_error_norm()
         self.problem.compute_after_evolve(self)
+
+    def _compute_error_norm(self):
+        """Relative rms-of-L1 error norm against the problem's reference
+        solution (`quokka_tpu/simulation.py:1113-1126`; reference
+        `computeAfterEvolve`, ``src/QuokkaSimulation.hpp:620-645``), summed
+        in the state's dtype on its device."""
+        ref = self.problem.compute_reference_solution(self)
+        if ref is None:
+            return
+        ref = torch.as_tensor(ref, dtype=self.dtype).to(self.U.device)
+        resid = ref - self.U
+        sol_norm = torch.sqrt(torch.sum(torch.sum(torch.abs(ref), dim=(1, 2, 3)) ** 2))
+        err_norm = torch.sqrt(torch.sum(torch.sum(torch.abs(resid), dim=(1, 2, 3)) ** 2))
+        self.error_norm = float(err_norm / sol_norm)
+        if self.verbose:
+            print(f"Relative rms L1 error norm = {self.error_norm:.6e}")
 
     def _check_states_valid(self):
         """Fail with the first invalid cell: NaN or Inf anywhere, or a

@@ -75,13 +75,15 @@ SEDOV_DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 
 # substring of a CUDA kernel's name -> the port's kernel (K2e is the lean
 # kernel with the register seed, counted under K2c; K2's sweeps with a
-# divergence, stage 1, stage 2 and K2d, are `sweep_tile_kernel`)
+# divergence, stage 1, stage 2 and K2d, are `sweep_tile_kernel`; K1's
+# second pass, with an outflow side, is `outflow_planes_kernel`)
 KERNEL_OF = (
     ("mhd_tile_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
     ("rad_transport_axis_kernel", "K4 transport"),
     ("rad_stage1_kernel", "K4 stage 1"), ("rad_stage2_kernel", "K4 stage 2"),
     ("rad_source_kernel", "K5"), ("rad_div_tile_kernel", "K6"),
-    ("transverse_kernel", "K1"), ("lean_tile_kernel", "K2c"), ("sweep_tile_kernel", "K2"),
+    ("transverse_kernel", "K1"), ("outflow_planes_kernel", "K1"),
+    ("lean_tile_kernel", "K2c"), ("sweep_tile_kernel", "K2"),
     ("face_tile_kernel", "K2 faces"), ("fo_face_kernel", "K2 faces"), ("apply_kernel", "K3"),
     ("row_gather_kernel", "K9"),
 )

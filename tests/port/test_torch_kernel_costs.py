@@ -1,5 +1,5 @@
-"""The bounds of K1 (at Sedov 256^3 and the packed chunk), K4 (its bytes at
-256^3), K7 and K9 at the packed main path's chunk shapes, and K7 and K9 at
+"""The bounds of K1 (at Sedov 256^3 and the packed chunk), K3 (unpadded and
+on x-padded stage inputs), K4 (its bytes at 256^3), K7 and K9 at the packed main path's chunk shapes, and K7 and K9 at
 their edges on the card.
 
 `kernel_check.k7_cost` and `k9_cost` give the bytes and operations from
@@ -36,6 +36,28 @@ def lattice_neighbours(shape, first: int, count: int) -> torch.Tensor:
     raster-ordered tiles from `first`, a missing one clamped to row 0) as
     an int32 tensor."""
     return torch.tensor(lattice_rows(shape, first, count))
+
+
+@pytest.mark.parametrize("ng", [(0, 0, 0), (4, 0, 0)])
+def test_k3_cost_counts_what_it_reads(ng):
+    """K3 reads the stage's state (6 components), the stage input (5: the
+    PdV pressure; the state's own buffer unpadded), three divergences (6
+    each) and three dvels, and writes the state: 132 B a cell unpadded, 152
+    B with x-padded stage inputs (the hybrid mode), of which it reads the
+    interior only."""
+    from quokka_tpu_torch.eos import IdealGasEOS
+    from quokka_tpu_torch.hydro.advance import HydroOptions
+
+    n = 16
+    shape = tuple(n + 2 * g for g in ng)
+    U = kernel_check.hydro_blocks(1, shape, 3, "cpu")[0]
+    opts = HydroOptions(eos=IdealGasEOS(gamma=1.4), active_axes=(0, 1, 2), dx=(1.0 / n,) * 3)
+    case = list(kernel_check.cases(U, U.clone(), opts, {0: None, 1: None, 2: None}, 1e-3,
+                                   ng))[-1]
+    nbytes, ops = case.cost()
+    assert case.kernel == "apply_update"
+    assert nbytes == (152 if any(ng) else 132) * n**3
+    assert ops == kernel_check.OPS_K3 * n**3
 
 
 def test_k7_cost_of_a_packed_chunk():

@@ -123,9 +123,11 @@ def test_k3_apply(rough):
 
 
 def test_wrappers_reject_unported_options(case):
-    with pytest.raises(NotImplementedError):
+    # an outflow chi plane belongs to an outflow side of a wall axis
+    plane = torch.ones(1, N, N)
+    with pytest.raises(ValueError, match="chi_ghost_axis"):
         sweep.compute_axis_flux(case["U0"], 0, case["opts"], None, {},
-                                chi_ghost_axis=(None, None))
+                                chi_ghost_axis=(plane, None))
     # the register seed (K2e) is ported on ghost-free periodic axes only
     walls = {d: b for d, b in case["bc"].items()}
     walls[0] = ("reflect", "reflect")
@@ -136,6 +138,7 @@ def test_wrappers_reject_unported_options(case):
     with pytest.raises(NotImplementedError):
         sweep.compute_axis_flux(case["U0"], 0, case["opts"], None, {},
                                 fo_mask=torch.zeros(N, N, N))
-    with pytest.raises(NotImplementedError):
+    # the NSCBC walls are not ported (hydro/nscbc.py)
+    with pytest.raises(NotImplementedError, match="nscbc_outflow"):
         sweep.precompute_transverse(case["U0"], case["opts"],
-                                    {0: ("outflow", "outflow"), 1: None, 2: None})
+                                    {0: ("nscbc_outflow", "outflow"), 1: None, 2: None})
