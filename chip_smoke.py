@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of quokka_tpu_torch on one CUDA GPU: build the hand-written
 kernels, hold each against its plain PyTorch version at the main paths'
-shapes, compare small runs with the CPU, then run the eight main paths on
-the card:
+shapes, compare small runs with the CPU, then run the main paths on the
+card:
 
 - hydro: 10 steps of the Sedov 256^3 f32 blast from
   decks/benchmark_unigrid_256.in through `Simulation` (kernels K1-K3);
@@ -31,7 +31,15 @@ the card:
   the padded layout), phase 12;
 - Richtmyer-Meshkov on 256 x 256 x 64 f32 (`problems/hydro_suite.py:
   DECK_RM_3D`: outflow x walls assembled in the kernels), 10 steps: K1
-  writes the outflow chi planes and every K2 sweep reads them, phase 13.
+  writes the outflow chi planes and every K2 sweep reads them, phase 13;
+- Rayleigh-Taylor 3D f32 (`problems/rayleigh_taylor.py`: one passive
+  scalar, the external gravity kick, periodic x/y, reflecting z), 10
+  steps at 256 x 256 x 384 on the JAX test's domain (the lean step, K1 +
+  K2c with the scalar), phase 14, and at 256^3 (the fused step, K1, K2 and
+  K3 with the scalar), phase 15;
+- the radhydro shell's unigrid PLM deck (`decks/radhydro_shell_256.in`,
+  256^3 f32), 10 steps: K1 (dmin only), K2 with PLM, K3 and K4 with PLM,
+  phase 16.
 
 Besides, phase 4 runs Sedov, Orszag-Tang and RadhydroBench (both
 radiation configurations) at 32^3 and the dense AMR shell at 16^3 + 1
@@ -43,6 +51,17 @@ lean), ShockCloud and Richtmyer-Meshkov 3D at 32^3 f32 against the CPU,
 Richtmyer-Meshkov 2D at 64^2 in float64 against the CPU with no kernel
 launched, and the shocktube deck (`decks/shocktube.in`, 1D float64, plain
 torch on the card) with its error norm below 0.002.
+
+Phase 3 also holds K2's PLM and scalar forms (sweep_plm0-2.cu,
+sweep_ppm1-2.cu) and K3's scalar forms to their plain versions: at the
+new paths' shapes (Rayleigh-Taylor 3D 256^3: K1 at 7 components, K2 stage
+1, stage 2 and first order, K3; 256 x 256 x 384: K2c in every lean
+variant; the shell deck's 256^3: K1, K2 with PLM, K3; timed beside the
+Sedov rows) and at the edge shapes for PLM, one scalar and two mass
+scalars in every K2 form and K3 with the density floor engaged, and checks
+that what the kernels do not take raises NotImplementedError naming it;
+phase 4 runs Rayleigh-Taylor 3D at 16 x 16 x 24 and 32^3, the shell deck
+at 32^3 and a forced-lean rough step with a scalar against the CPU.
 
 Phase 3 also holds K1's outflow chi planes bitwise and every K2 variant
 on outflow and mixed walls at their edge shapes (every side kind on every
@@ -79,6 +98,7 @@ built library in quokka_tpu_torch/_build/.
 
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -88,6 +108,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
+SHELL_DECK = ROOT / "decks" / "radhydro_shell_256.in"
 
 KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "transverse": ("K1 precompute_transverse", "quokka_tpu_torch/csrc/transverse.cu",
@@ -116,6 +137,22 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                        "quokka_tpu/hydro/pallas_sweep.py:1148"),
     "row_gather": ("K9 row_gather", "quokka_tpu_torch/csrc/row_gather.cu",
                    "quokka_tpu/amr/packed.py:146"),
+    # the forms of the Rayleigh-Taylor and radhydro shell paths (phases 14-16):
+    # each row's launch-count key is the part before the space
+    "transverse nv7": ("K1 precompute_transverse, 7 components (1 scalar)",
+                       "quokka_tpu_torch/csrc/transverse.cu",
+                       "quokka_tpu/hydro/pallas_sweep.py:187"),
+    "axis_flux scalars": ("K2 compute_axis_flux, 1 passive scalar",
+                          "quokka_tpu_torch/csrc/sweep_ppm1.cu",
+                          "quokka_tpu/hydro/pallas_sweep.py:1148"),
+    "axis_flux_lean scalars": ("K2c compute_axis_flux div_only, 1 passive scalar",
+                               "quokka_tpu_torch/csrc/sweep_ppm1.cu",
+                               "quokka_tpu/hydro/pallas_sweep.py:1148"),
+    "apply_update scalars": ("K3 apply_update, 1 passive scalar",
+                             "quokka_tpu_torch/csrc/apply.cu",
+                             "quokka_tpu/hydro/pallas_sweep.py:1409"),
+    "axis_flux plm": ("K2 compute_axis_flux, PLM", "quokka_tpu_torch/csrc/sweep_plm0.cu",
+                      "quokka_tpu/hydro/pallas_sweep.py:1148"),
 }
 AMR_KEYS = ("transverse", "axis_flux", "axis_flux_avg", "rad_source", "rad_axis_flux")
 HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
@@ -124,6 +161,8 @@ PACKED_KEYS = ("transverse", "axis_flux", "axis_flux_corr", "rad_source", "rad_a
                "row_gather")
 # the K2c launches of one clean lean stage: what its row's time sums
 LEAN_STAGE = ("K2c clean axis 0", "K2c acc axis 1", "K2c acc axis 2")
+# the K2c launches of one clean lean stage of Rayleigh-Taylor 3D at 256 x 256 x 384
+RT_LEAN_STAGE = tuple(f"{label} RT" for label in LEAN_STAGE)
 # the K2e launches of one clean seeded stage at 256^3, likewise
 CORR_STAGE = ("K2e stage 1 axis 0", "K2e stage 1 acc axis 1", "K2e stage 1 acc axis 2")
 # bar of the MHD main path's max |div B| x dx, in float32 ulps of max |B_face|
@@ -135,6 +174,10 @@ _T_START = time.perf_counter()
 
 def phase(name):
     print(f"\n=== {name} (at {time.perf_counter() - _T_START:.1f} s)", flush=True)
+
+
+def section(title):
+    print(f"{title} (at {time.perf_counter() - _T_START:.1f} s)", flush=True)
 
 
 def rough_state(n, seed=7):
@@ -203,7 +246,7 @@ def run_cases(title, cases, timed, summary, failed, extra_of=None, plain_reps=5)
     `plain_reps` calls)."""
     from quokka_tpu_torch import kernel_check
 
-    print(f"-- {title}")
+    section(f"-- {title}")
     for case in cases:
         ok, max_abs, max_rel, got, ref = case.check()
         extra = extra_of(case, got, ref) if extra_of else ""
@@ -365,6 +408,8 @@ def main() -> int:
     from quokka_tpu_torch.problems.hydro_suite import (DECK_RM_3D,
                                                        RichtmeyerMeshkovProblem)
     from quokka_tpu_torch.problems.shocktube import ShocktubeProblem
+    from quokka_tpu_torch.problems import rayleigh_taylor
+    from quokka_tpu_torch.problems.radhydro_shell import RadhydroShellProblem
 
     def release():
         """Free what the phase before left: reference cycles first (an AMR
@@ -544,6 +589,152 @@ def main() -> int:
         new_paths[title] = (s1, s2)
         del wsim, W0, W1, wcases
         release()
+
+    # the forms of the Rayleigh-Taylor 3D and radhydro shell paths (phases
+    # 14-16) at their shapes: K1 at 7 components, K2 with one passive scalar
+    # (stage 1, stage 2, first order) and K3 with it on Rayleigh-Taylor 3D
+    # 256^3 after 2 steps; K1 (dmin only), K2 with PLM and K3 on the shell
+    # deck's 256^3 after 2 steps (hydro block; stage 2 on one more hydro
+    # step of it); timed beside the Sedov rows
+    form_paths = {}
+    for key, title, prob, pp_form in (
+            ("rt", "Rayleigh-Taylor 3D 256^3 after 2 steps, 1 scalar, z walls",
+             rayleigh_taylor.RayleighTaylor3DProblem(),
+             ParmParse.from_string(rayleigh_taylor.DECK_3D_FUSED, ["max_timesteps=2"])),
+            ("shell", "radhydro shell 256^3 after 2 steps (its unigrid PLM deck)",
+             RadhydroShellProblem(),
+             ParmParse.from_file(str(SHELL_DECK), overrides=["max_timesteps=2", "verbose=0"]))):
+        fsim = Simulation(prob, pp_form, device="cuda")
+        fsim.set_initial_conditions()
+        fsim.evolve()
+        nh, gf = fsim.layout.nvar_hydro, fsim._gf
+        W0 = fsim.U[:nh].contiguous()
+        W1 = fsim._step(fsim.U, fsim.dt_prev)[0][:nh].contiguous()
+        wcases = list(kernel_check.cases(W0, W1, fsim.hydro_opts, gf["bc_kinds"],
+                                         fsim.dt_prev, gf["ng"]))
+        s1, s2 = new_summary(), new_summary()
+        run_cases(title, [c for c in wcases if "avg" not in c.label],
+                  lambda c: "first order" not in c.label, s1, failed, k3_counts_k1_bits,
+                  plain_reps=2)
+        run_cases(f"{title}: K2 stage 2", [c for c in wcases if "avg" in c.label],
+                  lambda c: True, s2, failed, plain_reps=2)
+        for what, a in (("K1", s1["transverse"]), ("K2 stage 1, 3 axes", s1["axis_flux"]),
+                        ("K2 stage 2, 3 axes", s2["axis_flux"]), ("K3", s1["apply_update"])):
+            print(f"  {what} at {tuple(W0.shape)}: kernel {a['ms']:.3f} ms, plain "
+                  f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.3f} ms "
+                  f"({a['bytes'] / 1e9:.3f} GB, {a['ops'] / 1e9:.2f} GFLOP), library none")
+        form_paths[key] = (s1, s2)
+        del fsim, W0, W1, wcases
+        release()
+    s1_rt, s2_rt = form_paths["rt"]
+    s1_shell, s2_shell = form_paths["shell"]
+    summary["transverse nv7"] = s1_rt["transverse"]
+    summary["axis_flux scalars"] = s1_rt["axis_flux"]
+    s1_rt["axis_flux"]["max_abs_err"] = max(s1_rt["axis_flux"]["max_abs_err"],
+                                            s2_rt["axis_flux"]["max_abs_err"])
+    summary["apply_update scalars"] = s1_rt["apply_update"]
+    summary["axis_flux plm"] = s1_shell["axis_flux"]
+    s1_shell["axis_flux"]["max_abs_err"] = max(s1_shell["axis_flux"]["max_abs_err"],
+                                               s2_shell["axis_flux"]["max_abs_err"])
+    for k in ("transverse", "apply_update"):  # the shell's K1 (dmin only) and K3 (nv 6)
+        summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"],
+                                        s1_shell[k]["max_abs_err"])
+    # K2c with the scalar on Rayleigh-Taylor 3D's lean shape, 256 x 256 x 384
+    # after 2 steps (and one more RK2 step of it), every lean variant, K1
+    # beside it bitwise; the plain sides in 4 slabs; timed: one clean stage
+    rsim = Simulation(rayleigh_taylor.RayleighTaylor3DProblem(), ParmParse.from_string(
+        rayleigh_taylor.DECK_3D_LEAN, ["max_timesteps=2"]), device="cuda")
+    rsim.set_initial_conditions()
+    rsim.evolve()
+    R0, ropts_rt, rbc = rsim.U, rsim.hydro_opts, rsim._gf["bc_kinds"]
+    R1 = rsim._step(R0, rsim.dt_prev)[0]
+    del rsim
+    k1_rt = kernel_check.Case(
+        "transverse", "K1 all axes RT 256x256x384",
+        lambda: sweep.precompute_transverse(R0, ropts_rt, rbc, True)[:2],
+        lambda: kernel_check.plain_transverse(R0, ropts_rt, rbc, nslab=4),
+        lambda: kernel_check.k1_cost_of(R0, ropts_rt))
+    s_rt_lean = new_summary()
+    run_cases("Rayleigh-Taylor 3D 256x256x384 after 2 steps, 1 scalar, K1", [k1_rt],
+              lambda c: False, s_rt_lean, failed, bitwise)
+    run_cases("Rayleigh-Taylor 3D 256x256x384 after 2 steps, 1 scalar, z walls, K2c "
+              "(every lean variant; timed: one clean stage)",
+              kernel_check.lean_cases(R0, R1, ropts_rt, rbc, seed=13, nslab=4, tag=" RT"),
+              lambda c: c.label in RT_LEAN_STAGE, s_rt_lean, failed, plain_reps=2)
+    summary["axis_flux_lean scalars"] = s_rt_lean["axis_flux_lean"]
+    summary["transverse nv7"]["max_abs_err"] = max(summary["transverse nv7"]["max_abs_err"],
+                                                   s_rt_lean["transverse"]["max_abs_err"])
+    a = s_rt_lean["axis_flux_lean"]
+    print(f"  K2c one clean stage at {tuple(R0.shape)}: kernel {a['ms']:.3f} ms, plain "
+          f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.3f} ms ({a['bytes'] / 1e9:.3f} GB, "
+          f"{a['ops'] / 1e9:.2f} GFLOP), library none")
+    del R0, R1, k1_rt
+    release()
+    # the new forms at the edge shapes (extents 4 and 5, ragged tiles, walls,
+    # periodic axes, outflow sides): PLM, one passive scalar, and two mass
+    # scalars, in every K2 form (the face kernel batched and on walls, first
+    # order, the sweeps' stage 1 and 2 and K2d, K2c and K2e in every lean
+    # variant, fo_from among them), and K3 with the density floor engaged
+    row_of = {"PLM": {"axis_flux": "axis_flux plm", "axis_flux_avg": "axis_flux plm",
+                      "axis_flux_lean": "axis_flux plm", "axis_flux_corr": "axis_flux plm"},
+              "scalars": {"axis_flux": "axis_flux scalars",
+                          "axis_flux_avg": "axis_flux scalars",
+                          "axis_flux_lean": "axis_flux_lean scalars",
+                          "axis_flux_corr": "axis_flux_lean scalars",
+                          "apply_update": "apply_update scalars"}}
+    shapes = kernel_check.FORM_EDGE_SHAPES
+    for changes, rows in (({"reconstruction_order": 2}, row_of["PLM"]),
+                          ({"n_scalars": 1}, row_of["scalars"]),
+                          ({"n_scalars": 2, "n_mscalars": 2}, row_of["scalars"])):
+        fo_opts = dataclasses.replace(opts, **changes)
+        tag = kernel_check.form_tag(fo_opts)
+        s_form = new_summary()
+        for what, gen in (
+                ("K2 faces (batched, walls; PPM or PLM and first order)",
+                 itertools.chain(kernel_check.face_edge_cases(fo_opts, "cuda"),
+                                 kernel_check.face_wall_edge_cases(fo_opts, "cuda",
+                                                                   shapes=shapes))),
+                ("K2 sweeps (stage 1, first order, stage 2, K2d)",
+                 kernel_check.sweep_edge_cases(fo_opts, "cuda", shapes=shapes)),
+                ("K2c / K2e (every lean variant)",
+                 kernel_check.lean_edge_cases(fo_opts, "cuda", shapes=shapes)),
+                ("K3, density floor engaged", [kernel_check.k3_floor_case(fo_opts, "cuda")])):
+            run_cases(f"{what} at the edge shapes,{tag}", gen, lambda c: False, s_form,
+                      failed, ulps)
+        for k, row in rows.items():
+            summary[row]["max_abs_err"] = max(summary[row]["max_abs_err"],
+                                              s_form[k]["max_abs_err"])
+    # what the kernels do not take raises NotImplementedError naming it: K1
+    # over a batch of states with scalars (the packed chunks), more than two
+    # scalars, passive scalars in the radiation kernels (K4)
+    from quokka_tpu_torch.radiation import substep as rsubstep
+    from quokka_tpu_torch.radiation.system import RadOptions
+
+    one, three = (dataclasses.replace(opts, n_scalars=k) for k in (1, 3))
+    B5 = kernel_check.with_scalar_rows(kernel_check.hydro_blocks(2, (8, 8, 8), 5, "cuda"),
+                                       one, 5)
+    U3 = kernel_check.with_scalar_rows(kernel_check.hydro_blocks(1, (8, 8, 8), 6, "cuda")[0],
+                                       three, 6)
+    for what, call, needle in (
+            ("K1, a batch with a scalar",
+             lambda: sweep.precompute_transverse_batched(B5, one, None, True),
+             "batch of states with passive scalars"),
+            ("K1, 3 scalars", lambda: sweep.precompute_transverse(U3, three, None, True),
+             "at most 2 passive scalars"),
+            ("K4, a gas block with a scalar",
+             lambda: rsubstep.fused_stage1(torch.ones((11, 8, 8, 8), device="cuda"), None, 1e-3,
+                                           RadOptions(c=10.0, chat=5.0, arad=1.0),
+                                           opts.eos, None, (0.1,) * 3), "passive scalars")):
+        try:
+            call()
+        except NotImplementedError as e:
+            if needle not in str(e):
+                failed.append(f"{what}: {e}")
+            print(f"  {'ok  ' if needle in str(e) else 'FAIL'} {what} raises "
+                  f"NotImplementedError: {e}")
+        else:
+            failed.append(f"{what}: no NotImplementedError")
+    del B5, U3
 
     # the lean path at 512^3: K1 and K2c on main path 5's own states (Sedov
     # 512^3 after 2 steps, and one more RK2 step of it), every kernel input
@@ -840,11 +1031,13 @@ def main() -> int:
     run_cases(f"packed level-1 chunk of {chunk} radiation blocks "
               f"{tuple(R_chunk.shape[2:])} (the main path's): K7 batched (timed)",
               kernel_check.k7_batched_cases(R_chunk, prad, f" {chunk} blocks"),
-              lambda c: True, aside, failed, bitwise)
+              lambda c: True, aside, failed, bitwise, plain_reps=1)
     run_cases("K7 edge shapes, orders 1-3", kernel_check.k7_edge_cases(prad, "cuda"),
               lambda c: False, summary, failed, bitwise)
     # K1 and K2's tiled face kernel over the main path's chunk of 512
-    # level-1 hydro blocks (36^3, the stage-1 depth; timed: K1, K2 PPM), and
+    # level-1 hydro blocks (36^3, the stage-1 depth; timed: K1, K2 PPM; the
+    # block-by-block plain versions over one call, as K7's above, to keep
+    # the script within its time limit), and
     # the face kernel at its edge shapes (extents 4 and 5, ragged tiles, a
     # batch of 3, walls), each with its distance in ulps of each component's
     # max
@@ -856,8 +1049,8 @@ def main() -> int:
         if depth == 10:
             cases.insert(0, kernel_check.k1_batched_case(H_chunk, psim.level_opts[1], tag))
         run_cases(f"packed level-1 chunk of {chunk} hydro blocks {tuple(H_chunk.shape[2:])} "
-                  f"({what}): K1 and K2 faces (the plain versions timed over 2 calls)", cases,
-                  lambda c: True, faces_aside, failed, ulps, plain_reps=2)
+                  f"({what}): K1 and K2 faces (the plain versions timed over 1 call)", cases,
+                  lambda c: True, faces_aside, failed, ulps, plain_reps=1)
         del H_chunk, cases
     run_cases("K2 face kernel edge shapes, PPM and first order",
               kernel_check.face_edge_cases(psim.level_opts[1], "cuda"), lambda c: False,
@@ -912,7 +1105,7 @@ def main() -> int:
     print(f"  Sedov 32^3 max |gpu - cpu| / component max: {sedov_gap:.3e} (2.4e-07 "
           "while the hydro plain code took PyTorch's CPU sqrt)")
 
-    print("-- rough 32^3 state, one step through the FOFC fallback: GPU vs CPU")
+    section("-- rough 32^3 state, one step through the FOFC fallback: GPU vs CPU")
     U32 = rough_state(32)
     small_opts = dataclasses.replace(opts, dx=(1.0 / 32,) * 3)
     steps = {}
@@ -930,7 +1123,7 @@ def main() -> int:
                                                               int(sc["n_fofc"]))):
         raise SystemExit("the FOFC step disagrees between GPU and CPU")
 
-    print("-- the lean step forced (QUOKKA_PALLAS_LEAN=1), one step of rough states with "
+    section("-- the lean step forced (QUOKKA_PALLAS_LEAN=1), one step of rough states with "
           "FOFC in both stages: 32^3, and 288 x 32 x 32 (above 272: stage 2's first order "
           "from U1), GPU vs CPU")
     os.environ["QUOKKA_PALLAS_LEAN"] = "1"
@@ -954,7 +1147,7 @@ def main() -> int:
             raise SystemExit(f"the forced lean step {shape} disagrees between GPU and CPU")
     del os.environ["QUOKKA_PALLAS_LEAN"], steps, Ug, Uc
 
-    print("-- rough 32^3 states on outflow and on mixed walls (reflect / outflow pairs), one "
+    section("-- rough 32^3 states on outflow and on mixed walls (reflect / outflow pairs), one "
           "step through the FOFC fallback, fused and lean (QUOKKA_PALLAS_LEAN=1): GPU vs CPU")
     for walls in ("outflow", "mixed"):
         bc = kernel_check._bc_of(walls)
@@ -980,7 +1173,7 @@ def main() -> int:
                 raise SystemExit(f"the rough {walls} {form} step disagrees between GPU and CPU")
     del os.environ["QUOKKA_PALLAS_LEAN"], steps, Ug, Uc
 
-    print("-- ShockCloud 32^3 (hybrid: x padded by the inflow hook) and Richtmyer-Meshkov "
+    section("-- ShockCloud 32^3 (hybrid: x padded by the inflow hook) and Richtmyer-Meshkov "
           "32 x 32 x 8 (outflow x walls in the kernels) f32, 5 steps: GPU kernels vs CPU plain "
           "versions within 1e-5 x each component's max (the Sedov bar)")
     for title, prob, deck, cells in (
@@ -1003,7 +1196,67 @@ def main() -> int:
             raise SystemExit(f"{title} on the CPU launched a kernel")
         gpu_vs_cpu(fin["cuda"], fin["cpu"], f"{title} GPU vs CPU", 0.0, 1e-5)
 
-    print("-- fewer than three axes on the card (plain torch, as the JAX package takes XLA): "
+    section("-- Rayleigh-Taylor 3D f32 (one passive scalar, z walls, the gravity kick), 5 "
+          "steps at 16 x 16 x 24 (the JAX test's deck) and at 32^3: GPU kernels vs CPU plain "
+          "versions within 1e-5 x each component's max (the Sedov bar); the radhydro shell's "
+          "PLM deck at 32^3, 3 steps: within 5e-6 (RadhydroBench's bar)")
+    small_runs = (
+        ("Rayleigh-Taylor 3D 16x16x24", rayleigh_taylor.RayleighTaylor3DProblem,
+         lambda: ParmParse.from_string(rayleigh_taylor.DECK_3D_LEAN, [
+             "amr.n_cell=16 16 24", "max_timesteps=5"]), HYDRO_KEYS, (0.0, 1e-5)),
+        ("Rayleigh-Taylor 3D 32^3", rayleigh_taylor.RayleighTaylor3DProblem,
+         lambda: ParmParse.from_string(rayleigh_taylor.DECK_3D_FUSED, [
+             "amr.n_cell=32 32 32", "max_timesteps=5"]), HYDRO_KEYS, (0.0, 1e-5)),
+        ("radhydro shell 32^3 PLM", RadhydroShellProblem,
+         lambda: ParmParse.from_file(str(SHELL_DECK), overrides=[
+             "amr.n_cell=32 32 32", "max_timesteps=3", "verbose=0"]),
+         HYDRO_KEYS + ("rad_stage1", "rad_stage2"), (5e-6, 5e-6)))
+    for title, prob, make_pp, need, (rtol, atol) in small_runs:
+        fin = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            sim = Simulation(prob(), make_pp(), device=dev)
+            sim.set_initial_conditions()
+            sim.evolve()
+            fin[dev] = sim.U.double().cpu()
+            counts = read_counts()
+            extra = ""
+            if sim.layout.n_scalars:
+                frac = fin[dev][6] / fin[dev][0]
+                extra = f", s/rho in [{float(frac.min()):.6e}, {float(frac.max()):.6e}]"
+            print(f"  {title} {dev}: {sim.istep} steps, t {sim.t:.9e}, FOFC "
+                  f"{sim.fofc_fallbacks} fallbacks / {sim.fofc_cells} cells; launches "
+                  + ", ".join(f"{k} {counts[k]}" for k in need) + extra)
+            if dev == "cuda" and any(counts[k] <= 0 for k in need):
+                raise SystemExit(f"{title}: kernels not launched on the card: {counts}")
+        if any(read_counts()[k] for k in need):
+            raise SystemExit(f"{title} on the CPU launched a kernel")
+        gpu_vs_cpu(fin["cuda"], fin["cpu"], f"{title} GPU vs CPU", rtol, atol)
+    del fin, sim
+
+    section("-- the lean step forced (QUOKKA_PALLAS_LEAN=1) with one passive scalar, one step "
+          "of a rough 32^3 state with FOFC in both stages: GPU vs CPU")
+    os.environ["QUOKKA_PALLAS_LEAN"] = "1"
+    sc_opts = dataclasses.replace(opts, dx=(1.0 / 32,) * 3, n_scalars=1)
+    U_sc = kernel_check.with_scalar_rows(state_from_numpy(rough_state(32), "cpu"), sc_opts, 3)
+    reset_counts()
+    steps = {dev: advance_hydro_rk2(U_sc.to(dev), 0.2 / 32, sc_opts, None, (0, 0, 0),
+                                    (True, False, False), bc_kinds=mixed)
+             for dev in ("cuda", "cpu")}
+    lean_count = sweep.launch_counts["axis_flux_lean"]
+    (Ug, sg), (Uc, sc) = steps["cuda"], steps["cpu"]
+    ok, max_abs, max_rel = kernel_check.compare(Ug.cpu(), Uc)
+    print(f"  {'ok  ' if ok else 'FAIL'} rough 32^3, 1 scalar: FOFC GPU {sg['fofc_fallbacks']} "
+          f"fallbacks / {int(sg['n_fofc'])} cells, CPU {sc['fofc_fallbacks']} / "
+          f"{int(sc['n_fofc'])}; K2c launches {lean_count}; state max_abs {max_abs:.3e} "
+          f"max_rel {max_rel:.3e}")
+    if not (ok and sg["fofc_fallbacks"] == 2 and lean_count > 0 and Ug.shape[0] == 7
+            and (sg["fofc_fallbacks"], int(sg["n_fofc"])) == (sc["fofc_fallbacks"],
+                                                              int(sc["n_fofc"]))):
+        raise SystemExit("the forced lean step with a scalar disagrees between GPU and CPU")
+    del os.environ["QUOKKA_PALLAS_LEAN"], steps, Ug, Uc, U_sc
+
+    section("-- fewer than three axes on the card (plain torch, as the JAX package takes XLA): "
           "Richtmyer-Meshkov 2D 64^2 and the shocktube deck's first 5 steps in f64, GPU vs "
           "CPU within 1e-12 x each component's max, no kernel launched; the shocktube deck "
           "(decks/shocktube.in, 1024 cells, PPM, t = 0.4) f64 on the card to its end, error "
@@ -1042,7 +1295,7 @@ def main() -> int:
         raise SystemExit(f"the shocktube's error norm {tube.error_norm:.6e} is not < 0.002")
     del low, sim, tube
 
-    print("-- RadhydroBench 32^3 f32, 3 steps: GPU vs CPU, fused (A) and per-stage (B)")
+    section("-- RadhydroBench 32^3 f32, 3 steps: GPU vs CPU, fused (A) and per-stage (B)")
     rad_finals = {}
     for fused in (1, 0):
         for dev in ("cuda", "cpu"):
@@ -1058,7 +1311,7 @@ def main() -> int:
                    f"config {cfg} GPU vs CPU", 5e-6, 5e-6)
     gpu_vs_cpu(rad_finals[1, "cuda"], rad_finals[0, "cuda"], "GPU config A vs B", 5e-6, 5e-6)
 
-    print("-- Orszag-Tang 32^3 f32, 5 steps: GPU (K8) vs CPU, windowed and host loops")
+    section("-- Orszag-Tang 32^3 f32, 5 steps: GPU (K8) vs CPU, windowed and host loops")
     mhd_finals = {}
     for verbose in (0, 1):
         for dev in ("cuda", "cpu"):
@@ -1075,7 +1328,7 @@ def main() -> int:
                    f"{loop} loop GPU vs CPU", 3e-5, 3e-5,
                    groups=[[0], [1, 2, 3], [4], [5, 6, 7]])
 
-    print("-- AMR radhydro shell 32^3 + 1 level f32, 2 coarse steps (regrid_interval 1: a "
+    section("-- AMR radhydro shell 32^3 + 1 level f32, 2 coarse steps (regrid_interval 1: a "
           "regrid of level 1 opens the second): GPU vs CPU, per level")
     amr_finals = {}
     for dev in ("cuda", "cpu"):
@@ -1096,7 +1349,7 @@ def main() -> int:
         gpu_vs_cpu(a, b, f"AMR level {lev} GPU vs CPU", 5e-6, 5e-6)
     del amr_finals, Ug_l, Uc_l
 
-    print("-- float64 on the card (the JAX package's XLA formulations): Sedov 32^3, 5 "
+    section("-- float64 on the card (the JAX package's XLA formulations): Sedov 32^3, 5 "
           "steps, padded classic with reflecting walls; Orszag-Tang 32^3, 5 steps, K8's "
           "plain form; GPU vs CPU within 1e-12 x each component's max")
     f64 = {}
@@ -1123,7 +1376,7 @@ def main() -> int:
         raise SystemExit("a float64 run on the card launched a float32 kernel")
     del f64, sim, msim
 
-    print("-- float64 radiation on the card (the plain versions of K4-K7, as the JAX "
+    section("-- float64 radiation on the card (the plain versions of K4-K7, as the JAX "
           "package takes XLA): RadhydroBench 32^3, 2 steps, configs A and B; the dense "
           "AMR shell 16^3 + 1 level, 1 coarse step; GPU vs CPU within 1e-12 x each "
           "component's max, no kernel launched on the card")
@@ -1166,7 +1419,7 @@ def main() -> int:
         raise SystemExit(f"a float64 radiation run on the card launched a kernel: {launched}")
     del rad64, sim, Ug_l, Uc_l
 
-    print("-- packed AMR, GPU vs CPU per level, equal tile sets and FOFC counts: the "
+    section("-- packed AMR, GPU vs CPU per level, equal tile sets and FOFC counts: the "
           "hydro bump 32^3 + 1 packed level f32, 2 coarse steps (the seeded root, K2e); "
           "the bump 32^3 + 2 packed levels f32, 2 coarse steps with regrid_interval 1 "
           "(average-down and reflux into a packed parent, pool backdrops, the packed "
@@ -1578,16 +1831,92 @@ def main() -> int:
         del sim
         release()
 
+    # ---- 14, 15, 16. the scalar and PLM main paths
+    form_launches = {}
+    for num, key, title, prob, pp_path, need in (
+            (14, "rt lean", "main path 9: Rayleigh-Taylor 3D 256 x 256 x 384 f32, 10 steps, one "
+             "passive scalar, external gravity, periodic x/y, reflecting z (the JAX test's "
+             "domain; the lean step: K1 + K2c)", rayleigh_taylor.RayleighTaylor3DProblem(),
+             ParmParse.from_string(rayleigh_taylor.DECK_3D_LEAN, ["verbose=1"]), LEAN_KEYS),
+            (15, "rt fused", "main path 10: Rayleigh-Taylor 3D 256^3 f32 on [-0.375, 0.375]^3, "
+             "10 steps (the fused step: K1, K2, K3)", rayleigh_taylor.RayleighTaylor3DProblem(),
+             ParmParse.from_string(rayleigh_taylor.DECK_3D_FUSED, ["verbose=1"]), HYDRO_KEYS),
+            (16, "shell", "main path 11: the radhydro shell's unigrid PLM deck "
+             "(decks/radhydro_shell_256.in) 256^3 f32, 10 steps (K1 dmin only, K2 PLM, K3, K4 "
+             "PLM)", RadhydroShellProblem(),
+             ParmParse.from_file(str(SHELL_DECK), overrides=["max_timesteps=10", "verbose=1"]),
+             HYDRO_KEYS + ("rad_stage1", "rad_stage2"))):
+        phase(f"{num}. {title}")
+        sim = Simulation(prob, pp_path, device="cuda")
+        held = torch.cuda.memory_allocated() / 2**30
+        o = sim.hydro_opts
+        print(f"held before the path: {held:.2f} GiB; stepping: ng {sim._gf['ng']}, walls "
+              f"{sim._gf['bc_kinds']}; reconstruction_order {o.reconstruction_order}, "
+              f"scalars {o.n_scalars}")
+        sim.set_initial_conditions()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sim.evolve()
+        launches = read_counts()
+        form_launches[key] = launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        nsteps, wall, fofc = sim.istep, sim.elapsed_walltime, (sim.fofc_fallbacks,
+                                                                sim.fofc_cells)
+        finite = bool(torch.isfinite(sim.U).all())
+        rho_min = float(sim.U[0].min())
+        if nsteps != 10 or not finite or not rho_min > 0.0:
+            raise SystemExit(f"main path {num}: {nsteps} steps, finite state {finite}, "
+                             f"min density {rho_min:.3e}")
+        scalar_line = ""
+        if o.n_scalars:
+            frac = sim.U[6] / sim.U[0]
+            lo, hi = float(frac.min()), float(frac.max())
+            scalar_line = f"; the scalar's s/rho in [{lo:.9e}, {hi:.9e}]"
+            # reconstruction may overshoot the fraction by O(1e-4) at the
+            # interface (tests/test_rayleigh_taylor.py:84-86)
+            if not (lo > -1e-4 and hi < 1.0 + 1e-4):
+                raise SystemExit(f"main path {num}: s/rho in [{lo:.3e}, {hi:.3e}]")
+        # one more step under the profiler: its device time by kernel
+        by_kernel, _ = step_profile.device_ms(step_profile._parts(sim)["step"], 1)
+        dev_ms = sum(by_kernel.values())
+        print(f"wall time: {wall / nsteps * 1e3:.3f} ms a step over {nsteps} steps "
+              f"({wall:.3f} s, first step included), FOM (hydro zone-updates) "
+              f"{sim.zone_updates_per_second / 1e6:.3f} Mzone-updates/s, on {smi}")
+        print(f"device time of one more step (torch.profiler; FOFC fallbacks "
+              f"{sim.fofc_fallbacks - fofc[0]} in it): {dev_ms:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items(),
+                                                             key=lambda kv: -kv[1])))
+        print(f"peak device memory: {peak:.2f} GiB ({peak - held:.2f} GiB above what the "
+              "phases before held)")
+        print(f"FOFC: {fofc[0]} stage fallbacks, {fofc[1]} invalid cells in {nsteps} steps; "
+              f"min density {rho_min:.6e}; finite state {finite}{scalar_line}")
+        print(f"launches in this path: {launches}")
+        missing = [k for k in need if launches[k] <= 0]
+        profiled = ("K1", "K2c") if need is LEAN_KEYS else ("K1", "K2", "K3")
+        unprofiled = [k for k in profiled if by_kernel.get(k, 0.0) <= 0.0]
+        if missing or unprofiled:
+            raise SystemExit(f"main path {num}: kernels not launched {missing}, not in the "
+                             f"profiled step {unprofiled}")
+        del sim
+        release()
+
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
     rows = []
+    # the new forms' rows: the launches of their main paths
+    form_rows = {"transverse nv7": form_launches["rt fused"]["transverse"],
+                 "axis_flux scalars": form_launches["rt fused"]["axis_flux"],
+                 "apply_update scalars": form_launches["rt fused"]["apply_update"],
+                 "axis_flux_lean scalars": form_launches["rt lean"]["axis_flux_lean"],
+                 "axis_flux plm": form_launches["shell"]["axis_flux"]}
     for key, (kname, source, replaces) in KERNELS.items():
         s = summary[key]
         _, bound_by = kernel_check.bound_ms(s["bytes"], s["ops"])
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": (packed_launches[key] if key in ("axis_flux_corr",
+                     "launches": (form_rows[key] if key in form_rows else
+                                  packed_launches[key] if key in ("axis_flux_corr",
                                                                   "row_gather") else
                                   lean_launches[key] if key == "axis_flux_lean" else
                                   amr_launches[key] if key in ("axis_flux_avg",

@@ -6,7 +6,8 @@ compared in one call on one card, in turns (parent, change, change, parent),
 each turn a process of its own:
 
     python3 kernel_times.py [--tree DIR] [--check]
-                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8,k2s,k2d,k6]
+                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8,k2s,k2d,k6,k3,
+                                    plm,scalars]
                             [--shell FILE] [--tiles]
     python3 kernel_times.py --capture FILE
     python3 kernel_times.py --histogram --shell FILE
@@ -83,6 +84,16 @@ Kernels and inputs, made on the card from fixed seeds where not captured:
   (`compute_rad_div`) and the three axes as `radiation.system.
   rad_transport_div` computes them (a parent: three outputs and two
   PyTorch adds).
+- K3 (`apply_update`; `--only k3`): a seeded stage at 256^3 and on the
+  hybrid layout's x-padded stage input (264 x 256^2, ng 4), as the tree's
+  wrapper launches it.
+- K2's PLM and scalar forms (`--only plm`, `--only scalars`; a tree
+  without them says so and times nothing): with PLM (the radhydro shell's
+  deck), K1 (dmin alone) and K2 stage 1 and 2 per axis at 256^3,
+  periodic, and the face kernel per axis; with one passive scalar
+  (Rayleigh-Taylor 3D), K1 at nv = 7, K2 stage 1 and 2 per axis at 256^3
+  with z walls, a clean K2c stage at 256 x 256 x 384 with z walls and K3
+  at 256^3; with --check each against its plain version.
 
 --dump FILE saves the face kernel's outputs (PPM and first order, every
 axis, with and without viscosity and reconstruct_eint) on seeded blocks at
@@ -100,7 +111,10 @@ k2s,k2d,k6` K2's sweeps (stage 1, first order, stage 2, K2d; with and
 without viscosity and reconstruct_eint) at LEAN_DUMP_SHAPES, stage 1 and 2
 at 256^3 and stage 1 and K2d at 520^3, and K6 per axis and through
 `rad_transport_div` at K4_DUMP_SHAPES (orders 1-3) and on RadhydroBench
-256^3; --compare A B says whether two trees' dumps are the same bits.
+256^3; with `--only k3` K3's outputs (the updated state and its invalid
+count) on seeded stages at K4_DUMP_SHAPES and padded along x, with the
+floors and the dual-energy sync each on and off; --compare A B says
+whether two trees' dumps are the same bits.
 
 --tiles times the face kernel at the three shapes with each tile of
 `TILE_VARIANTS` (faces along the axis x lines across), where the tree's
@@ -489,7 +503,7 @@ def time_faces(torch, args, times, checks, errors, variants=None):
                         t = tile or chosen(nf, U5.shape[3 if d == 2 else 4])
                         key = f"{label} axis {d} tile {t[0]} x {t[1]}" + (
                             " (chosen)" if tile is None else "")
-                        sweep._face_tile = lambda nf, na, t=t: t
+                        sweep._face_tile = lambda nf, na, nv=6, t=t: t
                         times[key] = kernel_check.time_ms(launch)
                         print(f"  {key}: {times[key]:.3f} ms", flush=True)
                 finally:
@@ -537,6 +551,8 @@ def dump_faces(torch, path, only=("k2",)):
         dump_lean_mhd(torch, out, only)
     if only & {"k2s", "k2d", "k6"}:
         dump_sweeps_k6(torch, out, only)
+    if "k3" in only:
+        dump_k3(torch, out)
     for i, (nb, shape, walls) in enumerate(DUMP_SHAPES if "k2" in only else ()):
         shape = (shape,) * 3 if isinstance(shape, int) else shape
         U5 = hydro_blocks(torch, nb, shape, 60 + i)
@@ -1223,6 +1239,163 @@ def dump_sweeps_k6(torch, out, only):
         torch.cuda.empty_cache()
 
 
+def k3_stage(torch, shape, seed, ng=(0, 0, 0), nv=6):
+    """A seeded K3 input: (U [nv, interior], Ug0 and the three divergences
+    [nv, shape], the three dvels [shape]), `shape` padded by `ng` along x;
+    the divergences drive a few cells below a density floor of 0.9 (at dt
+    0.05)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    inner = tuple(n - 2 * w for n, w in zip(shape, ng))
+    U = hydro_blocks(torch, 1, inner, seed)[0]
+    Ug0 = hydro_blocks(torch, 1, shape, seed + 1)[0]
+    if nv > 6:
+        from quokka_tpu_torch import kernel_check
+
+        o = dataclasses.replace(hydro_opts(8), n_scalars=nv - 6)
+        U = kernel_check.with_scalar_rows(U, o, seed)
+        Ug0 = kernel_check.with_scalar_rows(Ug0, o, seed + 1)
+    divs = {d: torch.randn((nv, *shape), generator=g, device="cuda") for d in range(3)}
+    dvels = {d: torch.randn(shape, generator=g, device="cuda") for d in range(3)}
+    return U, Ug0, divs, dvels
+
+
+# K3's option variants in the dumps: the floors (density and temperature)
+# and the dual-energy sync off
+K3_DUMP_VARIANTS = (("", {}), ("floors", {"density_floor": 0.9, "temperature_floor": 0.5}),
+                    ("no dual energy", {"use_dual_energy": False}))
+
+
+def dump_k3(torch, out):
+    """Add K3's outputs (state and invalid count) to `out`: seeded stages at
+    K4_DUMP_SHAPES and at 37 x 18 x 33 padded by 4 along x, in each of
+    K3_DUMP_VARIANTS."""
+    from quokka_tpu_torch.hydro import sweep
+
+    inputs = [(shape, (0, 0, 0)) for shape in K4_DUMP_SHAPES] + [((45, 18, 33), (4, 0, 0))]
+    for i, (shape, ng) in enumerate(inputs):
+        U, Ug0, divs, dvels = k3_stage(torch, shape, 300 + i, ng)
+        for label, changes in K3_DUMP_VARIANTS:
+            opts = dataclasses.replace(hydro_opts(shape[1]), **changes)
+            res = sweep.apply_update(U, Ug0, divs, dvels, 0.05, opts, ng)
+            out[f"K3 {shape} ng {ng} {label}"] = [r.cpu() for r in res]
+
+
+def time_k3(torch, args, times, checks, errors):
+    """K3 at 256^3 and on the hybrid layout's x-padded stage input (264 x
+    256^2, ng 4), as the tree's wrapper launches it; with --check against
+    its plain version."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+
+    for tag, shape, ng in (("256^3", (256,) * 3, (0, 0, 0)),
+                           ("264 x 256^2 padded", (264, 256, 256), (4, 0, 0))):
+        U, Ug0, divs, dvels = k3_stage(torch, shape, 71, ng)
+        opts = hydro_opts(256)
+        key = f"K3 {tag}"
+
+        def launch():
+            return sweep.apply_update(U, Ug0, divs, dvels, 0.05, opts, ng)
+
+        times[key] = kernel_check.time_ms(launch)
+        if args.check:
+            ref = sweep.apply_update_plain(U, Ug0, divs, dvels, 0.05, opts, ng)
+            checks[key], errors[key], _ = kernel_check.compare(launch(), ref)
+        print(f"  {key}: {times[key]:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+              flush=True)
+        del U, Ug0, divs, dvels
+        torch.cuda.empty_cache()
+
+
+def _timed(torch, args, times, checks, errors, key, launch, plain):
+    """Time `launch` into times[key] and, with --check, hold it to `plain`."""
+    from quokka_tpu_torch import kernel_check
+
+    times[key] = kernel_check.time_ms(launch)
+    if args.check:
+        checks[key], errors[key], _ = kernel_check.compare(launch(), plain())
+    print(f"  {key}: {times[key]:.3f} ms"
+          + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""), flush=True)
+
+
+def time_forms(torch, args, times, checks, errors):
+    """K2's PLM form (`plm`) and its form with one passive scalar
+    (`scalars`), with K1 and K3 beside them, at the new main paths' shapes
+    (see the module's docstring)."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.hydro import sweep
+    from quokka_tpu_torch.registry import BC_REFLECT
+
+    if not hasattr(sweep, "MAX_KERNEL_SCALARS"):
+        print("  this tree's K2 has no PLM or scalar form", flush=True)
+        return
+    wall = (BC_REFLECT, BC_REFLECT)
+    periodic, zwalls = {0: None, 1: None, 2: None}, {0: None, 1: None, 2: wall}
+    runs = []
+    if "plm" in args.only_set:
+        runs.append(("PLM 256^3", (256,) * 3, periodic, {"reconstruction_order": 2}))
+    if "scalars" in args.only_set:
+        runs.append(("1 scalar 256^3 z walls", (256,) * 3, zwalls, {"n_scalars": 1}))
+    for tag, shape, bc, changes in runs:
+        opts = dataclasses.replace(hydro_opts(shape[0]), **changes)
+        U0 = kernel_check.with_scalar_rows(hydro_blocks(torch, 1, shape, 81)[0], opts, 81)
+        U1 = kernel_check.with_scalar_rows(hydro_blocks(torch, 1, shape, 82)[0], opts, 82)
+        _timed(torch, args, times, checks, errors, f"K1 {tag}",
+               lambda: sweep.precompute_transverse(U0, opts, bc, True),
+               lambda: sweep.precompute_transverse_plain(U0, opts, bc, True))
+        dm0, chi0, _ = sweep.precompute_transverse_plain(U0, opts, bc, True)
+        dm1, chi1, _ = sweep.precompute_transverse_plain(U1, opts, bc, True)
+        for d in range(3):
+            s1 = dict(bc_axis=bc[d], dx_axis=opts.dx[d], state_is_cons=True)
+            faces = sweep.axis_flux_plain(U0, d, opts, chi0, dm0, **s1)[:-2]
+            s2 = dict(s1, avg_with=faces)
+            for name, U, dm, c, kw in (("K2 stage 1", U0, dm0, chi0, s1),
+                                       ("K2 stage 2", U1, dm1, chi1, s2)):
+                _timed(torch, args, times, checks, errors, f"{name} {tag} axis {d}",
+                       lambda U=U, d=d, c=c, dm=dm, kw=kw:
+                           sweep.compute_axis_flux(U, d, opts, c, dm, **kw),
+                       lambda U=U, d=d, c=c, dm=dm, kw=kw:
+                           sweep.axis_flux_plain(U, d, opts, c, dm, **kw))
+            if "reconstruction_order" in changes:
+                _timed(torch, args, times, checks, errors, f"K2 faces {tag} axis {d}",
+                       lambda d=d: sweep.compute_axis_flux(U0, d, opts, chi0, dm0,
+                                                           bc_axis=bc[d], state_is_cons=True),
+                       lambda d=d: sweep.axis_flux_plain(U0, d, opts, chi0, dm0,
+                                                         bc_axis=bc[d], state_is_cons=True))
+            del faces
+        for name in ("K2 stage 1", "K2 stage 2"):
+            key = f"{name} {tag} 3 axes"
+            times[key] = sum(times[f"{name} {tag} axis {d}"] for d in range(3))
+            print(f"  {key}: {times[key]:.3f} ms", flush=True)
+        if "n_scalars" in changes:
+            Ua, Ug0, divs, dvels = k3_stage(torch, shape, 83, nv=7)
+            _timed(torch, args, times, checks, errors, f"K3 {tag}",
+                   lambda: sweep.apply_update(Ua, Ug0, divs, dvels, 0.05, opts),
+                   lambda: sweep.apply_update_plain(Ua, Ug0, divs, dvels, 0.05, opts))
+            del Ua, Ug0, divs, dvels
+        del U0, U1, dm0, dm1, chi0, chi1
+        torch.cuda.empty_cache()
+    if "scalars" in args.only_set:
+        shape, tag = (256, 256, 384), "1 scalar 256x256x384 z walls"
+        opts = dataclasses.replace(hydro_opts(256), n_scalars=1,
+                                   dx=tuple(1.0 / 512 for _ in shape))
+        U = kernel_check.with_scalar_rows(hydro_blocks(torch, 1, shape, 84)[0], opts, 84)
+        dm, chi, _ = sweep.precompute_transverse_plain(U, opts, zwalls, True)
+
+        def stage(plain=False):
+            call = sweep.axis_flux_plain if plain else sweep.compute_axis_flux
+            a = None
+            for d in range(3):
+                a = call(U, d, opts, chi, dm, bc_axis=zwalls[d], dx_axis=opts.dx[d],
+                         state_is_cons=True, div_only=True, acc=a)
+            return a
+
+        _timed(torch, args, times, checks, errors, f"K2c {tag} clean stage", stage,
+               lambda: stage(True))
+        del U, dm, chi
+        torch.cuda.empty_cache()
+
+
 def mhd_state(torch, nsteps=3):
     """Orszag-Tang 256^3 f32 after `nsteps` windowed steps: (prim [8, ...],
     Bf, opts)."""
@@ -1584,6 +1757,10 @@ def main():
         time_sweeps(torch, args, times, checks, errors)
     if "k6" in only:
         time_k6(torch, args, times, checks, errors)
+    if "k3" in only:
+        time_k3(torch, args, times, checks, errors)
+    if only & {"plm", "scalars"}:
+        time_forms(torch, args, times, checks, errors)
     print(json.dumps({"tree": str(tree), "device": smi, "times": times, "checks": checks,
                       "errors": errors}))
     if args.check and not all(checks.values()):

@@ -38,15 +38,17 @@ _SIGNATURES = {
     "qk_transverse": [_P] * 11 + [_L, _L, _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                                   _I, _I, _P],
     "qk_transverse_smem": [_I, _I],
+    # K2's entry points end with its form (csrc/sweep.cuh): the order, the
+    # scalars and the mass scalars
     "qk_axis_flux": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _P],
+                     _I, _I, _F, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P],
     "qk_axis_lean": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I,
-                     _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
-    "qk_lean_smem": [_I, _I],
+                     _I, _I, _F, _F, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P],
+    "qk_lean_smem": [_I, _I, _I],
     "qk_axis_sweep": [_P] * 17 + [_L, _L, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-                                  _F, _F, _F, _F, _I, _P],
+                                  _F, _F, _F, _F, _I, _I, _I, _I, _P],
     "qk_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L,
-                 _F, _F, _F, _F, _I, _P],
+                 _F, _F, _F, _F, _I, _I, _P],
     # radiation kernels: the last pointer before the stream is a host
     # `RadParams` (radiation/sweep.py), copied into the launch by value
     "qk_rad_div": [_P, _P, _L, _L, _L, _I, _I, _P, _P],

@@ -100,6 +100,9 @@ class AMRSimulation(Simulation):
                                       "ported (the padded level fills)")
         if self.grid.active_axes != (0, 1, 2):
             raise NotImplementedError("AMRSimulation: 3D levels only")
+        if problem.external_acceleration(self.grid, device="cpu") is not None:
+            raise NotImplementedError("AMRSimulation: the external acceleration kick "
+                                      "(Problem.external_acceleration) on AMR levels")
         self.level_grids = [self.grid]
         self.level_opts = [self.hydro_opts]
         for _ in range(self.max_level):

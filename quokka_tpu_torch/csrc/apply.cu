@@ -9,6 +9,11 @@
 //     BEFORE any floor;
 //   EnforceLimits (density floor, optional temperature floor);
 //   SyncDualEnergy.
+// NS passive scalars (a template count, 1 or 2; 0 is the form without)
+// follow the 6 gas components: their rhs is the divergence alone, they
+// count towards the validity test's finiteness, and where the density floor
+// raised rho they are rescaled by rho / rho_new (pallas_sweep.py:1374-1380,
+// euler.enforce_limits).
 // dt is read from device memory, so a step whose dt was computed on the
 // card needs no host round trip to launch this kernel.
 //
@@ -37,6 +42,7 @@
 
 namespace qk {
 
+template <int NS>
 __global__ void apply_kernel(const float* __restrict__ U,
                              const float* __restrict__ Ug0,
                              const float* __restrict__ d0,
@@ -51,14 +57,15 @@ __global__ void apply_kernel(const float* __restrict__ U,
                              float density_floor,
                              float temperature_floor, float c_v, float gm1,
                              int dual_energy) {
+  constexpr int NT = NV + NS;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ncell) return;
   const float dt = *dt_ptr;
   const int64_t ip = poff + i;  // the cell in the padded inputs
 
-  float rhs[NV];
+  float rhs[NT];
 #pragma unroll
-  for (int c = 0; c < NV; ++c)
+  for (int c = 0; c < NT; ++c)
     rhs[c] = (d0[c * pstride + ip] + d1[c * pstride + ip]) + d2[c * pstride + ip];
   const float dv = (v0[ip] + v1[ip]) + v2[ip];
 
@@ -70,9 +77,9 @@ __global__ void apply_kernel(const float* __restrict__ U,
   const float P = gm1 * (Ug0[4 * pstride + ip] - g_ke);
   rhs[5] = rhs[5] - P * dv;
 
-  float u[NV];
+  float u[NT];
 #pragma unroll
-  for (int c = 0; c < NV; ++c) u[c] = U[c * ncell + i] + dt * rhs[c];
+  for (int c = 0; c < NT; ++c) u[c] = U[c * ncell + i] + dt * rhs[c];
 
   // validity of the raw update (euler.is_state_valid), before the floors
   bool ok = u[0] > 0.0f;
@@ -80,11 +87,17 @@ __global__ void apply_kernel(const float* __restrict__ U,
                      (ok ? u[0] : 1.0f);
   ok = ok && ((u[4] - ke_t) > 0.0f);
 #pragma unroll
-  for (int c = 0; c < NV; ++c) ok = ok && isfinite(u[c]);
+  for (int c = 0; c < NT; ++c) ok = ok && isfinite(u[c]);
   if (!ok) atomicAdd(n_bad, 1);
 
   // EnforceLimits
   const float rho_new = mx(u[0], density_floor);
+  if (NS > 0) {
+    float scale = rho_new > 0.0f ? u[0] / rho_new : 0.0f;
+    scale = u[0] < density_floor ? scale : 1.0f;
+#pragma unroll
+    for (int c = NV; c < NT; ++c) u[c] = u[c] * scale;
+  }
   u[0] = rho_new;
   if (temperature_floor > 0.0f) {
     const float ke = (0.5f * ((u[1] * u[1] + u[2] * u[2]) + u[3] * u[3])) /
@@ -107,7 +120,7 @@ __global__ void apply_kernel(const float* __restrict__ U,
   }
 
 #pragma unroll
-  for (int c = 0; c < NV; ++c) out[c * ncell + i] = u[c];
+  for (int c = 0; c < NT; ++c) out[c * ncell + i] = u[c];
 }
 
 }  // namespace qk
@@ -118,9 +131,12 @@ extern "C" int qk_apply(const float* U, const float* Ug0, const float* d0,
                         float* out, int* n_bad, long long ncell,
                         long long pstride, long long poff, float density_floor,
                         float temperature_floor, float c_v, float gm1,
-                        int dual_energy, void* stream) {
+                        int dual_energy, int nsc, void* stream) {
   const unsigned blocks = (unsigned)((ncell + qk::THREADS - 1) / qk::THREADS);
-  qk::apply_kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
+  if (nsc < 0 || nsc > 2) return (int)cudaErrorInvalidValue;
+  auto kernel = nsc == 0 ? qk::apply_kernel<0>
+                : (nsc == 1 ? qk::apply_kernel<1> : qk::apply_kernel<2>);
+  kernel<<<blocks, qk::THREADS, 0, (cudaStream_t)stream>>>(
       U, Ug0, d0, d1, d2, v0, v1, v2, dt, out, n_bad, ncell, pstride, poff, density_floor,
       temperature_floor, c_v, gm1, dual_energy);
   return (int)cudaGetLastError();

@@ -5,8 +5,9 @@
 // shared-memory tile index (`tix`, `tpos`).
 //
 // Layout: the state is [6, X, Y, Z] f32, contiguous, z fastest, exactly as
-// the JAX package keeps it. All offsets are 64-bit: 6 x 1024^3 elements
-// already overflow int32.
+// the JAX package keeps it; K2 and K3 also take passive scalars after the
+// 6 gas components ([6 + nsc, X, Y, Z]), which K1 never reads. All offsets
+// are 64-bit: 6 x 1024^3 elements already overflow int32.
 //
 // Rounding: every expression keeps the operation order of the JAX package
 // and of the plain PyTorch versions in hydro/sweep.py. The library is built
@@ -134,16 +135,20 @@ __device__ __forceinline__ void cons_to_prim(float q[NV], const Eos& e) {
 
 // Primitive state of the cell at sweep coordinate c (through the wall map)
 // and transverse base offset `base`; `stride` is the sweep axis stride.
+// NS passive scalars follow the 6 gas components in q, as they lie in the
+// state: conserved densities, never flipped or converted (euler.
+// cons_to_prim keeps them as they are).
+template <int NS = 0>
 __device__ __forceinline__ void load_prim(const float* __restrict__ Q,
                                           int64_t ncell, int64_t base,
                                           int64_t stride, int64_t c, int64_t n,
                                           int lo, int hi, int axis,
                                           int is_cons, const Eos& e,
-                                          float q[NV]) {
+                                          float* q) {
   bool flip;
   const int64_t off = base + map_cell(c, n, lo, hi, flip) * stride;
 #pragma unroll
-  for (int v = 0; v < NV; ++v) q[v] = Q[v * ncell + off];
+  for (int v = 0; v < NV + NS; ++v) q[v] = Q[v * ncell + off];
   if (flip) q[1 + axis] = -q[1 + axis];
   if (is_cons) cons_to_prim(q, e);
 }

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ._numerics import sqrt
+from ._numerics import div, sqrt
 
 # CGS constants (match AMReX-Microphysics usage in the reference)
 K_BOLTZMANN_CGS = 1.380649e-16  # erg/K
@@ -51,11 +51,13 @@ class IdealGasEOS:
         return (self.gamma - 1.0) * eint
 
     def eint_from_pres(self, rho, P):
-        """Internal energy density (rho*e) from pressure."""
+        """Internal energy density (rho*e) from pressure, divided on every
+        device (`_numerics.div`: the CUDA kernels divide, where PyTorch's
+        CUDA division by a Python number multiplies by its reciprocal)."""
         del rho
         if self.is_isothermal:
             return torch.zeros_like(P)
-        return P / (self.gamma - 1.0)
+        return div(P, self.gamma - 1.0)
 
     def sound_speed(self, rho, P):
         if self.is_isothermal:

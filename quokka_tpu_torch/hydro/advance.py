@@ -711,7 +711,6 @@ def advance_hydro_rk2(U, dt, opts: HydroOptions, fill_fn=None,
         "redo_any_fn": redo_any_fn is not None,
         "mask_fill_fn": mask_fill_fn is not None,
         "rk_order not in (1, 2)": opts.rk_order not in (1, 2),
-        "passive scalars": opts.n_scalars > 0,
         "riemann != hllc": opts.riemann != "hllc",
     }
     if padded:

@@ -4,8 +4,8 @@ Counterpart of `quokka_tpu.hydro.riemann` (reference ``src/hydro/HLLC.hpp``,
 ``src/hydro/LLF.hpp`` and ``src/hydro/HLLD.hpp``), vectorized over whole
 face arrays. Canonical frame: `u` is the velocity normal to the face,
 `v`/`w` the transverse components. Flux component order (canonical): [rho,
-mom_u, mom_v, mom_w, E, Eint]; HLLD adds the transverse field fluxes [by,
-bz]. Passive scalars are not ported yet.
+mom_u, mom_v, mom_w, E, Eint, scalars...]; HLLD returns the transverse
+field fluxes [by, bz] after Eint instead of scalars.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class FaceState:
     cs: torch.Tensor
     E: torch.Tensor  # total energy density
     Eint: torch.Tensor  # auxiliary internal energy density (rho*e)
+    scalars: Optional[torch.Tensor] = None  # [nscal, ...faces], conserved densities
     by: torch.Tensor | float = 0.0  # transverse B (MHD / HLLD only)
     bz: torch.Tensor | float = 0.0
     # cached reciprocal density: the solver multiplies by it instead of
@@ -41,8 +42,11 @@ class FaceState:
         return self.rinv if self.rinv is not None else 1.0 / self.rho
 
     def conserved_list(self) -> list:
-        return [self.rho, self.rho * self.u, self.rho * self.v,
-                self.rho * self.w, self.E, self.Eint]
+        comps = [self.rho, self.rho * self.u, self.rho * self.v,
+                 self.rho * self.w, self.E, self.Eint]
+        if self.scalars is not None:
+            comps += list(self.scalars.unbind(0))
+        return comps
 
     def flux_list(self) -> list:
         """Canonical physical flux F = u*U + P*D, as a component list."""

@@ -42,7 +42,7 @@ from typing import Tuple
 import torch
 
 from .._numerics import sqrt
-from ..indices import EGAS, EINT, MX1, PEINT, PPRES, PRHO, PVX1, RHO
+from ..indices import EGAS, EINT, MX1, PEINT, PPRES, PRHO, PVX1, RHO, SCALAR0
 from ..registry import BC_OUTFLOW, BC_REFLECT
 from ..stencil import interior, sh
 from . import euler, reconstruct
@@ -144,8 +144,9 @@ def _face_state(q: torch.Tensor, axis: int, opts) -> FaceState:
             Eint = q[PEINT]
         cs = sqrt(eos.gamma * P * rinv)
         E = eos.eint_from_pres(rho, P) + ke
+    scalars = q[SCALAR0:] if q.shape[0] > SCALAR0 else None
     return FaceState(rho=rho, u=u, v=v, w=w, P=P, cs=cs, E=E, Eint=Eint,
-                     rinv=rinv)
+                     scalars=scalars, rinv=rinv)
 
 
 def _sweep_body(prim, chi, dminv, dminw, axis: int, opts, first_order: bool):
@@ -201,12 +202,32 @@ def _sweep_body(prim, chi, dminv, dminw, axis: int, opts, first_order: bool):
     comps[MX1 + wax] = F[3]
     comps[EGAS] = F[4]
     comps[EINT] = F[5]
+    comps[SCALAR0:] = F[SCALAR0:].unbind(0)
+    if opts.n_mscalars > 0:
+        comps[SCALAR0:SCALAR0 + opts.n_mscalars] = _cma_fluxes(comps[RHO], sL, sR,
+                                                               opts.n_mscalars)
     Fout = torch.stack(comps)
     if eos.is_isothermal:
         Fout[EGAS] = 0.0
         Fout[EINT] = 0.0
     facevel = Fout[RHO] * torch.where(Fout[RHO] >= 0.0, sR.rinv, sL.rinv)
     return Fout, facevel
+
+
+def _cma_fluxes(mrho, sL: FaceState, sR: FaceState, n_m: int) -> list:
+    """The mass scalars' fluxes rescaled to sum to the mass flux `mrho`
+    (consistent multi-species advection, Plewa & Muller 1999 eqs 8 and 12;
+    `pallas_sweep.py:408-416`): upwind side's mrho s_n / sum of its mass
+    scalars, summed in index order as the CUDA kernels sum them."""
+    sums = []
+    for s in (sL, sR):
+        tot = s.scalars[0]
+        for k in range(1, n_m):
+            tot = tot + s.scalars[k]
+        sums.append(tot)
+    upwind_is_L = mrho >= 0.0
+    return [torch.where(upwind_is_L, mrho * sL.scalars[k] / sums[0],
+                        mrho * sR.scalars[k] / sums[1]) for k in range(n_m)]
 
 
 def _transverse_axis_plain(U, t: int, opts, bc_axis, state_is_cons: bool):
@@ -470,13 +491,36 @@ def _eos_args(opts):
             int(opts.reconstruct_eint))
 
 
+# the passive scalar counts the CUDA hydro kernels are instantiated for
+# (csrc/sweep_ppm1.cu, sweep_ppm2.cu, sweep_plm1.cu, sweep_plm2.cu, apply.cu)
+MAX_KERNEL_SCALARS = 2
+
+
+def _form_args(opts, first_order: bool):
+    """(order, scalars, mass scalars) of K2's template form (csrc/sweep.cuh):
+    the reconstruction, 3 PPM or 2 PLM (a first-order sweep skips it, and
+    takes the run's form or PPM's), and the scalar counts."""
+    order = opts.reconstruction_order
+    if not first_order and order not in (2, 3):
+        raise NotImplementedError(f"the CUDA sweep reconstructs with PPM (3) or PLM (2), "
+                                  f"got reconstruction_order = {order}")
+    return (order if order in (2, 3) else 3, opts.n_scalars, opts.n_mscalars)
+
+
 def _check_kernel_inputs(opts, *tensors):
     if opts.eos.is_isothermal:
-        raise NotImplementedError("the CUDA hydro kernels need a gamma-law EOS")
-    ref = tensors[0]
-    if ref.dim() != 4 or ref.shape[0] != 6:
+        raise NotImplementedError("the CUDA hydro kernels need a gamma-law EOS "
+                                  "(the isothermal EOS is not ported to them)")
+    if opts.n_scalars > MAX_KERNEL_SCALARS:
         raise NotImplementedError(
-            f"the CUDA hydro kernels take a [6, X, Y, Z] state, got {tuple(ref.shape)}")
+            f"the CUDA hydro kernels take at most {MAX_KERNEL_SCALARS} passive scalars, "
+            f"got n_scalars = {opts.n_scalars}")
+    ref = tensors[0]
+    nv = 6 + opts.n_scalars
+    if ref.dim() != 4 or ref.shape[0] != nv:
+        raise ValueError(
+            f"the CUDA hydro kernels take a [6 + n_scalars, X, Y, Z] = [{nv}, X, Y, Z] "
+            f"state, got {tuple(ref.shape)}")
     if min(ref.shape[1:]) < 4:
         raise ValueError(f"every extent must be >= 4, got {tuple(ref.shape)}")
     for t in tensors:
@@ -554,6 +598,11 @@ def _transverse_cuda(U5, opts, bc_kinds: dict | None, state_is_cons: bool):
         raise ValueError(f"expected [B, 6, X, Y, Z] states, got {tuple(U5.shape)}")
     _check_kernel_inputs(opts, U5[0], U5)
     B, _, X, Y, Z = U5.shape
+    if B > 1 and opts.n_scalars > 0:
+        # K1 reads components 0-5 and strides a batch by 6 components: a
+        # batch of states with scalars (the packed AMR engine's chunks) is
+        # not ported
+        raise NotImplementedError("K1 over a batch of states with passive scalars")
     axes = tuple(opts.active_axes)
     do_chi = opts.use_flattening and opts.reconstruction_order == 3
     dmin = torch.empty((len(axes), B, X, Y, Z), dtype=U5.dtype, device=U5.device)
@@ -640,8 +689,6 @@ def compute_axis_flux(U, axis: int, opts, chi_cell, dmins: dict,
     from .._cuda import library
 
     lib = library()
-    if not first_order and opts.reconstruction_order != 3:
-        raise NotImplementedError("the CUDA sweep reconstructs with PPM only")
     vax, wax = _transverse_axes(axis, max(opts.ndim, 1))
     dminv = dmins.get(vax) if (vax in opts.active_axes and not first_order) else None
     dminw = dmins.get(wax) if (wax in opts.active_axes and not first_order) else None
@@ -687,15 +734,25 @@ def _unbatch(t):
     return None if t is None else t[0]
 
 
-def _face_tile(n_faces: int, n_across: int) -> Tuple[int, int]:
+def _face_tile(n_faces: int, n_across: int, nv: int = 6) -> Tuple[int, int]:
     """(faces along the axis, lines across) of one tile of K2's face kernel
-    (``csrc/sweep.cu`` `face_tile_kernel`): at most 40 faces along, split
-    evenly (a packed block's line of 28 or 36 faces is one tile), and as
-    many lines as keep a tile at or below 512 faces (two a thread), split
-    evenly across."""
+    (``csrc/sweep.cu`` `face_tile_kernel`) for a state of `nv` components:
+    at most 40 faces along, split evenly (a packed block's line of 28 or 36
+    faces is one tile), and as many lines as keep a tile at or below 512
+    faces (two a thread) and its shared memory (`face_smem_bytes`) at or
+    below LEAN_SMEM_MAX, split evenly across."""
     ta = -(-n_faces // -(-n_faces // 40))
-    tw = max(1, min(n_across, 512 // ta))
+    fit = LEAN_SMEM_MAX // face_smem_bytes((ta, 1), nv)
+    tw = max(1, min(n_across, 512 // ta, fit))
     return ta, -(-n_across // -(-n_across // tw))
+
+
+def face_smem_bytes(tile, nv: int = 6) -> int:
+    """Shared-memory bytes of a face-kernel block (`face_smem_bytes` of
+    csrc/sweep.cuh): the staged primitives [nv][(ta + 5) tw], the face
+    states and dmins [2 nv + 2][(ta + 1) tw]."""
+    ta, tw = tile
+    return 4 * (nv * (ta + 5) * tw + (2 * nv + 2) * (ta + 1) * tw)
 
 
 def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
@@ -710,10 +767,8 @@ def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
 
     if U5.dim() != 5:
         raise ValueError(f"expected [B, 6, X, Y, Z] states, got {tuple(U5.shape)}")
-    if not first_order and opts.reconstruction_order != 3:
-        raise NotImplementedError("the CUDA sweep reconstructs with PPM only")
     _check_kernel_inputs(opts, U5[0], U5, chi, dminv, dminw)
-    B, _, X, Y, Z = U5.shape
+    B, nv, X, Y, Z = U5.shape
     cell = (B, X, Y, Z)
     _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")])
     lo, hi = _bc_codes(bc_axis)
@@ -723,18 +778,18 @@ def _axis_faces_cuda(lib, U5, axis: int, opts, chi, dminv, dminw, bc_axis,
     plane = tuple(s for a, s in enumerate((X, Y, Z)) if a != axis)
     F = torch.empty_like(U5)
     v = torch.empty(cell, dtype=U5.dtype, device=U5.device)
-    Fh = torch.empty((B, 6) + plane, dtype=U5.dtype, device=U5.device) if wall else None
+    Fh = torch.empty((B, nv) + plane, dtype=U5.dtype, device=U5.device) if wall else None
     vh = torch.empty((B,) + plane, dtype=U5.dtype, device=U5.device) if wall else None
     if X * Y * Z >= 2**31 or B > 65535:
         raise ValueError("the CUDA face kernel takes < 2^31 cells a block and <= 65535 blocks")
     n_faces = (X, Y, Z)[axis] + (1 if wall else 0)
-    ta, tw = _face_tile(n_faces, Y if axis == 2 else Z)
+    ta, tw = _face_tile(n_faces, Y if axis == 2 else Z, nv)
     err = lib.qk_axis_flux(U5.data_ptr(), _ptr(chi), *_plane_args(planes, U5, axis),
                            _ptr(dminv), _ptr(dminw),
                            F.data_ptr(), v.data_ptr(), _ptr(Fh), _ptr(vh),
                            X, Y, Z, B, axis, lo, hi, int(state_is_cons),
                            int(first_order), float(opts.K_visc), ta, tw, *_eos_args(opts),
-                           _stream(U5))
+                           *_form_args(opts, first_order), _stream(U5))
     check(err, "axis_flux")
     return F, v, Fh, vh
 
@@ -744,22 +799,24 @@ LEAN_ALONG = 40  # cells of a K2c tile along the axis, at most
 LEAN_FACES = 512  # faces of a K2c tile, at most (two a thread)
 
 
-def lean_tile(n_cells: int, n_across: int) -> Tuple[int, int]:
+def lean_tile(n_cells: int, n_across: int, nv: int = 6) -> Tuple[int, int]:
     """(cells along the axis, lines across) of one tile of K2c
-    (``csrc/sweep.cu`` `lean_tile_kernel`): at most LEAN_ALONG cells along,
-    split evenly, and as many lines as keep the tile's ta + 1 faces at or
-    below LEAN_FACES, split evenly across."""
+    (``csrc/sweep.cu`` `lean_tile_kernel`) for a state of `nv` components:
+    at most LEAN_ALONG cells along, split evenly, and as many lines as keep
+    the tile's ta + 1 faces at or below LEAN_FACES and its shared memory
+    (`lean_smem_bytes`) at or below LEAN_SMEM_MAX, split evenly across."""
     ta = _split(n_cells, LEAN_ALONG)
-    return ta, _split(n_across, max(1, min(n_across, LEAN_FACES // (ta + 1))))
+    fit = LEAN_SMEM_MAX // lean_smem_bytes((ta, 1), nv)
+    return ta, _split(n_across, max(1, min(n_across, LEAN_FACES // (ta + 1), fit)))
 
 
-def lean_smem_bytes(tile) -> int:
-    """Shared-memory bytes of a K2c block (`qk_lean_smem`): the face
-    kernel's staged primitives [6][(ta + 6) tw], face states and dmins
-    [14][(ta + 2) tw], and the faces' fluxes and velocities [7][(ta + 1)
-    tw]."""
+def lean_smem_bytes(tile, nv: int = 6) -> int:
+    """Shared-memory bytes of a K2c block (`qk_lean_smem`) for a state of
+    `nv` components: the face kernel's staged primitives [nv][(ta + 6) tw],
+    face states and dmins [2 nv + 2][(ta + 2) tw], and the faces' fluxes
+    and velocities [nv + 1][(ta + 1) tw]."""
     ta, tw = tile
-    return 4 * (6 * (ta + 6) * tw + 14 * (ta + 2) * tw + 7 * (ta + 1) * tw)
+    return 4 * (nv * (ta + 6) * tw + (2 * nv + 2) * (ta + 2) * tw + (nv + 1) * (ta + 1) * tw)
 
 
 def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order,
@@ -798,9 +855,9 @@ def _axis_flux_lean_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order
                            _ptr(corr_mask), _ptr(corr), X, Y, Z, axis, lo, hi,
                            int(state_is_cons), int(first_order),
                            float(opts.K_visc), float(dx_axis), int(acc is not None),
-                           int(corr_acc is not None), *lean_tile((X, Y, Z)[axis],
-                                                                 Y if axis == 2 else Z),
-                           *_eos_args(opts), _stream(U))
+                           int(corr_acc is not None),
+                           *lean_tile((X, Y, Z)[axis], Y if axis == 2 else Z, U.shape[0]),
+                           *_eos_args(opts), *_form_args(opts, first_order), _stream(U))
     check(err, "axis_flux_lean")
     if corr is None:
         launch_counts["axis_flux_lean"] += 1
@@ -813,18 +870,23 @@ SWEEP_ALONG = 29  # cells of an x or y sweep's tile along the axis, at most
 SWEEP_LINES = 16  # lines of an x or y sweep's tile across it, at most
 
 
-def sweep_tile(n_cells: int, n_across: int, axis: int) -> Tuple[int, int]:
+def sweep_tile(n_cells: int, n_across: int, axis: int, nv: int = 6) -> Tuple[int, int]:
     """(cells along the axis, lines across) of one tile of K2's sweeps with
     a divergence (``csrc/sweep.cu`` `sweep_tile_kernel`: stage 1, stage 2,
-    K2d), which share K2c's shared-memory layout (`lean_smem_bytes`). The z
-    sweep's faces run along z, the contiguous axis, and it takes K2c's tile
-    (`lean_tile`). The x and y sweeps store and read their faces in rows of
-    the tile's lines along z: they take up to SWEEP_LINES lines (rows of
-    64 B) and up to SWEEP_ALONG cells along, the most that keeps four blocks
-    a multiprocessor; each split evenly."""
+    K2d) for a state of `nv` components, which share K2c's shared-memory
+    layout (`lean_smem_bytes`). The z sweep's faces run along z, the
+    contiguous axis, and it takes K2c's tile (`lean_tile`). The x and y
+    sweeps store and read their faces in rows of the tile's lines along z:
+    they take up to SWEEP_LINES lines (rows of 64 B) and up to SWEEP_ALONG
+    cells along, the most that keeps four blocks a multiprocessor at nv =
+    6; with scalars fewer cells along, as many as keep SWEEP_LINES lines
+    within LEAN_SMEM_MAX; each split evenly."""
     if axis == 2:
-        return lean_tile(n_cells, n_across)
-    return _split(n_cells, SWEEP_ALONG), _split(n_across, SWEEP_LINES)
+        return lean_tile(n_cells, n_across, nv)
+    along = SWEEP_ALONG
+    while along > 1 and lean_smem_bytes((along, SWEEP_LINES), nv) > LEAN_SMEM_MAX:
+        along -= 1
+    return _split(n_cells, along), _split(n_across, SWEEP_LINES)
 
 
 def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc_axis,
@@ -845,8 +907,9 @@ def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc
     X, Y, Z = U.shape[1:]
     cell = (X, Y, Z)
     plane = tuple(s for a, s in enumerate(cell) if a != axis)
+    nv = U.shape[0]
     _check_shapes([(chi, cell, "chi_cell"), (dminv, cell, "dmin"), (dminw, cell, "dmin")]
-                  + list(zip(avg, (U.shape, cell, (6,) + plane, plane),
+                  + list(zip(avg, (U.shape, cell, (nv,) + plane, plane),
                              ("avg flux", "avg facevel", "avg flux_hi", "avg vel_hi"))))
     if avg_with is not None and len(avg) != (4 if wall else 2):
         raise ValueError("avg_with holds (F, v) on a periodic axis, "
@@ -857,7 +920,7 @@ def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc
     faces = (None,) * 4
     if avg_with is None:
         faces = (torch.empty_like(U), torch.empty(cell, dtype=U.dtype, device=U.device),
-                 torch.empty((6,) + plane, dtype=U.dtype, device=U.device) if wall else None,
+                 torch.empty((nv,) + plane, dtype=U.dtype, device=U.device) if wall else None,
                  torch.empty(plane, dtype=U.dtype, device=U.device) if wall else None)
     F1, v1, F1h, v1h = (avg + (None,) * 4)[:4]
     if emit_avg_flux:
@@ -869,8 +932,8 @@ def _axis_sweep_cuda(lib, U, axis: int, opts, chi, dminv, dminw, first_order, bc
                             _ptr(F1), _ptr(v1), _ptr(F1h), _ptr(v1h), _ptr(favg), X, Y, Z,
                             axis, lo, hi, int(state_is_cons), int(first_order),
                             float(opts.K_visc), float(dx_axis),
-                            *sweep_tile(cell[axis], Y if axis == 2 else Z, axis),
-                            *_eos_args(opts), _stream(U))
+                            *sweep_tile(cell[axis], Y if axis == 2 else Z, axis, nv),
+                            *_eos_args(opts), *_form_args(opts, first_order), _stream(U))
     check(err, "axis_sweep")
     launch_counts["axis_flux_avg" if emit_avg_flux else "axis_flux"] += 1
     if emit_avg_flux:
@@ -897,18 +960,16 @@ def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts, ng=(0, 0, 0)):
     axes = sorted(divs)
     if axes != [0, 1, 2] or sorted(dvels) != axes:
         raise NotImplementedError("the CUDA apply kernel takes three axes")
-    if opts.n_scalars > 0:
-        raise NotImplementedError("the CUDA apply kernel takes no passive scalars")
     ins = [Ug0] + [divs[d] for d in axes] + [dvels[d] for d in axes]
     if any(ng[1:]):
         ins = [interior(t, ng).contiguous() for t in ins]
         ng = (0, 0, 0)
     Ug0, dlist, vlist = ins[0], ins[1:4], ins[4:]
     _check_kernel_inputs(opts, U, *ins)
-    X, Y, Z = U.shape[1:]
+    nv, X, Y, Z = U.shape
     padded = (X + 2 * ng[0], Y, Z)
-    _check_shapes([(Ug0, (6,) + padded, "Ug0")]
-                  + [(t, (6,) + padded, "div") for t in dlist]
+    _check_shapes([(Ug0, (nv,) + padded, "Ug0")]
+                  + [(t, (nv,) + padded, "div") for t in dlist]
                   + [(t, padded, "dvel") for t in vlist])
     dt_t = torch.as_tensor(dt, dtype=U.dtype, device=U.device).reshape(1)
     out = torch.empty_like(U)
@@ -921,7 +982,7 @@ def apply_update(U, Ug0, divs: dict, dvels: dict, dt, opts, ng=(0, 0, 0)):
                        float(opts.temperature_floor), float(opts.eos.c_v)
                        if opts.temperature_floor > 0.0 else 0.0,
                        opts.eos.gamma - 1.0,
-                       int(opts.use_dual_energy), _stream(U))
+                       int(opts.use_dual_energy), opts.n_scalars, _stream(U))
     check(err, "apply_update")
     launch_counts["apply_update"] += 1
     return out, n_bad.reshape(())

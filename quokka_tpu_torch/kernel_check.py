@@ -59,6 +59,36 @@ OPS_OUTER_ITER = 185  # one work-term re-solve, besides its Newton iterations
 OPS_K8_RECON = {1: 0, 2: 14, 3: 57}
 OPS_K8_HLLD = 315
 OPS_K8_REST = 14
+# K2's forms (csrc/sweep.cuh), per cell: a component's reconstruction, PPM
+# with the chi blend or PLM's minmod slope; a scalar's share of the HLLC
+# face solve (its conserved and physical flux, two star fluxes, the fan's
+# select) and its divergence, and of the LLF one; a mass scalar's rescaling
+# (its share of the sum, a product and a division); a scalar in K3 (its
+# rhs, update, finiteness and floor rescale)
+OPS_PPM_COMPONENT = 45
+OPS_PLM_COMPONENT = 12
+OPS_SCALAR_FACE = 16
+OPS_SCALAR_LLF = 12
+OPS_MASS_SCALAR = 3
+OPS_K3_SCALAR = 7
+
+
+def k2_ops(opts, first_order: bool = False) -> int:
+    """FP32 operations a cell of one K2 sweep (OPS_K2_SWEEP's PPM form
+    without scalars; OPS_FO_FACE a face in first order), in the form of
+    `opts`: PLM reconstructs for fewer, each scalar adds its reconstruction
+    and face share, each mass scalar its rescaling."""
+    ns, nm = opts.n_scalars, opts.n_mscalars
+    if first_order:
+        return OPS_FO_FACE + ns * OPS_SCALAR_LLF + nm * OPS_MASS_SCALAR
+    recon = OPS_PPM_COMPONENT if opts.reconstruction_order == 3 else OPS_PLM_COMPONENT
+    return (OPS_K2_SWEEP - 6 * (OPS_PPM_COMPONENT - recon) + ns * (recon + OPS_SCALAR_FACE)
+            + nm * OPS_MASS_SCALAR)
+
+
+def k3_ops(opts) -> int:
+    """FP32 operations a cell of K3 with the scalars of `opts`."""
+    return OPS_K3 + opts.n_scalars * OPS_K3_SCALAR
 
 
 def _flat(x) -> List[torch.Tensor]:
@@ -218,7 +248,7 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
         # reads U, chi and two dmin fields; writes faces, face velocities
         # and both divergences
         cost = (_nbytes(U, chi, *dmins.values()) - _nbytes(dmins[d]) + _nbytes(res),
-                OPS_K2_SWEEP * n)
+                k2_ops(opts) * n)
         yield Case("axis_flux", f"K2 stage 1 axis {d}",
                    lambda d=d, kw=s1: sweep.compute_axis_flux(U, d, opts, chi, dmins, **kw),
                    lambda d=d, kw=s1: sweep.axis_flux_plain(U, d, opts, chi, dmins, **kw),
@@ -228,7 +258,7 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
         # reads U2, chi, two dmin fields and stage 1's faces (and their hi
         # planes); writes both divergences
         cost2 = (_nbytes(U2, chi2, *dmins2.values()) - _nbytes(dmins2[d]) + _nbytes(res[:-2])
-                 + _nbytes(res[-2:]), OPS_K2_SWEEP * n)
+                 + _nbytes(res[-2:]), k2_ops(opts) * n)
         yield Case("axis_flux", f"K2 stage 2 avg axis {d}",
                    lambda d=d, kw=s2: sweep.compute_axis_flux(U2, d, opts, chi2, dmins2, **kw),
                    lambda d=d, kw=s2: sweep.axis_flux_plain(U2, d, opts, chi2, dmins2, **kw),
@@ -250,7 +280,7 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
     else:
         Ui = U
         read = _nbytes(U, divs, dvels)
-    k3_cost = (read + _nbytes(Ui), OPS_K3 * Ui[0].numel())
+    k3_cost = (read + _nbytes(Ui), k3_ops(opts) * Ui[0].numel())
     yield Case("apply_update", "K3" + (f" padded {tuple(ng)}" if any(ng) else ""),
                lambda: sweep.apply_update(Ui, U, divs, dvels, dt, opts, ng),
                lambda: sweep.apply_update_plain(Ui, U, divs, dvels, dt, opts, ng),
@@ -258,15 +288,16 @@ def cases(U: torch.Tensor, U2: torch.Tensor, opts, bc_kinds: dict,
 
 
 def k1_cost_of(U: torch.Tensor, opts, planes: dict | None = None):
-    """(bytes, FP32 operations) of K1 over a state [6, X, Y, Z] or a batch
-    [B, 6, X, Y, Z]: the state read once, and what K1 returns written once:
+    """(bytes, FP32 operations) of K1 over a state [nv, X, Y, Z] or a batch
+    [B, nv, X, Y, Z]: its 6 gas components read once (K1 reads no scalar),
+    and what K1 returns written once:
     dmin an active axis and, with PPM flattening, chi_cell (40 B a cell with
     three axes) and the outflow chi planes `planes` (`hydro.sweep.
     outflow_chi_planes`); OPS_K1_AXIS a cell and axis."""
     cell = U.select(-4, 0)
     axes = len(opts.active_axes)
     chi = opts.use_flattening and opts.reconstruction_order == 3
-    return (_bytes_of(U) + _bytes_of(cell) * (axes + chi) + _nbytes(planes),
+    return (_bytes_of(U.narrow(-4, 0, 6)) + _bytes_of(cell) * (axes + chi) + _nbytes(planes),
             OPS_K1_AXIS * cell.numel() * axes)
 
 
@@ -449,7 +480,7 @@ def amr_cases(Ug0: torch.Tensor, Ug1: torch.Tensor, R: torch.Tensor, opts, ropts
         # velocities); writes div, dvel and the averaged flux
         dm = {t: f for t, f in dmins.items() if t != d}
         cost = (_nbytes(Ug1, chi, *dm.values(), F1) + _nbytes(Ug1) + _nbytes(Ug1[0])
-                + _nbytes(Ug1), OPS_K2_SWEEP * n)
+                + _nbytes(Ug1), k2_ops(opts) * n)
 
         def plain(U, c, dmn, F1s, v1s, d=d):
             return sweep.axis_flux_plain(U, d, opts, c, dmn, dx_axis=opts.dx[d],
@@ -563,7 +594,7 @@ def lean_cases(U0: torch.Tensor, U1: torch.Tensor, opts, bc_kinds: dict, seed: i
             # reads the state, chi, two dmin fields [, the mask, fo_from, the
             # accumulators]; writes div and dvel (in place with acc)
             cost = (_nbytes(U, chi, *dm, m, fo, acc if with_acc else None)
-                    + _nbytes(acc), OPS_K2_SWEEP * n + OPS_FO_FACE * flagged)
+                    + _nbytes(acc), k2_ops(opts) * n + k2_ops(opts, True) * flagged)
 
             def kernel(acc_in, d=d, U=U, chi=chi, dmins=dmins, m=m, fo=fo, kw=kw):
                 return sweep.compute_axis_flux(U, d, opts, chi, dmins, acc=acc_in, fo_mask=m,
@@ -691,7 +722,7 @@ def corr_cases(U0: torch.Tensor, U1: torch.Tensor, opts, corr_masks: dict, seed:
             # dvel and corr (in place with the accumulators)
             cost = (_nbytes(U, chi, *dm, corr_masks[d], m, fo,
                             (acc, corr) if with_acc else None)
-                    + _nbytes(acc, corr), OPS_K2_SWEEP * n + OPS_FO_FACE * flagged)
+                    + _nbytes(acc, corr), k2_ops(opts) * n + k2_ops(opts, True) * flagged)
 
             def copy(w=with_acc):
                 return (tuple(a.clone() for a in acc), corr.clone()) if w else (None, None)
@@ -870,6 +901,50 @@ def hydro_blocks(nbatch: int, shape, seed: int, device) -> torch.Tensor:
                         rho * eint], dim=1).contiguous()
 
 
+def with_scalar_rows(U: torch.Tensor, opts, seed: int) -> torch.Tensor:
+    """`U` [.., 6, X, Y, Z] (one state or a batch) with the passive scalars
+    of `opts` appended as seeded conserved densities: rho times a value in
+    [0, 1), and the mass scalars as fractions in [0.2, 0.5) of rho, so that
+    they sum to less than rho. Unchanged without scalars."""
+    if opts.n_scalars == 0:
+        return U
+    g = torch.Generator(device=U.device).manual_seed(seed)
+    rho = U.select(-4, 0).unsqueeze(-4)
+    shape = list(rho.shape)
+    shape[-4] = opts.n_scalars
+    frac = torch.rand(shape, generator=g, device=U.device, dtype=U.dtype)
+    frac[..., :opts.n_mscalars, :, :, :] = 0.2 + 0.3 * frac[..., :opts.n_mscalars, :, :, :]
+    return torch.cat([U, frac * rho], dim=-4).contiguous()
+
+
+def form_tag(opts) -> str:
+    """The label of K2's form (csrc/sweep.cuh) for `opts`: empty for PPM
+    without scalars."""
+    tag = " PLM" if opts.reconstruction_order == 2 else ""
+    if opts.n_scalars:
+        tag += f" {opts.n_scalars} scalar" + ("s" if opts.n_scalars > 1 else "")
+        if opts.n_mscalars:
+            tag += f" ({opts.n_mscalars} mass)"
+    return tag
+
+
+def k3_floor_case(opts, device, shape=(16, 24, 20), seed: int = 30) -> Case:
+    """K3 with the scalars of `opts` on a seeded state whose update drives
+    a fifth of the cells below the density floor (0.9), so the scalars are
+    rescaled there, against its plain version."""
+    import dataclasses
+
+    o = dataclasses.replace(opts, density_floor=0.9)
+    U = with_scalar_rows(hydro_blocks(1, shape, seed, device)[0], o, seed)
+    Ug0 = with_scalar_rows(hydro_blocks(1, shape, seed + 1, device)[0], o, seed + 1)
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    divs = {d: torch.randn(U.shape, generator=g, device=device) for d in range(3)}
+    dvels = {d: torch.randn(shape, generator=g, device=device) for d in range(3)}
+    return Case("apply_update", f"K3 density floor{form_tag(o)}",
+                lambda: sweep.apply_update(U, Ug0, divs, dvels, 0.05, o),
+                lambda: sweep.apply_update_plain(U, Ug0, divs, dvels, 0.05, o))
+
+
 def _bytes_of(*tensors) -> int:
     """Bytes of the tensors (views: their own elements), meta tensors too."""
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -938,7 +1013,7 @@ def face_cases(U5: torch.Tensor, opts, bc_kinds: dict | None = None, tag: str = 
                                   bc_axis, fo, nslab)
 
             cost = k2_face_cost(U5, d, c, None if fo else dmins, fo, bc_axis is not None)
-            what = "first order" if fo else "PPM"
+            what = "first order" if fo else ("PLM" if opts.reconstruction_order == 2 else "PPM")
             yield Case("axis_flux", f"K2 faces {what} axis {d}{tag}", kernel, plain,
                        lambda cost=cost: cost)
 
@@ -967,9 +1042,10 @@ def face_edge_cases(opts, device, seed: int = 4) -> Iterator[Case]:
     from .registry import BC_REFLECT
 
     for i, (nb, shape, walls) in enumerate(FACE_EDGE_SHAPES):
-        U5 = hydro_blocks(nb, shape, seed + i, device)
+        U5 = with_scalar_rows(hydro_blocks(nb, shape, seed + i, device), opts, seed + i)
         bc = {d: (BC_REFLECT, BC_REFLECT) for d in range(3)} if walls else None
-        yield from face_cases(U5, opts, bc, f" B {nb} {shape}" + (" walls" if walls else ""))
+        yield from face_cases(U5, opts, bc, f" B {nb} {shape}" + (" walls" if walls else "")
+                              + form_tag(opts))
 
 
 # K1's input variants on its edge shapes: (label, options changed, conserved
@@ -1045,6 +1121,11 @@ OUTFLOW_EDGE_SHAPES = (((4, 4, 4), "outflow"), ((5, 5, 5), "mixed"),
                        ((83, 6, 47), "mixed"), ((5, 5, 5), "reflect-outflow"))
 
 
+# the edge shapes of K2's PLM and scalar forms: LEAN_EDGE_SHAPES (extents 4
+# and 5, ragged tiles, walls, periodic axes) and two outflow sides' shapes
+FORM_EDGE_SHAPES = LEAN_EDGE_SHAPES + (((5, 5, 5), "mixed"), ((4, 35, 17), "reflect-outflow"))
+
+
 def rough_wall_state(shape, seed: int, device) -> torch.Tensor:
     """`hydro_blocks` with a density and pressure well and strong outward
     and inward jets in the first and last two cells of every axis, so that
@@ -1095,15 +1176,17 @@ def face_wall_edge_cases(opts, device, seed: int = 18,
     `axis_flux_plain`."""
     for i, (shape, kind) in enumerate(shapes):
         bc = _bc_of(kind)
-        U = rough_wall_state(shape, seed + i, device)
+        U = with_scalar_rows(rough_wall_state(shape, seed + i, device), opts, seed + i)
         dmins, chi, planes = sweep.precompute_transverse_plain(U, opts, bc, True)
         for fo in (False, True):
             for d in range(3):
                 kw = dict(bc_axis=bc[d], state_is_cons=True,
                           chi_ghost_axis=None if fo else planes.get(d))
                 c, dm = (None, {}) if fo else (chi, dmins)
-                what = "first order" if fo else "PPM"
-                yield Case("axis_flux", f"K2 faces {shape} {kind} {what} axis {d}",
+                what = "first order" if fo else ("PLM" if opts.reconstruction_order == 2
+                                                  else "PPM")
+                yield Case("axis_flux", f"K2 faces {shape} {kind}{form_tag(opts)} {what} "
+                           f"axis {d}",
                            lambda d=d, c=c, dm=dm, kw=kw, fo=fo:
                                sweep.compute_axis_flux(U, d, opts, c, dm, fo, **kw),
                            lambda d=d, c=c, dm=dm, kw=kw, fo=fo:
@@ -1156,8 +1239,9 @@ def lean_edge_cases(opts, device, seed: int = 8,
 
     for i, (shape, kind) in enumerate(shapes):
         bc = _bc_of(kind)
-        U0 = hydro_blocks(1, shape, seed + i, device)[0]
-        U1 = hydro_blocks(1, shape, seed + 20 + i, device)[0]
+        U0 = with_scalar_rows(hydro_blocks(1, shape, seed + i, device)[0], opts, seed + i)
+        U1 = with_scalar_rows(hydro_blocks(1, shape, seed + 20 + i, device)[0], opts,
+                              seed + 20 + i)
         g = torch.Generator(device=device).manual_seed(seed + 40 + i)
         acc = (torch.rand(U0.shape, generator=g, device=device),
                torch.rand(shape, generator=g, device=device))
@@ -1205,7 +1289,8 @@ def lean_edge_cases(opts, device, seed: int = 8,
                                                      **kw)
 
                     name = "axis_flux_corr" if v.startswith("corr") else "axis_flux_lean"
-                    yield Case(name, f"K2c {shape} {kind}{etag} {v} axis {d}", kernel, plain)
+                    yield Case(name, f"K2c {shape} {kind}{etag}{form_tag(o)} {v} axis {d}",
+                               kernel, plain)
 
 
 # K2's sweeps with a divergence on the same shapes: stage 1 (the faces and
@@ -1227,8 +1312,9 @@ def sweep_edge_cases(opts, device, seed: int = 10,
 
     for i, (shape, kind) in enumerate(shapes):
         bc = _bc_of(kind)
-        U0 = hydro_blocks(1, shape, seed + i, device)[0]
-        U1 = hydro_blocks(1, shape, seed + 20 + i, device)[0]
+        U0 = with_scalar_rows(hydro_blocks(1, shape, seed + i, device)[0], opts, seed + i)
+        U1 = with_scalar_rows(hydro_blocks(1, shape, seed + 20 + i, device)[0], opts,
+                              seed + 20 + i)
         extras = [("", opts)]
         if i == 2:
             extras.append((" visc eint", dataclasses.replace(opts, K_visc=0.1,
@@ -1249,7 +1335,7 @@ def sweep_edge_cases(opts, device, seed: int = 10,
                                                            emit_avg_flux=True))
                 for v, (U, dm, c, kw) in variants.items():
                     yield Case("axis_flux_avg" if v == "K2d" else "axis_flux",
-                               f"K2 {shape} {kind}{etag} {v} axis {d}",
+                               f"K2 {shape} {kind}{etag}{form_tag(o)} {v} axis {d}",
                                lambda U=U, d=d, o=o, c=c, dm=dm, kw=kw:
                                    sweep.compute_axis_flux(U, d, o, c, dm, **kw),
                                lambda U=U, d=d, o=o, c=c, dm=dm, kw=kw:

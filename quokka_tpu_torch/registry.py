@@ -155,6 +155,8 @@ class Problem:
       - fill_user_boundary(Ug, grid, ng, time, axis, side) (BC_USER walls)
       - compute_reference_solution(sim) -> U_exact or None (the error norm)
       - compute_before_timestep(sim), compute_after_evolve(sim)
+      - external_acceleration(grid, dtype, device) -> g[3, nx, ny, nz] or
+        None (a static external acceleration, kicked after each hydro step)
       - radiation: the opacity laws (`planck_opacity`, and optionally
         `energy_mean_opacity` / `flux_mean_opacity`) and
         set_radiation_energy_source(grid, time, dtype, device)
@@ -230,6 +232,13 @@ class Problem:
         """User radiation energy source dE/dt (reference `SetRadEnergySource`);
         zero by default."""
         return torch.zeros(grid.n_cell, dtype=dtype, device=device)
+
+    def external_acceleration(self, grid, dtype=torch.float64, device="cuda"):
+        """Static external acceleration field g[3, nx, ny, nz] (the constant
+        gravity of the Rayleigh-Taylor problems), or None for none
+        (`quokka_tpu/registry.py:190-193`); `Simulation` applies it as an
+        operator-split kick after each hydro step."""
+        return None
 
     def compute_before_timestep(self, sim):
         pass

@@ -30,7 +30,7 @@ from .config import ParmParse
 from .grid import Grid
 from .hydro import euler
 from .hydro.advance import HydroOptions, advance_hydro_rk2
-from .indices import EGAS, EINT, RHO
+from .indices import EGAS, EINT, MX1, RHO
 from .registry import BC_OUTFLOW, BC_PERIODIC, BC_REFLECT, Problem
 from .stencil import ghost_widths
 
@@ -148,6 +148,7 @@ class Simulation:
         self.error_norm = float("nan")  # against compute_reference_solution
         self.init_sums: Optional[np.ndarray] = None
         self._radiation = None  # attached with the initial conditions
+        self._g_ext: Optional[torch.Tensor] = None  # external_acceleration, likewise
 
     def _check_unported_keys(self):
         for key, vals in self.pp.table.items():
@@ -244,6 +245,10 @@ class Simulation:
             raise ValueError(f"IC shape {tuple(U.shape)} != expected {expected}")
         self.U = U.to(dtype=self.dtype, device=self.device).contiguous()
         self.init_sums = self._sums(self.U)
+        g = self.problem.external_acceleration(self.grid, dtype=self.dtype,
+                                               device=self.device)
+        self._g_ext = None if g is None else torch.as_tensor(
+            g, dtype=self.dtype, device=self.device).contiguous()
         if self.layout.radiation_enabled:
             from .radiation.advance import RadiationAdvance
 
@@ -342,6 +347,8 @@ class Simulation:
             if not ok:
                 raise RuntimeError(
                     f"Hydro update exceeded max_retries at step {self.istep}; cannot continue.")
+            if self._g_ext is not None:
+                self.U = self._external_kick(self.U, dt)
             if self.check_states:
                 self._check_states_valid()
             self.t += dt
@@ -371,6 +378,21 @@ class Simulation:
         self._conservation_audit()
         self._compute_error_norm()
         self.problem.compute_after_evolve(self)
+
+    def _external_kick(self, U, dt):
+        """The operator-split kick of the static external acceleration g
+        after the hydro step (`quokka_tpu/simulation.py:628-644`, applied at
+        `:1025-1026`): momentum += dt rho g, and the gas energy gains the
+        work 0.5 dt g . (mom_old + mom_new); plain torch on the state's
+        device."""
+        g = self._g_ext
+        mom_old = U[MX1:MX1 + 3]
+        mom_new = mom_old + dt * U[RHO][None] * g
+        work = g * (mom_old + mom_new)
+        U = U.clone()
+        U[MX1:MX1 + 3] = mom_new
+        U[EGAS] = U[EGAS] + 0.5 * dt * ((work[0] + work[1]) + work[2])
+        return U
 
     def _compute_error_norm(self):
         """Relative rms-of-L1 error norm against the problem's reference

@@ -76,7 +76,10 @@ SEDOV_DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 # substring of a CUDA kernel's name -> the port's kernel (K2e is the lean
 # kernel with the register seed, counted under K2c; K2's sweeps with a
 # divergence, stage 1, stage 2 and K2d, are `sweep_tile_kernel`; K1's
-# second pass, with an outflow side, is `outflow_planes_kernel`)
+# second pass, with an outflow side, is `outflow_planes_kernel`; K2's PLM
+# and scalar forms and K3's scalar forms are template instantiations of the
+# same kernels, `lean_tile_kernel<axis, order, scalars>`, `apply_kernel<
+# scalars>`, counted under the same names)
 KERNEL_OF = (
     ("mhd_tile_kernel", "K8"), ("rad_axis_flux_kernel", "K7"),
     ("rad_transport_axis_kernel", "K4 transport"),
@@ -153,6 +156,8 @@ def _parts(sim):
         dt = sim.compute_timestep()
         if not sim.advance_single_step(dt):
             raise RuntimeError("the step failed its retries")
+        if getattr(sim, "_g_ext", None) is not None:  # the external gravity kick
+            sim.U = sim._external_kick(sim.U, dt)
         sim.t += dt
         sim.dt_prev = dt
         sim.istep += 1

@@ -161,7 +161,7 @@ def test_shared_memory_mirrors_match_the_kernels(cuda_device):
 
     lib = _cuda.library()
     for _, _, tile in _axis_tiles(LEAN_SHAPES + EDGE_SHAPES, sweep.lean_tile):
-        assert lib.qk_lean_smem(*tile) == sweep.lean_smem_bytes(tile)
+        assert lib.qk_lean_smem(*tile, 0) == sweep.lean_smem_bytes(tile)
     for _, _, tile in _axis_tiles(MHD_SHAPES + EDGE_SHAPES, msweep.k8_tile):
         for order in (1, 2, 3):
             assert lib.qk_mhd_smem(*tile, order) == msweep.k8_smem_bytes(tile, order)

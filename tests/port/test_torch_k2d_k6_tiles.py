@@ -180,4 +180,4 @@ def test_sweep_shared_memory_matches_the_kernel(cuda_device):
 
     lib = _cuda.library()
     for _, _, _, _, tile in _axis_tiles(SWEEP_SHAPES + EDGE_SHAPES):
-        assert lib.qk_lean_smem(*tile) == sweep.lean_smem_bytes(tile)
+        assert lib.qk_lean_smem(*tile, 0) == sweep.lean_smem_bytes(tile)

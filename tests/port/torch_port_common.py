@@ -63,6 +63,17 @@ def make_state(shape, seed=0, rough=False):
                      rho * eint])
 
 
+def with_scalars(U, n_scalars, n_mscalars, seed):
+    """U [6, ...] with `n_scalars` seeded scalar densities appended: mass
+    scalars as fractions of rho that sum to less than 1, passive ones as
+    rho times a value in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    frac = rng.random((n_scalars,) + U.shape[1:])
+    if n_mscalars:
+        frac = 0.2 + 0.3 * frac
+    return np.concatenate([U, frac * U[0]])
+
+
 def jax_opts(n, **kw):
     return jadv.HydroOptions(
         dx=(1.0 / n, 1.0 / n, 1.0 / n), eos=JEOS(gamma=1.4),
