@@ -39,7 +39,19 @@ card:
   K3 with the scalar), phase 15;
 - the radhydro shell's unigrid PLM deck (`decks/radhydro_shell_256.in`,
   256^3 f32), 10 steps: K1 (dmin only), K2 with PLM, K3 and K4 with PLM,
-  phase 16.
+  phase 16;
+- multigroup radhydro: RadMultigroupPulse (`decks/rad_multigroup_ppl.in` at
+  256^3 f32: 4 photon groups, PPL full spectrum, hydro on), 2 steps: K1-K3
+  on the 6 gas rows of the 22-row state, K6 over the 4 groups (one launch
+  an axis), the plain multigroup coupling; its device time by part, the
+  coupling's share and its Newton host syncs, phase 17.
+
+Phase 3 also holds K6 over 4 photon groups to its plain version at 256^3
+(rough seeded blocks; per axis, timed, and accumulated as
+`rad_transport_div` launches it) and over 2 and 4 groups at K4's edge
+shapes; phase 4 runs a step of RadMultigroupPulse at 32^3 on the card
+against the CPU in f32 (K6) and f64 (no kernel), and 3 steps of the 1D
+RadhydroPulseMGconst and RadhydroBB in f64 (no kernel).
 
 Besides, phase 4 runs Sedov, Orszag-Tang and RadhydroBench (both
 radiation configurations) at 32^3 and the dense AMR shell at 16^3 + 1
@@ -109,6 +121,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DECK = ROOT / "decks" / "benchmark_unigrid_256.in"
 SHELL_DECK = ROOT / "decks" / "radhydro_shell_256.in"
+MG_DECK = ROOT / "decks" / "rad_multigroup_ppl.in"
 
 KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
     "transverse": ("K1 precompute_transverse", "quokka_tpu_torch/csrc/transverse.cu",
@@ -153,6 +166,11 @@ KERNELS = {  # launch-count key -> (name, source, TPU kernel it replaces)
                              "quokka_tpu/hydro/pallas_sweep.py:1409"),
     "axis_flux plm": ("K2 compute_axis_flux, PLM", "quokka_tpu_torch/csrc/sweep_plm0.cu",
                       "quokka_tpu/hydro/pallas_sweep.py:1148"),
+    # K6 over the photon groups of the multigroup path (phase 17); its
+    # launch-count key is "rad_div"
+    "rad_div groups": ("K6 compute_rad_div, 4 photon groups",
+                       "quokka_tpu_torch/csrc/rad_sweep.cu",
+                       "quokka_tpu/radiation/pallas_sweep.py:115"),
 }
 AMR_KEYS = ("transverse", "axis_flux", "axis_flux_avg", "rad_source", "rad_axis_flux")
 HYDRO_KEYS = ("transverse", "axis_flux", "apply_update")
@@ -257,7 +275,8 @@ def run_cases(title, cases, timed, summary, failed, extra_of=None, plain_reps=5)
         s = summary[case.kernel]
         if timed(case):
             ms = kernel_check.time_ms(case.run_timed or case.run_kernel)
-            plain_ms = kernel_check.time_ms(case.run_plain, reps=plain_reps)
+            # the check has just run the plain version: no warm-up call
+            plain_ms = kernel_check.time_ms(case.run_plain, reps=plain_reps, warmup=False)
             nbytes, ops = case.cost()
             b_ms, b_by = kernel_check.bound_ms(nbytes, ops)
             s["ms"] += ms
@@ -410,6 +429,8 @@ def main() -> int:
     from quokka_tpu_torch.problems.shocktube import ShocktubeProblem
     from quokka_tpu_torch.problems import rayleigh_taylor
     from quokka_tpu_torch.problems.radhydro_shell import RadhydroShellProblem
+    from quokka_tpu_torch.problems.rad_multigroup import RadMultigroupPulseProblem
+    from quokka_tpu_torch.radiation import multigroup
 
     def release():
         """Free what the phase before left: reference cycles first (an AMR
@@ -825,7 +846,31 @@ def main() -> int:
                                           "T-dependent opacity": RoughOpacity()},
                                          dt_rad, "cuda"),
               lambda c: False, summary, failed)
-    del rwarm, rad_inputs, U
+    # K6 over the 4 photon groups of the multigroup path (phase 17): rough
+    # seeded blocks of 4 groups at its 256^3 (timed; per axis, and the three
+    # axes as rad_transport_div launches them), and over 2 and 4 groups at
+    # K4's edge shapes (extents 4 and 5, ragged tiles, orders 1-3)
+    mg_opts = dataclasses.replace(rad.opts, n_groups=4,
+                                  erad_floor=RadMultigroupPulseProblem.rad.Erad_floor)
+    R_mg = kernel_check.rough_rad_groups((n, n, n), 4, 31, "cuda", mg_opts.c)
+    mg_cases = list(kernel_check.k6_cases(R_mg, mg_opts, rwarm.grid.dx, " 4 groups"))
+    mg_aside = new_summary()
+    run_cases("K6 over 4 photon groups, rough seeded blocks at 256^3", [
+        c for c in mg_cases if "accumulated" not in c.label], lambda c: True, summary, failed)
+    run_cases("K6 over 4 photon groups at 256^3 as rad_transport_div launches it",
+              [c for c in mg_cases if "accumulated" in c.label], lambda c: True, mg_aside,
+              failed)
+    a = mg_aside["rad_div groups"]
+    summary["rad_div groups"]["max_abs_err"] = max(summary["rad_div groups"]["max_abs_err"],
+                                                   a["max_abs_err"])
+    print(f"  K6 over 4 groups, 3 axes accumulated at 256^3: kernel {a['ms']:.3f} ms, plain "
+          f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.3f} ms ({a['bytes'] / 1e9:.3f} GB, "
+          f"{a['ops'] / 1e9:.2f} GFLOP), library none")
+    run_cases("K6 over 2 and 4 photon groups at its edge shapes (extents 4 and 5, ragged "
+              "tiles, orders 1-3; per axis and accumulated)",
+              kernel_check.k6_group_edge_cases(rad.opts, "cuda"), lambda c: False, summary,
+              failed)
+    del rwarm, rad_inputs, U, R_mg, mg_cases
     release()
 
     # MHD: Orszag-Tang after 3 steps (timed), and a rough seeded state that
@@ -1310,6 +1355,56 @@ def main() -> int:
         gpu_vs_cpu(rad_finals[fused, "cuda"], rad_finals[fused, "cpu"],
                    f"config {cfg} GPU vs CPU", 5e-6, 5e-6)
     gpu_vs_cpu(rad_finals[1, "cuda"], rad_finals[0, "cuda"], "GPU config A vs B", 5e-6, 5e-6)
+
+    section("-- RadMultigroupPulse 32^3 (decks/rad_multigroup_ppl.in: 4 photon groups, PPL "
+            "full spectrum), 1 step: f32 GPU (K6 over the groups) vs CPU within rtol 5e-6 + "
+            "5e-6 x scale; f64 GPU vs CPU within 1e-12 x scale, no kernel launched; "
+            "RadhydroPulseMGconst (64 x 1 x 1, advected) and RadhydroBB (32 x 1 x 1) f64, 3 "
+            "steps, likewise")
+    from quokka_tpu_torch.problems import RadhydroBBProblem, RadhydroPulseMGconstProblem
+
+    mg_small = {}
+    pulse_1d = ("geometry.prob_lo = -512.0 0.0 0.0\ngeometry.prob_hi = 512.0 1.0 1.0\n"
+                "amr.n_cell = 64 1 1\ncfl = 0.8\nradiation.cfl = 0.8\nmax_timesteps = 3\n"
+                "verbose = 0\n")
+    bb_1d = ("geometry.prob_hi = 64.0 1.0 1.0\namr.n_cell = 32 1 1\ncfl = 0.8\n"
+             "radiation.cfl = 8.0\nmax_dt = 1.0\nmax_timesteps = 3\nverbose = 0\n")
+    for dev in ("cuda", "cpu"):
+        for prec in ("single", "double"):
+            reset_counts()
+            t0 = time.perf_counter()
+            sim = Simulation(RadMultigroupPulseProblem(), ParmParse.from_file(
+                str(MG_DECK), overrides=["amr.n_cell = 32 32 32", "max_timesteps = 1",
+                                         "verbose = 0", f"precision = {prec}"]), device=dev)
+            sim.set_initial_conditions()
+            sim.evolve()
+            mg_small[dev, prec] = (sim.U.double().cpu(), read_counts())
+            print(f"  {dev} {prec}: {sim.istep} steps t {sim.t:.9e} in "
+                  f"{time.perf_counter() - t0:.1f} s; K6 launches {read_counts()['rad_div']}")
+        reset_counts()
+        pulse = RadhydroPulseMGconstProblem()
+        pulse.v0 = 1.0e6
+        for key, prob, deck in (("mgconst", pulse, pulse_1d), ("bb", RadhydroBBProblem(), bb_1d)):
+            sim = Simulation(prob, ParmParse.from_string(deck), device=dev)
+            sim.set_initial_conditions()
+            sim.evolve()
+            mg_small[dev, key] = (sim.U.cpu(), None)
+        mg_small[dev, "1d launches"] = sum(read_counts().values())
+    if not mg_small["cuda", "single"][1]["rad_div"] > 0:
+        raise SystemExit("RadMultigroupPulse 32^3 f32 on the card launched no K6")
+    gpu_vs_cpu(mg_small["cuda", "single"][0], mg_small["cpu", "single"][0],
+               "RadMultigroupPulse 32^3 f32 GPU vs CPU", 5e-6, 5e-6)
+    gpu_vs_cpu(mg_small["cuda", "double"][0], mg_small["cpu", "double"][0],
+               "RadMultigroupPulse 32^3 f64 GPU vs CPU", 0.0, 1e-12)
+    gpu_vs_cpu(mg_small["cuda", "mgconst"][0], mg_small["cpu", "mgconst"][0],
+               "RadhydroPulseMGconst 64 x 1 x 1 f64 GPU vs CPU", 0.0, 1e-12)
+    gpu_vs_cpu(mg_small["cuda", "bb"][0], mg_small["cpu", "bb"][0],
+               "RadhydroBB 32 x 1 x 1 f64 GPU vs CPU", 0.0, 1e-12)
+    launched = {k: v for k, v in mg_small["cuda", "double"][1].items() if v}
+    if launched or mg_small["cuda", "1d launches"]:
+        raise SystemExit(f"a float64 multigroup run on the card launched a kernel: {launched}, "
+                         f"{mg_small['cuda', '1d launches']} in the 1D runs")
+    del mg_small, sim
 
     section("-- Orszag-Tang 32^3 f32, 5 steps: GPU (K8) vs CPU, windowed and host loops")
     mhd_finals = {}
@@ -1900,6 +1995,82 @@ def main() -> int:
         del sim
         release()
 
+    # ---- 17. the multigroup main path
+    phase("17. main path 12: RadMultigroupPulse 256^3 f32 (decks/rad_multigroup_ppl.in at "
+          "256^3: 4 photon groups, PPL full spectrum, hydro on, periodic), 2 steps (K1-K3 on "
+          "the gas rows, K6 over the 4 groups, the plain multigroup coupling)")
+    sim = Simulation(RadMultigroupPulseProblem(), ParmParse.from_file(
+        str(MG_DECK), overrides=["amr.n_cell = 256 256 256", "precision = single",
+                                 "max_timesteps = 2", "verbose = 1"]), device="cuda")
+    held = torch.cuda.memory_allocated() / 2**30
+    sim.set_initial_conditions()
+    lay = sim.layout
+    n_rad = lay.nvar - lay.nvar_hydro
+    print(f"held before the path: {held:.2f} GiB; state {tuple(sim.U.shape)}: the hydro "
+          f"kernels take its first {lay.nvar_hydro} rows (the gas), the {n_rad} radiation "
+          f"rows behind them go to K6 and the coupling; opacity model "
+          f"{sim._radiation.opts.opacity_model}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    multigroup.reset_sync_counts()
+    sim.evolve()
+    launches = read_counts()
+    syncs = dict(multigroup.sync_counts)
+    mg_launches = {"rad_div groups": launches["rad_div"]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nsub = sim._radiation.n_substeps(sim.dt_prev)
+    E_ok = [bool(torch.isfinite(sim.U[lay.rad_index(g, 0)]).all()
+                 and (sim.U[lay.rad_index(g, 0)] > 0).all()) for g in range(lay.n_groups)]
+    finite = bool(torch.isfinite(sim.U).all())
+    if sim.istep != 2 or not finite or not all(E_ok):
+        raise SystemExit(f"main path 12: {sim.istep} steps, finite state {finite}, each "
+                         f"group's E finite and positive {E_ok}")
+    wall, nsteps = sim.elapsed_walltime, sim.istep
+    # the device time of a step from its parts under the profiler, on the
+    # final state: the hydro half, and one radiation substep times the
+    # subcycle's nsub (each substep the same work at one dt); the coupling
+    # alone, one call of each stage
+    dt_rad = float(torch.tensor(sim.dt_prev / nsub, dtype=torch.float32))
+    hydro_k, _ = step_profile.device_ms(step_profile._parts(sim)["hydro half"], 1)
+    sub_k, _ = step_profile.device_ms(
+        lambda: sim._radiation.substep(sim.U, sim.t, dt_rad), 1)
+    by_kernel = {k: hydro_k.get(k, 0.0) + nsub * sub_k.get(k, 0.0)
+                 for k in set(hydro_k) | set(sub_k)}
+    dev_ms = sum(by_kernel.values())
+    coupling = sim._radiation._coupling(sim.U)
+    c_ms = sum(step_profile.device_ms(
+        lambda st=st: coupling(sim.U, None, dt_rad, st, sim._radiation.opts, sim.eos,
+                               sim.problem, lay.rad_start), 1)[0].get("plain torch", 0.0)
+        for st in (1, 2))
+    k6_ms = by_kernel.get("K6", 0.0)
+    print(f"wall time: {wall / nsteps * 1e3:.3f} ms a step over {nsteps} steps "
+          f"({wall:.3f} s, first step included), {nsub} radiation substeps a step, on {smi}")
+    print(f"device time of a step (torch.profiler: the hydro half + {nsub} x one radiation "
+          f"substep): {dev_ms:.3f} ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_kernel.items(),
+                                                         key=lambda kv: -kv[1])))
+    print(f"  the plain multigroup coupling: {c_ms:.3f} ms for its two stages on the final "
+          f"state, x {nsub} substeps = {c_ms * nsub:.3f} ms, {100 * c_ms * nsub / dev_ms:.1f}% "
+          f"of the step; K6 {k6_ms:.3f} ms, {100 * k6_ms / dev_ms:.1f}%")
+    print(f"  Newton host syncs: {syncs['newton']} and outer-loop syncs {syncs['outer']} in "
+          f"{syncs['calls']} coupling calls ({syncs['newton'] / max(syncs['calls'], 1):.2f} "
+          f"and {syncs['outer'] / max(syncs['calls'], 1):.2f} a call; a Newton test every "
+          f"{multigroup.DONE_CHECK_EVERY} iterations)")
+    print(f"peak device memory: {peak:.2f} GiB ({peak - held:.2f} GiB above what the phases "
+          "before held)")
+    print(f"each group's E finite and positive: {E_ok}; mass rel err "
+          f"{sim.conservation_rel_err[0]:.3e}")
+    print(f"launches in this path: {launches}")
+    missing = [k for k in HYDRO_KEYS + ("rad_div",) if launches[k] <= 0]
+    stray = [k for k in ("rad_source", "rad_stage1", "rad_stage2") if launches[k]]
+    if missing or stray or k6_ms <= 0.0:
+        raise SystemExit(f"main path 12: kernels not launched {missing}, single-group "
+                         f"kernels launched {stray}, K6 in the profiled step {k6_ms:.3f} ms")
+    if not abs(sim.conservation_rel_err[0]) < 1e-5:
+        raise SystemExit(f"mass conservation error {sim.conservation_rel_err[0]:.3e} >= 1e-5")
+    del sim, coupling
+    release()
+
     if failed:
         raise SystemExit(f"kernel mismatch: {failed}")
 
@@ -1916,6 +2087,7 @@ def main() -> int:
         rows.append({"name": kname, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": (form_rows[key] if key in form_rows else
+                                  mg_launches[key] if key in mg_launches else
                                   packed_launches[key] if key in ("axis_flux_corr",
                                                                   "row_gather") else
                                   lean_launches[key] if key == "axis_flux_lean" else
@@ -1927,7 +2099,7 @@ def main() -> int:
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": bound_by, "library_ms": s["library_ms"]})
-    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

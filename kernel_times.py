@@ -6,8 +6,8 @@ compared in one call on one card, in turns (parent, change, change, parent),
 each turn a process of its own:
 
     python3 kernel_times.py [--tree DIR] [--check]
-                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8,k2s,k2d,k6,k3,
-                                    plm,scalars]
+                            [--only k1,k4,k5,k2,k7,k9,k2c,k2e,k8,k2s,k2d,k6,k6g,
+                                    k3,plm,scalars]
                             [--shell FILE] [--tiles]
     python3 kernel_times.py --capture FILE
     python3 kernel_times.py --histogram --shell FILE
@@ -84,6 +84,10 @@ Kernels and inputs, made on the card from fixed seeds where not captured:
   (`compute_rad_div`) and the three axes as `radiation.system.
   rad_transport_div` computes them (a parent: three outputs and two
   PyTorch adds).
+- K6 over 4 photon groups (`--only k6g`): rough seeded blocks of 4 groups
+  at RadMultigroupPulse's 256^3, per axis (one launch over the groups) and
+  as `rad_transport_div` launches them; a tree whose K6 takes one group
+  says so and times nothing.
 - K3 (`apply_update`; `--only k3`): a seeded stage at 256^3 and on the
   hybrid layout's x-padded stage input (264 x 256^2, ng 4), as the tree's
   wrapper launches it.
@@ -1159,6 +1163,49 @@ def time_k6(torch, args, times, checks, errors):
     torch.cuda.empty_cache()
 
 
+def time_k6g(torch, args, times, checks, errors):
+    """K6 over 4 photon groups (`--only k6g`), at RadMultigroupPulse's 256^3
+    on rough seeded blocks of 4 groups (`kernel_check.rough_rad_groups`):
+    per axis (`compute_rad_div`, one launch over the groups) and the three
+    axes as `radiation.system.rad_transport_div` launches them; with --check
+    against the plain versions. A tree whose K6 takes one group says so and
+    times nothing."""
+    from quokka_tpu_torch import kernel_check
+    from quokka_tpu_torch.radiation import sweep as rsweep
+    from quokka_tpu_torch.radiation import system
+    from quokka_tpu_torch.radiation.system import RadOptions
+
+    if not hasattr(kernel_check, "rough_rad_groups"):
+        print("  this tree's K6 takes one photon group: k6g not timed", flush=True)
+        return
+    n = 256
+    opts = RadOptions(c=1.0e3, chat=1.0e2, arad=1.0, erad_floor=1e-12, n_groups=4)
+    R = kernel_check.rough_rad_groups((n, n, n), 4, 31, "cuda")
+    dx = (1.0 / n,) * 3
+    plain = [rsweep.rad_div_plain(R, d, opts, dx[d]) for d in range(3)]
+    for d in range(3):
+        key = f"K6 4 groups 256^3 axis {d}"
+        times[key] = kernel_check.time_ms(lambda d=d: rsweep.compute_rad_div(R, d, opts, dx[d]))
+        if args.check:
+            checks[key], errors[key], _ = kernel_check.compare(
+                rsweep.compute_rad_div(R, d, opts, dx[d]), plain[d])
+        print(f"  {key}: {times[key]:.3f} ms"
+              + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+              flush=True)
+    key = "K6 4 groups 256^3 rad_transport_div"
+    times[key] = kernel_check.time_ms(lambda: system.rad_transport_div(R, 0, opts, (0, 1, 2),
+                                                                       dx))
+    if args.check:
+        checks[key], errors[key], _ = kernel_check.compare(
+            system.rad_transport_div(R, 0, opts, (0, 1, 2), dx),
+            (plain[0] + plain[1]) + plain[2])
+    print(f"  {key}: {times[key]:.3f} ms"
+          + (f", max_abs {errors[key]:.3e} ok {checks[key]}" if args.check else ""),
+          flush=True)
+    del R, plain
+    torch.cuda.empty_cache()
+
+
 def dump_sweeps_k6(torch, out, only):
     """Add to `out`, with `k2s` or `k2d` in `only`, K2's sweeps with a
     divergence on seeded states at LEAN_DUMP_SHAPES (with and without
@@ -1757,6 +1804,8 @@ def main():
         time_sweeps(torch, args, times, checks, errors)
     if "k6" in only:
         time_k6(torch, args, times, checks, errors)
+    if "k6g" in only:
+        time_k6g(torch, args, times, checks, errors)
     if "k3" in only:
         time_k3(torch, args, times, checks, errors)
     if only & {"plm", "scalars"}:

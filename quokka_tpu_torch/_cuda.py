@@ -51,7 +51,7 @@ _SIGNATURES = {
                  _F, _F, _F, _F, _I, _I, _P],
     # radiation kernels: the last pointer before the stream is a host
     # `RadParams` (radiation/sweep.py), copied into the launch by value
-    "qk_rad_div": [_P, _P, _L, _L, _L, _I, _I, _P, _P],
+    "qk_rad_div": [_P, _P, _L, _L, _L, _I, _I, _I, _P, _P],
     "qk_rad_axis_flux": [_P, _P, _L, _L, _L, _L, _I, _P, _P],
     "qk_rad_source": [_P, _F, _I, _P, _P],  # a host `SourceViews` (radiation/source.py)
     "qk_rad_stage1": [_P, _P, _P, _P, _L, _L, _L, _F, _P, _P],

@@ -119,18 +119,22 @@ def compare(got, ref, rtol: float = RTOL, ulps: int = ULPS):
         per_comp = r.dim() >= 4 or (r.dim() == 3 and r.shape[0] == 6)  # state or hi plane
         if r.dim() > 4:  # [G, 4, X, Y, Z] radiation blocks: per component too
             g, r, fin = (a.reshape(-1, *a.shape[-3:]) for a in (g, r, fin))
-        comps = [(g[c], r[c], fin[c]) for c in range(r.shape[0])] if per_comp \
-            else [(g, r, fin)]
-        for gc, rc, fc in comps:
-            gf, rf = gc[fc], rc[fc]
-            if rf.numel() == 0:
-                continue
-            scale = rf.abs().max()
-            ulp = torch.nextafter(scale, torch.tensor(float("inf"), device=scale.device)) - scale
-            err = (gf - rf).abs()
-            ok = ok and bool((err <= rtol * rf.abs() + ulps * ulp).all())
+        if not per_comp:
+            g, r, fin = g[None], r[None], fin[None]
+        # components in chunks of about 2^27 values: many small components
+        # (K9's gathered blocks) take a few reductions, a large one its own
+        n = r.shape[0]
+        step = max(1, 2**27 // max(1, r[0].numel()))
+        for c0 in range(0, n, step):
+            gc, rc, fc = (a[c0:c0 + step].reshape(min(step, n - c0), -1) for a in (g, r, fin))
+            rabs = rc.abs().masked_fill(~fc, 0.0)
+            scale = rabs.amax(dim=1, keepdim=True)  # over the finite values
+            ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+            err = (gc - rc).abs().masked_fill(~fc, 0.0)
+            ok = ok and bool(((err <= rtol * rabs + ulps * ulp) | ~fc).all())
             max_abs = max(max_abs, float(err.max()))
-            max_rel = max(max_rel, float((err / rf.abs().clamp_min(1e-30)).max()))
+            max_rel = max(max_rel, float((err / rabs.clamp_min(1e-30)).max()))
+            del gc, rc, fc, rabs, err
     return ok, max_abs, max_rel
 
 
@@ -142,10 +146,12 @@ def _same_nonfinite(g: torch.Tensor, r: torch.Tensor, fin: torch.Tensor) -> bool
             and torch.equal(g[inf], r[inf]))
 
 
-def time_ms(fn: Callable[[], object], reps: int = 5) -> float:
+def time_ms(fn: Callable[[], object], reps: int = 5, warmup: bool = True) -> float:
     """Mean milliseconds per call on the current CUDA stream, after one
-    warm-up call (CUDA events around `reps` calls)."""
-    fn()
+    warm-up call unless the caller has just made one (`warmup=False`)
+    (CUDA events around `reps` calls)."""
+    if warmup:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -366,22 +372,33 @@ def rad_cases(U: torch.Tensor, rad_src, dt: float, opts, eos, problem,
                lambda: cost2, scaled=True)
 
 
+def k6_cost(R0: torch.Tensor, opts, axes: int = 1):
+    """(bytes, FP32 operations) of K6's function over `axes` axes on the
+    radiation block R0 [4G, X, Y, Z] of opts.n_groups groups: per cell and
+    group 16 B read and 16 B written (the three axes of `rad_transport_div`
+    read R0 and write the sum once; its y and z launches also read the
+    running sum, 16 B more a cell and group each, which the function does
+    not need), and OPS_K6_AXIS operations an axis."""
+    return 2 * _nbytes(R0), OPS_K6_AXIS * R0[0].numel() * opts.n_groups * axes
+
+
 def k6_cases(R0: torch.Tensor, opts, dx, tag: str = "") -> Iterator[Case]:
-    """K6 on the radiation block R0 [4, X, Y, Z]: per axis into a fresh
-    output (reads R0, writes the divergence), then the three axes as
-    `radiation.system.rad_transport_div` launches them, x into a fresh
-    output and y and z added onto it (the function reads R0 and writes the
-    sum once; the y and z launches also read the running sum), against the
-    plain version accumulated the same way, the JAX sum ((x + y) + z)."""
-    n = R0[0].numel()
+    """K6 on the radiation block R0 [4G, X, Y, Z] (opts.n_groups groups):
+    per axis into a fresh output (reads R0, writes the divergence), then the
+    three axes as `radiation.system.rad_transport_div` launches them, x
+    into a fresh output and y and z added onto it (the function reads R0 and
+    writes the sum once; the y and z launches also read the running sum),
+    against the plain version accumulated the same way, the JAX sum ((x +
+    y) + z)."""
+    key = "rad_div" if opts.n_groups == 1 else "rad_div groups"
     for d in range(3):
-        cost = (2 * _nbytes(R0), OPS_K6_AXIS * n)
-        yield Case("rad_div", f"K6 axis {d}{tag}",
+        cost = k6_cost(R0, opts)
+        yield Case(key, f"K6 axis {d}{tag}",
                    lambda d=d: rsweep.compute_rad_div(R0, d, opts, dx[d]),
                    lambda d=d: rsweep.rad_div_plain(R0, d, opts, dx[d]),
                    lambda cost=cost: cost)
-    cost = (2 * _nbytes(R0), 3 * OPS_K6_AXIS * n)
-    yield Case("rad_div", f"K6 3 axes accumulated{tag}",
+    cost = k6_cost(R0, opts, axes=3)
+    yield Case(key, f"K6 3 axes accumulated{tag}",
                lambda: system.rad_transport_div(R0, 0, opts, (0, 1, 2), dx),
                lambda: rsweep.rad_div_plain(R0, 2, opts, dx[2], acc=rsweep.rad_div_plain(
                    R0, 1, opts, dx[1], acc=rsweep.rad_div_plain(R0, 0, opts, dx[0]))),
@@ -1355,6 +1372,30 @@ def k6_edge_cases(opts, device, seed: int = 14) -> Iterator[Case]:
         for order in ((1, 2, 3) if i == 2 else (3,)):
             o = dataclasses.replace(opts, reconstruction_order=order)
             yield from k6_cases(R0, o, dx, f" {shape} order {order}")
+
+
+def rough_rad_groups(shape, groups: int, seed: int, device, c: float = 1.0e3) -> torch.Tensor:
+    """Seeded radiation block [4G, X, Y, Z] f32 of `groups` photon groups,
+    each the radiation of `rough_rad_state` with its own seed (E near the
+    floor beside E ~ 1, |f| -> 1: the donor-cell fallback fires in every
+    group)."""
+    return torch.cat([rough_rad_state(shape, seed + 101 * g, device, c)[source.RAD_START:]
+                      for g in range(groups)]).contiguous()
+
+
+def k6_group_edge_cases(opts, device, groups=(2, 4), seed: int = 40) -> Iterator[Case]:
+    """K6 over G photon groups (`k6_cases`: per axis and accumulated) on
+    rough blocks (`rough_rad_groups`) at K4_EDGE_SHAPES, PPM everywhere and
+    PLM and donor cell on the third shape, for each G of `groups`."""
+    import dataclasses
+
+    for G in groups:
+        for i, shape in enumerate(K4_EDGE_SHAPES):
+            R0 = rough_rad_groups(shape, G, seed + i, device, opts.c)
+            dx = tuple(1.0 / n for n in shape)
+            for order in ((1, 2, 3) if i == 2 else (3,)):
+                o = dataclasses.replace(opts, reconstruction_order=order, n_groups=G)
+                yield from k6_cases(R0, o, dx, f" G={G} {shape} order {order}")
 
 
 # K8's edge shapes: LEAN_EDGE_SHAPES' extents (every axis periodic)

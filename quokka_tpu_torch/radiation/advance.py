@@ -2,8 +2,8 @@
 
 Counterpart of `quokka_tpu.radiation.advance.RadiationAdvance` (reference
 `QuokkaSimulation::subcycleRadiationAtLevel`, ``src/QuokkaSimulation.hpp:
-1577-1916``) for one level, one device and one photon group on a periodic
-box. A substep is
+1577-1916``) for one level and one device on a periodic box of 1, 2 or 3
+active axes, with G >= 1 photon groups. A substep is
 
   1. the forward-Euler transport predict (fluxes of the old state),
   2. the stage-1 implicit matter coupling (gas advanced by IMEX_a32 dt),
@@ -11,12 +11,16 @@ box. A substep is
   4. the stage-2 implicit matter coupling ((1 - IMEX_a32) dt),
 
 run either as the two fused stage kernels of K4 (`radiation.fused_substep
-= 1`, the default, for an f32 state) or stage by stage (`= 0`, and any
-float64 state): K6 three times per transport evaluation, plain-torch
-predict / combine, K5 after each stage. A float64 state takes the plain
-versions of K6 and K5 on its own device, as the JAX package takes XLA.
-The number of substeps is ceil(dt_hydro / (CFL_rad dx / c_hat)) as in
-the reference (``:397-406``).
+= 1`, the default, where the JAX package's `fused_ok` holds: one group,
+three active axes, an f32 state) or stage by stage (anything else): the
+transport divergence (`system.rad_transport_div`: K6 per axis over every
+group for an f32 state with three axes), plain-torch predict / combine,
+and after each stage the coupling: K5 for one group and an f32 state, the
+plain multigroup coupling (`multigroup.add_source_terms_multi_group`, XLA
+in the JAX package) for G > 1. A float64 state takes the plain versions of
+K6 and K5 on its own device, as the JAX package takes XLA. The number of
+substeps is ceil(dt_hydro / (CFL_rad dx / c_hat)) as in the reference
+(``:397-406``).
 
 `LevelRadiation` is the radiation of one dense AMR level: the flux-dict
 formulation (K7) on the ghost-padded level, whose face fluxes feed the flux
@@ -24,7 +28,7 @@ registers.
 
 Not ported (NotImplementedError naming the key or the feature): walls and
 user boundaries for radiation, `radiation.wavespeed_correction`,
-`radiation.mixed_precision_coupling`, multigroup, dust.
+`radiation.mixed_precision_coupling`, dust, multigroup on AMR levels.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ import weakref
 import numpy as np
 import torch
 
+from .._numerics import div
 from ..registry import BC_PERIODIC, Problem
+from .multigroup import add_source_terms_multi_group, check_opacity_model
 from .source import source_update, source_update_plain
 from .substep import fused_substep
 from .system import RadOptions, add_fluxes_rk2, predict_step, rad_transport_div
@@ -76,48 +82,78 @@ class RadiationAdvance(_SimRef):
             max_substeps=pp.get_int("radiation.max_substeps", 10),
             include_work_term=bool(pp.get_int("radiation.include_work_term", 1)),
             n_groups=problem.physics.n_groups,
+            opacity_model=check_opacity_model(
+                pp.get_str("radiation.opacity_model", "piecewise_constant")),
         )
         # the deck keys of unported radiation features (wavespeed
-        # correction, mixed precision, multigroup, dust) raise in Simulation
+        # correction, mixed precision, dust) raise in Simulation
+        ism = getattr(problem, "ism", None)
         unsupported = {
             "radiation boundaries other than periodic": not all(
                 bc == BC_PERIODIC for d in range(3) for bc in problem.bcs.axis(d)),
-            "fewer than 3 active axes": sim.grid.active_axes != (0, 1, 2),
+            "the dust-gas coupling (radiation/dust.py)": bool(
+                getattr(ism, "enable_dust_gas_thermal_coupling_model", False)),
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(f"radiation: not ported yet: {bad}")
         self.rad_start = sim.layout.rad_start
-        self.fused = bool(pp.get_int("radiation.fused_substep", 1))
+        self.boundaries = tuple(rt.group_edges) if rt.group_edges else (0.0, math.inf)
+        # K4 where the JAX package's `fused_ok` holds (`quokka_tpu/radiation/
+        # advance.py:288-300`): one group, three active axes, periodic walls
+        self.fused = (bool(pp.get_int("radiation.fused_substep", 1))
+                      and self.opts.n_groups == 1 and sim.grid.active_axes == (0, 1, 2))
         # the default hook's zero source is passed as "no source"
         self._has_src = (type(problem).set_radiation_energy_source
                          is not Problem.set_radiation_energy_source)
 
     def _rad_src(self, time: float, U: torch.Tensor):
+        """The problem's radiation energy source: [X, Y, Z] for one group,
+        [G, X, Y, Z] for G (a 3D source split evenly among the groups,
+        `quokka_tpu/radiation/advance.py:246-254`); None without a hook."""
         if not self._has_src:
             return None
         src = self.sim.problem.set_radiation_energy_source(
             self.sim.grid, time, dtype=U.dtype, device=U.device)
-        return torch.as_tensor(src, dtype=U.dtype, device=U.device).contiguous()
+        src = torch.as_tensor(src, dtype=U.dtype, device=U.device)
+        G = self.opts.n_groups
+        if G > 1 and src.dim() == 3:
+            src = div(src[None].expand(G, *src.shape), G)
+        return src.contiguous()
+
+    def _coupling(self, U):
+        """The matter coupling of a stage, as the JAX package's
+        `source_update` picks it (`quokka_tpu/radiation/advance.py:
+        198-243`): the plain multigroup coupling for G > 1 (XLA there); K5
+        for one group and a float32 state; its plain version for any other
+        dtype, on the state's own device."""
+        if self.opts.n_groups > 1:
+            sim = self.sim
+            kB = sim.problem.eos_traits.boltzmann_constant
+
+            def multigroup(U, rad_src, dt, stage, opts, eos, problem, rs):
+                return add_source_terms_multi_group(U, rad_src, dt, stage, opts, eos,
+                                                    problem, rs, self.boundaries, kB)[0]
+            return multigroup
+        return source_update if U.dtype == torch.float32 else source_update_plain
 
     def substep_core(self, U, rad_src, dt: float):
-        """One substep stage by stage (`radiation.fused_substep = 0`)."""
+        """One substep stage by stage (`radiation.fused_substep = 0`, G > 1,
+        fewer than three axes, float64)."""
         sim, opts, rs = self.sim, self.opts, self.rad_start
         eos, problem = sim.eos, sim.problem
         dx, active = sim.grid.dx, sim.grid.active_axes
+        G = opts.n_groups
         shape = U.shape[1:]
-        # K5 for a float32 state; any other dtype takes its plain version on
-        # its own device, as the JAX package's `U.dtype == jnp.float32` test
-        # sends it to XLA (`quokka_tpu/radiation/advance.py:233`)
-        coupling = source_update if U.dtype == torch.float32 else source_update_plain
-        R0 = U[rs:].reshape(1, 4, *shape)
+        coupling = self._coupling(U)
+        R0 = U[rs:].reshape(G, 4, *shape)
         divF0 = rad_transport_div(U, rs, opts, active, dx)
         R1 = predict_step(R0, divF0, dt, opts)
-        U1 = torch.cat([U[:rs], R1.reshape(4, *shape)])
+        U1 = torch.cat([U[:rs], R1.reshape(4 * G, *shape)])
         U1 = coupling(U1, rad_src, dt, 1, opts, eos, problem, rs)
         divF1 = rad_transport_div(U1, rs, opts, active, dx)
-        R_new = add_fluxes_rk2(R0, U1[rs:].reshape(1, 4, *shape), divF0, divF1, dt, opts)
-        U2 = torch.cat([U1[:rs], R_new.reshape(4, *shape)])
+        R_new = add_fluxes_rk2(R0, U1[rs:].reshape(G, 4, *shape), divF0, divF1, dt, opts)
+        U2 = torch.cat([U1[:rs], R_new.reshape(4 * G, *shape)])
         return coupling(U2, rad_src, dt, 2, opts, eos, problem, rs)
 
     def substep(self, U, time: float, dt: float):

@@ -39,8 +39,13 @@ def source_update_plain(U, rad_src, dt: float, stage: int, opts: RadOptions,
         rad_start, counts)
 
 
-def check_coupling(opts: RadOptions, eos, rad_start: int) -> None:
-    """What the CUDA matter coupling (K4, K5) takes beyond the layout."""
+def check_coupling(opts: RadOptions, eos, rad_start: int, kernel: str) -> None:
+    """What the CUDA matter coupling (`kernel`: K4, K5) takes beyond the
+    layout: one photon group first (a G-group state would otherwise read
+    as passive scalars), a gamma-law EOS, beta_order 0 or 1, no scalars."""
+    if opts.n_groups != 1:
+        raise NotImplementedError(
+            f"{kernel} takes one photon group, got radiation n_groups = {opts.n_groups}")
     if eos.is_isothermal:
         raise NotImplementedError("the CUDA radiation coupling needs a gamma-law EOS")
     if opts.mixed_precision_coupling:
@@ -130,9 +135,7 @@ def _launch(views: _SourceViews, dt: float, stage: int, opts, eos, problem,
     from .._cuda import check, library
 
     lib = library()
-    check_coupling(opts, eos, rad_start)
-    if opts.n_groups != 1:
-        raise NotImplementedError("the CUDA radiation kernels take one photon group")
+    check_coupling(opts, eos, rad_start, "K5")
     if views.X * views.Y * views.Z >= 2**31 or views.B > 65535:
         raise ValueError("the CUDA matter coupling takes < 2^31 cells a block and "
                          "<= 65535 blocks")
@@ -180,7 +183,8 @@ def source_update(U, rad_src, dt: float, stage: int, opts: RadOptions, eos,
     case."""
     if not _on_cuda(U):
         return source_update_plain(U, rad_src, dt, stage, opts, eos, problem, rad_start)
-    check_kernel_inputs(opts, 4 + RAD_START, U, rad_src)
+    # pointwise: any extent (a 1D or 2D box's state too)
+    check_kernel_inputs(opts, 4 + RAD_START, U, rad_src, kernel="K5", min_extent=1)
     out = torch.empty_like(U)
     views = _SourceViews(_view5(U[None, :RAD_START], "gas"),
                          _view5(U[None, RAD_START:], "radiation"),

@@ -15,8 +15,10 @@ Greenough 2003 scheme as modified by He, Wibking & Krumholz 2024:
 This is the plain version of kernel K5 (`source.source_update`): whole-array
 loops with per-cell convergence masks. A converged cell is frozen, so each
 cell's result equals a per-cell loop that stops when that cell converges,
-which is what the CUDA kernel runs. Single group, beta_order 0 or 1, no
-dust; `mixed_precision_coupling` is not ported.
+which is what the CUDA kernel runs. Single group (`multigroup.py` holds
+the G-group coupling; `advance.RadiationAdvance._coupling` picks one, as
+the JAX package's `source_update` does), beta_order 0 or 1, no dust;
+`mixed_precision_coupling` is not ported.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def add_source_terms_single_group(U, rad_src, dt_radiation, stage: int,
     if opts.mixed_precision_coupling:
         raise NotImplementedError("radiation.mixed_precision_coupling is not ported yet")
     if opts.n_groups != 1:
-        raise NotImplementedError("multigroup radiation is not ported yet")
+        raise ValueError("add_source_terms_single_group takes one photon group; G > 1 "
+                         "goes to multigroup.add_source_terms_multi_group")
     c, chat = opts.c, opts.chat
     cscale = c / chat
     dt = dt_radiation if stage == 1 else (1.0 - IMEX_A32) * dt_radiation

@@ -80,8 +80,8 @@ def fused_stage1(U, rad_src, dt: float, opts: RadOptions, eos, problem, dx):
     from .._cuda import check, library
 
     lib = library()
-    check_coupling(opts, eos, U.shape[0] - 4)  # the gas block: passive scalars raise
-    check_kernel_inputs(opts, 4 + RAD_START, U, rad_src)
+    check_coupling(opts, eos, U.shape[0] - 4, "K4")  # passive scalars raise
+    check_kernel_inputs(opts, 4 + RAD_START, U, rad_src, kernel="K4")
     params = rad_params(opts, dx, eos, problem.opacity_laws())
     X, Y, Z = U.shape[1:]
     U1 = torch.empty_like(U)
@@ -103,8 +103,8 @@ def fused_stage2(U1, R0, div0, rad_src, dt: float, opts: RadOptions, eos,
     from .._cuda import check, library
 
     lib = library()
-    check_coupling(opts, eos, U1.shape[0] - 4)  # the gas block: passive scalars raise
-    check_kernel_inputs(opts, 4 + RAD_START, U1, R0, div0, rad_src)
+    check_coupling(opts, eos, U1.shape[0] - 4, "K4")  # passive scalars raise
+    check_kernel_inputs(opts, 4 + RAD_START, U1, R0, div0, rad_src, kernel="K4")
     if R0.shape[0] != 4 or div0.numel() != R0.numel():
         raise ValueError("R0 and divF0 hold the 4 radiation components")
     params = rad_params(opts, dx, eos, problem.opacity_laws())

@@ -5,15 +5,16 @@ kernels' constant block, input checks).
 Counterparts of `quokka_tpu.radiation.pallas_sweep`:
 
 - K6 `compute_rad_div_pallas`: the per-axis M1 transport divergence
-  [G, 4, X, Y, Z] of the conserved radiation block (`compute_rad_div`,
-  ``csrc/rad_sweep.cu``; plain version `rad_div_plain`);
+  [G, 4, X, Y, Z] of the conserved radiation block of G photon groups
+  (`compute_rad_div`, ``csrc/rad_sweep.cu``; plain version `rad_div_plain`);
 - K7 `compute_rad_axis_flux_pallas`: the per-axis M1 face flux
   [G, 4, X, Y, Z] that the AMR flux registers consume
   (`compute_rad_axis_flux`, ``csrc/rad_axis_flux.cu``; plain version
   `rad_axis_flux_plain`).
 
 Each wrapper takes its plain version for a CPU tensor and launches the CUDA
-kernel for a CUDA tensor, and raises for anything the kernel does not take.
+kernel for a CUDA tensor, and raises for anything the kernel does not take:
+K4, K5 and K7 take one photon group, K6 any number.
 
 `launch_counts` counts kernel launches of K4 (both stage kernels), K5, K6
 and K7, so a run can show that it went through them.
@@ -82,11 +83,16 @@ def rad_params(opts: RadOptions, dx: Sequence[float], eos=None, laws=None) -> Ra
     return p
 
 
-def check_kernel_inputs(opts: RadOptions, shape0: int, *tensors) -> None:
-    """What every radiation kernel takes: one group, float32, contiguous
-    [shape0, X, Y, Z] tensors on one device with extents >= 4."""
-    if opts.n_groups != 1:
-        raise NotImplementedError("the CUDA radiation kernels take one photon group")
+def check_kernel_inputs(opts: RadOptions, shape0: int, *tensors, kernel: str,
+                        groups: bool = False, min_extent: int = 4) -> None:
+    """What every radiation kernel takes: float32, contiguous [shape0, X, Y,
+    Z] tensors on one device with extents >= `min_extent` (4: a transport
+    tile's periodic halo; 1 for the pointwise coupling), and one photon group
+    unless `groups` (K6 alone takes G groups)."""
+    if opts.n_groups != 1 and not groups:
+        raise NotImplementedError(
+            f"{kernel} takes one photon group, got radiation n_groups = {opts.n_groups} "
+            "(multigroup runs the plain coupling and K6 over its groups)")
     if opts.use_wavespeed_correction:
         raise NotImplementedError("radiation.wavespeed_correction is not ported yet")
     if opts.reconstruction_order not in (1, 2, 3):
@@ -96,8 +102,8 @@ def check_kernel_inputs(opts: RadOptions, shape0: int, *tensors) -> None:
         raise NotImplementedError(
             f"the CUDA radiation kernel takes a [{shape0}, X, Y, Z] tensor, got "
             f"{tuple(ref.shape)}")
-    if min(ref.shape[1:]) < 4:
-        raise ValueError(f"every extent must be >= 4, got {tuple(ref.shape)}")
+    if min(ref.shape[1:]) < min_extent:
+        raise ValueError(f"every extent must be >= {min_extent}, got {tuple(ref.shape)}")
     for t in tensors:
         if t is None:
             continue
@@ -159,7 +165,7 @@ def compute_rad_axis_flux_batched(cons5: torch.Tensor, axis: int,
     lib = library()
     if cons5.dim() != 5:
         raise ValueError(f"expected [B, 4, X, Y, Z] blocks, got {tuple(cons5.shape)}")
-    check_kernel_inputs(opts, 4, cons5[0], cons5)
+    check_kernel_inputs(opts, 4, cons5[0], cons5, kernel="K7")
     B, _, X, Y, Z = cons5.shape
     if 4 * X * Y * Z >= 2**31 or B >= 2**16:
         raise ValueError(f"K7 takes blocks of 4 X Y Z < 2^31 values, B < 65536; got "
@@ -198,18 +204,23 @@ def rad_div_plain(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
 def compute_rad_div(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
                     dx_axis: float, acc: torch.Tensor | None = None) -> torch.Tensor:
     """K6 (`pallas_sweep.compute_rad_div_pallas`): the divergence
-    contribution of `axis`, [G, 4, X, Y, Z]; with `acc` [1, 4, X, Y, Z]
-    added onto it in place (one launch either way) and `acc` returned."""
+    contribution of `axis` of the conserved block [4G, X, Y, Z], [G, 4, X,
+    Y, Z]; with `acc` [G, 4, X, Y, Z] added onto it in place (one launch
+    either way, every group in it) and `acc` returned."""
     if not _on_cuda(cons_flat):
         return rad_div_plain(cons_flat, axis, opts, dx_axis, acc)
     from .._cuda import check, library
 
     lib = library()
-    check_kernel_inputs(opts, 4, cons_flat, acc)
+    G = opts.n_groups
+    check_kernel_inputs(opts, 4 * G, cons_flat, acc, kernel="K6", groups=True)
     X, Y, Z = cons_flat.shape[1:]
+    if 4 * G * X * Y * Z >= 2**31:
+        raise ValueError(f"K6 takes fewer than 2^31 values, got {G} groups of "
+                         f"{(4, X, Y, Z)}")
     if acc is not None:
-        if tuple(acc.shape) != (1, 4, X, Y, Z):
-            raise ValueError(f"acc has shape {tuple(acc.shape)}, expected {(1, 4, X, Y, Z)}")
+        if tuple(acc.shape) != (G, 4, X, Y, Z):
+            raise ValueError(f"acc has shape {tuple(acc.shape)}, expected {(G, 4, X, Y, Z)}")
         if acc.untyped_storage().data_ptr() == cons_flat.untyped_storage().data_ptr():
             raise ValueError("acc must not share memory with the state K6 reads")
     dx = [1.0, 1.0, 1.0]
@@ -217,8 +228,8 @@ def compute_rad_div(cons_flat: torch.Tensor, axis: int, opts: RadOptions,
     params = rad_params(opts, dx)
     out = acc
     if out is None:
-        out = torch.empty((1, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
-    err = lib.qk_rad_div(cons_flat.data_ptr(), out.data_ptr(), X, Y, Z, axis,
+        out = torch.empty((G, 4, X, Y, Z), dtype=cons_flat.dtype, device=cons_flat.device)
+    err = lib.qk_rad_div(cons_flat.data_ptr(), out.data_ptr(), X, Y, Z, G, axis,
                          int(acc is None), ctypes.addressof(params), _stream(cons_flat))
     check(err, "rad_div")
     launch_counts["rad_div"] += 1

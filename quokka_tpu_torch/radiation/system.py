@@ -10,12 +10,15 @@ transport stages (forward-Euler predict + weighted RK2 combine, IMEX_a22 =
 State layout per group: [E_rad, Fx, Fy, Fz]; primitives are [E_rad, fx, fy,
 fz] with f = F/(cE). Grouped arrays are R[G, 4, X, Y, Z]. Every stencil is
 a roll, so on the unpadded state the wrap is the periodic boundary: the
-port steps radiation ghost-free and periodic only.
+port steps radiation ghost-free and periodic only, over 1, 2 or 3 active
+axes.
 
 `rad_transport_div` is the transport divergence of the unigrid substep:
-kernel K6 (`sweep.compute_rad_div`) per axis for a float32 state, its plain
-version on the CPU and for any other dtype. The flux-dict formulation (`compute_rad_fluxes`, kernel K7
-per axis, + `rad_div_fluxes`) is what the dense AMR levels run
+kernel K6 (`sweep.compute_rad_div`, every photon group in one launch) per
+axis for a float32 state with three active axes, its plain version on the
+CPU, for any other dtype and on fewer axes, as the JAX package takes XLA
+there. The flux-dict formulation (`compute_rad_fluxes`, kernel K7 per
+axis, + `rad_div_fluxes`) is what the dense AMR levels run
 (`advance.LevelRadiation`): their flux registers consume the face fluxes.
 """
 
@@ -37,10 +40,12 @@ IMEX_A32 = 0.5
 @dataclass(frozen=True)
 class RadOptions:
     """Static radiation solver configuration (RadSystem_Traits +
-    radiation.* runtime knobs). Fields the port does not implement yet
-    (`use_wavespeed_correction`, `mixed_precision_coupling`, n_groups > 1,
-    an opacity model other than piecewise constant) are kept so a JAX
-    configuration carries across, and the solver refuses them."""
+    radiation.* runtime knobs): `n_groups` photon groups and the multigroup
+    `opacity_model` (reference OpacityModel, radiation_system.hpp:63-68:
+    piecewise_constant | ppl_fixed_slope | ppl_full_spectrum). The fields
+    the port does not implement yet (`use_wavespeed_correction`,
+    `mixed_precision_coupling`) are kept so a JAX configuration carries
+    across, and the solver refuses them."""
 
     c: float
     chat: float
@@ -194,15 +199,18 @@ def rad_div_fluxes(fluxes: dict, dx: Sequence[float]) -> torch.Tensor:
 
 def rad_transport_div(Ug: torch.Tensor, rad_start: int, opts: RadOptions,
                       active_axes: Sequence[int], dx: Sequence[float]) -> torch.Tensor:
-    """Total transport divergence [G, 4, X, Y, Z] of the unpadded state:
-    K6 per axis for a float32 state (its plain version for any other
-    dtype, on the state's own device, as the JAX package sends non-f32
-    states to XLA), the first axis into a fresh output and each further
-    axis added onto it in place, which is the JAX sum ((x + y) + z)."""
+    """Total transport divergence [G, 4, X, Y, Z] of the unpadded state over
+    the active axes: K6 per axis for a float32 state with three active axes
+    (`quokka_tpu/radiation/system.py:309-311`), its plain version on the
+    state's own device for any other dtype or fewer axes, as the JAX
+    package takes XLA there; the first axis into a fresh output and each
+    further axis added onto it in place, which is the JAX sum ((x + y) +
+    z)."""
     from .sweep import compute_rad_div, rad_div_plain
 
     cons_flat = Ug[rad_start:]
-    div_fn = compute_rad_div if cons_flat.dtype == torch.float32 else rad_div_plain
+    kernel = cons_flat.dtype == torch.float32 and tuple(active_axes) == (0, 1, 2)
+    div_fn = compute_rad_div if kernel else rad_div_plain
     out = None
     for d in active_axes:
         out = div_fn(cons_flat, d, opts, dx[d], acc=out)

@@ -11,7 +11,10 @@ the kernels evaluate per cell. The hooks of the JAX package
 (`compute_planck_opacity`, `compute_energy_mean_opacity`,
 `compute_flux_mean_opacity`, energy and flux defaulting to Planck) keep
 their names and evaluate the same laws; a problem may still override a
-hook for the plain path, and the kernels then refuse it.
+hook for the plain path, and the kernels then refuse it. Multigroup
+problems state their group opacities in the hooks
+`compute_group_opacities` and `define_opacity_exponents_and_lower_values`,
+which the plain multigroup coupling calls (no kernel evaluates them).
 """
 
 from __future__ import annotations
@@ -158,8 +161,9 @@ class Problem:
       - external_acceleration(grid, dtype, device) -> g[3, nx, ny, nz] or
         None (a static external acceleration, kicked after each hydro step)
       - radiation: the opacity laws (`planck_opacity`, and optionally
-        `energy_mean_opacity` / `flux_mean_opacity`) and
-        set_radiation_energy_source(grid, time, dtype, device)
+        `energy_mean_opacity` / `flux_mean_opacity`), the multigroup
+        opacity hooks and set_radiation_energy_source(grid, time, dtype,
+        device)
     """
 
     name: str = "problem"
@@ -210,6 +214,25 @@ class Problem:
         if self.flux_mean_opacity is not None:
             return self.flux_mean_opacity(rho, T)
         return self.compute_planck_opacity(rho, T)
+
+    # ---- multigroup opacity hooks (`quokka_tpu/registry.py:258-275`)
+    def define_opacity_exponents_and_lower_values(self, boundaries, rho, T):
+        """PPL opacity model: per-group power-law exponent alpha_g and
+        opacity at the group's lower edge kappa_g(nu_g), both [G, ...]
+        (reference `DefineOpacityExponentsAndLowerValues`,
+        ``src/radiation/radiation_system.hpp:280-282``). Default: a flat
+        spectrum (alpha = 0) at the piecewise-constant group opacities."""
+        k = self.compute_group_opacities(boundaries, rho, T)
+        return torch.zeros_like(k), k
+
+    def compute_group_opacities(self, boundaries, rho, T):
+        """Per-group opacities [G, ...] of the piecewise-constant model
+        (reference `DefineOpacityExponentsAndLowerValues` with
+        `piecewise_constant_opacity`). Default: the Planck opacity in every
+        group."""
+        G = len(boundaries) - 1
+        k = self.compute_planck_opacity(rho, T)
+        return k[None].expand(G, *k.shape)
 
     def opacity_laws(self) -> Tuple[PowerLawOpacity, PowerLawOpacity, PowerLawOpacity]:
         """(Planck, energy-mean, flux-mean) laws for the CUDA kernels. A

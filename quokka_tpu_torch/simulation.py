@@ -2,15 +2,16 @@
 
 Counterpart of `quokka_tpu.simulation.Simulation` (reference
 ``src/simulation.hpp:141`` and ``src/QuokkaSimulation.hpp:64``) for the
-hydro and single-group radhydro slices: the deck knobs, CFL timestep with
-the dt change limiter and the radhydro substep cap, the hydro retry ladder
-with the radiation subcycle after each accepted hydro sub-step, the
-conservation audit and the performance figure-of-merit (hydro
-zone-updates, as the reference counts them). The state lives on the
+hydro and radhydro slices (one or G photon groups): the deck knobs, CFL
+timestep with the dt change limiter and the radhydro substep cap, the
+hydro retry ladder with the radiation subcycle after each accepted hydro
+sub-step, the conservation audit and the performance figure-of-merit
+(hydro zone-updates, as the reference counts them). The state lives on the
 `device` the caller names, a CUDA device unless the caller asks for the
 CPU; there every hydro stage runs through K1-K3 (K1 and K2c, the lean
-step, above 272 cells an axis) and every radiation
-substep through K4 (or K5 and K6 stage by stage).
+step, above 272 cells an axis) and every radiation substep through K4 (or
+K5 and K6 stage by stage; G groups: K6 over every group and the plain
+multigroup coupling).
 
 Deck keys of subsystems the port does not have yet (gravity, cooling,
 chemistry, AMR, output, the unported radiation features) raise
@@ -51,7 +52,6 @@ _UNPORTED_KEYS = {
     "max_walltime": lambda v: bool(str(v)),
     "radiation.wavespeed_correction": lambda v: bool(int(v)),
     "radiation.mixed_precision_coupling": lambda v: bool(int(v)),
-    "radiation.opacity_model": lambda v: str(v) != "piecewise_constant",
     "radiation.dust_gas_interaction_coeff": lambda v: True,
 }
 _UNPORTED_PREFIXES = ("radiation.", "gravity.", "particles.")
@@ -60,6 +60,7 @@ _UNPORTED_PREFIXES = ("radiation.", "gravity.", "particles.")
 _RADIATION_KEYS = {
     "radiation.cfl", "radiation.max_substeps", "radiation.reconstruction_order",
     "radiation.include_work_term", "radiation.fused_substep", "radiation.use_pallas",
+    "radiation.opacity_model",
 }
 
 
@@ -81,9 +82,6 @@ class Simulation:
         if phys.gravity_enabled or phys.mhd_enabled:
             raise NotImplementedError(
                 f"problem {problem.name!r}: gravity and MHD are not ported yet")
-        if phys.radiation_enabled and phys.n_groups != 1:
-            raise NotImplementedError(
-                f"problem {problem.name!r}: multigroup radiation is not ported yet")
 
         n_cell = self.pp.get_list("amr.n_cell", [64, 1, 1])
         while len(n_cell) < 3:

@@ -139,3 +139,76 @@ def refuse_f64_rad_kernels():
     finally:
         for mod, attr, fn in reversed(saved):
             setattr(mod, attr, fn)
+
+
+def port_sim_like(case, U0=None, device="cpu"):
+    """The port's Simulation of a deck of tests/port/jax_multigroup.py's
+    CASES with its initial conditions set, or started from the reference's
+    initial state U0."""
+    from jax_multigroup import CASES
+
+    import quokka_tpu_torch
+    import quokka_tpu_torch.problems  # noqa: F401  (registers the catalog)
+    from quokka_tpu_torch.registry import get_problem
+
+    problem, deck, overrides, v0 = CASES[case]
+    if deck.endswith(".in"):
+        with open(deck) as f:
+            deck = f.read()
+    pp = quokka_tpu_torch.ParmParse.from_string(deck, overrides)
+    if problem == "RadhydroBenchMG":
+        prob = port_bench_mg()
+    else:
+        prob = get_problem(problem)()
+    if v0 is not None:
+        prob.v0 = v0
+    sim = quokka_tpu_torch.Simulation(prob, pp, device=device)
+    sim.set_initial_conditions()
+    if U0 is not None:
+        sim.U = torch.as_tensor(U0, dtype=sim.dtype, device=device).contiguous()
+    return sim
+
+
+def step_like(sim, dt):
+    """One step of `sim` at the reference's dt, as evolve() takes it."""
+    assert sim.advance_single_step(dt)
+    sim.t += dt
+    sim.dt_prev = dt
+    sim.istep += 1
+
+
+def scaled_gaps(got, ref):
+    """max |got - ref| / max |ref| per component."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    scale = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1)
+    gap = np.abs(got - ref).reshape(ref.shape[0], -1).max(axis=1)
+    return gap / np.where(scale > 0, scale, 1.0)
+
+
+def port_bench_mg():
+    """The port's twin of the 2-group RadhydroBench of tests/test_radhydro.py
+    (`jax_multigroup.bench_mg_problem`): the single-group initial state
+    split into 2 groups by the Planck fractions."""
+    from quokka_tpu_torch.indices import EGAS, RHO
+    from quokka_tpu_torch.problems.radhydro_bench import RadhydroBenchProblem
+    from quokka_tpu_torch.radiation.planck import planck_energy_fractions
+    from quokka_tpu_torch.registry import PhysicsTraits, RadTraits
+
+    class MG(RadhydroBenchProblem):
+        name = "RadhydroBenchMG"
+        physics = PhysicsTraits(hydro_enabled=True, radiation_enabled=True, n_groups=2)
+        rad = RadTraits(c_light=1.0e3, c_hat=1.0e2, radiation_constant=1.0,
+                        Erad_floor=1e-10, beta_order=1, group_edges=(1e-3, 1.0, 1e3))
+
+        def set_initial_conditions(self, grid, dtype=torch.float64, device="cuda"):
+            U = super().set_initial_conditions(grid, torch.float64, device)
+            layout = self.physics.layout()
+            E_tot = U[layout.rad_index(0, 0)].clone()
+            T = self.make_eos().tgas_from_eint(U[RHO], U[EGAS])
+            fr = planck_energy_fractions(self.rad.group_edges, T, 1.0)
+            U[layout.rad_index(0, 0)] = E_tot * fr[0]
+            U[layout.rad_index(1, 0)] = E_tot * fr[1]
+            return U.to(dtype)
+
+    return MG()
